@@ -1,0 +1,97 @@
+"""The PyTorch port stands alone: no module of it, nor ``chip_smoke.py``,
+imports JAX, flax or the JAX package; its configs copy the JAX package's
+field for field; its entry points refuse to run on a GPU that is absent
+unless the caller asks for the CPU."""
+
+import ast
+import dataclasses
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import u2tokenizer_torch
+from u2tokenizer_torch import config as t_config
+from u2tokenizer_torch.models.u2_model import U2CausalLM, resolve_device
+from u2tokenizer_tpu import config as j_config
+
+pytestmark = pytest.mark.fast
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = pathlib.Path(u2tokenizer_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "u2tokenizer_tpu")
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("__import__", "import_module") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_without_jax():
+    code = ("import sys, u2tokenizer_torch.models.generate, "
+            "u2tokenizer_torch.weights; "
+            "sys.exit(any(m.split('.')[0] in %r for m in sys.modules))"
+            % (FORBIDDEN,))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("name,variant", [
+    ("U2ModelConfig", "default"), ("U2ModelConfig", "tiny"),
+    ("LLMConfig", "tiny"), ("GenerationConfig", "default")])
+def test_config_copies_match(name, variant):
+    jcls, tcls = getattr(j_config, name), getattr(t_config, name)
+    jcfg = jcls.tiny() if variant == "tiny" else jcls()
+    tcfg = tcls.tiny() if variant == "tiny" else tcls()
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    if name == "U2ModelConfig":
+        assert tcfg.proj_out_num == jcfg.proj_out_num
+        assert tcfg.vision.patch_grid == jcfg.vision.patch_grid
+        back = tcls.from_dict(dataclasses.asdict(jcfg))
+        assert back == tcfg
+
+
+def test_entry_point_needs_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = t_config.U2ModelConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        U2CausalLM(cfg)
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    model = U2CausalLM(cfg, dtype=torch.float32, device="cpu")
+    assert model.device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_gpu(tmp_path):
+    """Without a CUDA device, and alone in a directory without the port,
+    chip_smoke.py exits non-zero and prints no result line."""
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd is tmp_path:
+            shutil.copy(ROOT / "chip_smoke.py", script)
+        run = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env={"CUDA_VISIBLE_DEVICES": "",
+                                  "PATH": "/usr/bin:/bin"})
+        assert run.returncode != 0
+        assert '"ok"' not in run.stdout

@@ -1,0 +1,72 @@
+"""Move the JAX package's parameters into the port's modules.
+
+``load_flax_params(model, flat)`` takes the flat dict that
+``flax.traverse_util.flatten_dict(params["params"], sep="/")`` gives
+(``{"a/b/c": array}``, numpy or any array numpy can read) and copies every
+entry into the parameter of the same path. The port's module tree mirrors
+the flax tree, so the path maps one to one, with three renames:
+
+  * ``name_<i>`` (flax's list naming) -> ``name.<i>`` (an ``nn.ModuleList``);
+  * a ``Dense`` kernel (in, out) -> ``weight`` (out, in), transposed;
+  * a ``LayerNorm`` ``scale`` -> ``weight``.
+
+Every other leaf keeps its name and layout. Values are cast to each
+parameter's dtype. The load is strict: an entry with no parameter, a shape
+that differs, or a parameter left unfilled raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.layers import Dense, LayerNorm
+
+_LIST_ITEM = re.compile(r"(.+)_(\d+)$")
+
+
+def torch_name(flax_path: str, modules: Mapping[str, nn.Module]):
+    """Flax parameter path -> (torch parameter name, transpose?)."""
+    *parents, leaf = flax_path.split("/")
+    parts = []
+    for part in parents:
+        m = _LIST_ITEM.match(part)
+        prefix = ".".join(parts + [m.group(1)]) if m else None
+        if m and isinstance(modules.get(prefix), nn.ModuleList):
+            parts += [m.group(1), m.group(2)]
+        else:
+            parts.append(part)
+    owner = modules.get(".".join(parts))
+    transpose = False
+    if leaf == "kernel" and isinstance(owner, Dense):
+        leaf, transpose = "weight", True
+    elif leaf == "scale" and isinstance(owner, LayerNorm):
+        leaf = "weight"
+    return ".".join(parts + [leaf]), transpose
+
+
+@torch.no_grad()
+def load_flax_params(model: nn.Module, flat: Mapping[str, object]) -> None:
+    modules = dict(model.named_modules())
+    params = dict(model.named_parameters())
+    filled = set()
+    for path, value in flat.items():
+        name, transpose = torch_name(path, modules)
+        if name not in params:
+            raise KeyError(f"{path}: the port has no parameter {name!r}")
+        src = torch.from_numpy(np.array(value, dtype=np.float32))
+        if transpose:
+            src = src.t()
+        dst = params[name]
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{path}: shape {tuple(src.shape)} does not fit "
+                             f"{name} {tuple(dst.shape)}")
+        dst.copy_(src.to(dtype=dst.dtype, device=dst.device))
+        filled.add(name)
+    missing = sorted(set(params) - filled)
+    if missing:
+        raise KeyError(f"parameters with no flax counterpart: {missing}")
