@@ -8,20 +8,32 @@ Run from the root of a checkout. It
   1. prints the card's name and power limit (nvidia-smi) and builds the
      hand-written kernels from ``u2tokenizer_torch/csrc`` with nvcc;
   2. checks each kernel against its plain PyTorch version on the card at
-     the shapes the serving path gives it, with ragged lengths in one row,
-     shows that the same limits reject a mask off by one key, and times the kernel, the plain version and, where one PyTorch call
+     the shapes the serving and training paths give it, with ragged lengths
+     in one row, shows that the same limits reject a mask off by one key,
+     and times the kernel, the plain version and, where one PyTorch call
      computes the same function, that call (CUDA events, median of 7);
   3. drives the serving path once: full-width μ²Qwen3-1.7B with random
-     weights from a fixed seed, bf16, int8 KV cache, 4 CT volumes of
+     weights from a fixed seed cast to bf16, int8 KV cache, 4 CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (one row 900), greedy decode of
      768 tokens; asserts the output and that every kernel ran on that path
      the expected number of times; then profiles 8 decode steps
      (torch.profiler: the card's busy share, kernels per step);
   4. checks a reduced-depth, full-width model on the card against the same
      weights run in fp32 on the CPU through the plain versions;
-  5. prints one JSON line per kernel table, the card line, and last
+  5. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
+     parameters and bf16 compute, AdamW at the ``TrainConfig`` defaults,
+     decoder layers rematerialised, 6 steps of ``run_training`` on one
+     seeded (1, 8, 32, 256, 256) volume and a 1024-token row (900 valid),
+     a checkpoint at the end; asserts finite, falling loss, moving
+     parameters and the kernel launches of every step; profiles one step;
+  6. runs one train step of the reduced-depth model on the card and on the
+     CPU from the same weights and compares the loss and each parameter's
+     gradient; shows that the same limits reject planted faults of the
+     flash backward's wiring;
+  7. prints one JSON line per kernel table, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
+Float32 matrix products run in full fp32 (TF32 off for matmuls and cuDNN).
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is not importable, or when any check fails.
 """
@@ -29,12 +41,17 @@ port is not importable, or when any check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
+import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
@@ -51,11 +68,42 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # covers the typical |ref| of 0.04. A one-key change to the mask moves
 # outputs by more, and each check below shows it: the kernel must fail
 # these limits against a plain version whose mask is off by one key.
+#
+# The backward kernels take the same inputs as their plain versions (the
+# plain lse and dd), so each is held alone. K4a's lse is fp32 from fp32 sums
+# of exact bf16 products, as in its plain version: atol 1e-4 and rtol 1e-5
+# cover summation order and the fast exp/log on |lse| < 10; a key more or
+# less moves some rows' lse by over 1e-2. K4b and K4c round P and dS to
+# bf16 before their products, where the plain versions (like the TPU
+# kernel) keep them fp32: two errors of up to 2^-9 relative on each term,
+# so mtol = 2^-8 of the terms' absolute sum (sum |dS||K| s for dq,
+# sum |dS||Q| s for dk, sum P|dO| for dv); their bf16 outputs differ by
+# about one ulp (rtol); atol 1e-3 covers outputs near zero.
 TOL = {"flash_fwd_noncausal": (4e-3, 1e-2, 2.0 ** -8),
        "flash_fwd_causal": (4e-3, 1e-2, 2.0 ** -8),
-       "decode_attention_int8": (4e-3, 1e-2, 0.0)}
+       "decode_attention_int8": (4e-3, 1e-2, 0.0),
+       "flash_bwd_lse": (1e-4, 1e-5, 0.0),
+       "flash_bwd_dq": (1e-3, 1e-2, 2.0 ** -8),
+       "flash_bwd_dkv": (1e-3, 1e-2, 2.0 ** -8)}
 PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 768, 4, 8
 RAGGED = 900               # the last row's prompt length
+TRAIN_STEPS = 6
+TRAIN_VALID, TRAIN_PROMPT = 900, 320  # the training row: valid, unlabelled
+# Train step of the reduced model, card (bf16 compute) against CPU (fp32),
+# held parameter by parameter: the cosine of each gradient to its fp32
+# counterpart and the ratio of their norms. bf16 rounds every activation
+# and gradient to 2^-9 relative; those errors average out in the loss and
+# in most leaves' gradients. The limits sit between the sound step's worst
+# leaf and the planted faults of the backward's wiring (``planted_faults``),
+# and the check fails unless each fault is rejected. Left out (and
+# reported) are the leaves that ``judged`` names: the μ²tokenizer's key
+# biases, whose gradient is zero in exact arithmetic (softmax is invariant
+# to the q.b_k they add to a row of scores) and rounding noise in both
+# runs; and its aggregator's queries (TTA layers, query tokens), whose
+# gradient reaches the loss only through the μ²tokenizer's attention
+# softmaxes over bf16 scores, and which are as far off the CPU's when the
+# card runs the plain attention in place of the kernels.
+TRAIN_LOSS_TOL, TRAIN_COS_MIN, TRAIN_NORM_TOL = 1e-3, 0.995, 3e-2
 
 
 def log(*args):
@@ -127,11 +175,12 @@ def compare(torch, out, ref, name: str, mutants, mass=None) -> dict:
             "off_by_one_key": caught}
 
 
-def check_flash(torch, F, fa, causal: bool):
-    """K1 at the ViT's call (8 chunks, 2049 tokens, 12 heads of 64, q/k/v
-    strided views of the fused qkv) or K2 at the prefill (4 rows, 1024
-    tokens, 16 q / 8 kv heads of 128)."""
-    g = torch.Generator(device="cuda").manual_seed(1 + causal)
+def attention_inputs(torch, causal: bool, seed: int):
+    """q, k, v and lens at a call of the main paths: the ViT's (8 chunks,
+    2049 tokens, 12 heads of 64, q/k/v strided views of the fused qkv,
+    lens (2049 x7, 1777)) or the decoder's (4 rows, 1024 tokens, 16 q / 8
+    kv heads of 128, lens (1024 x3, 900))."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     if causal:
         b, s, h, hkv, d = BATCH, PROMPT, 16, 8, 128
         q = torch.randn(b, s, h, d, generator=g, device="cuda",
@@ -141,13 +190,28 @@ def check_flash(torch, F, fa, causal: bool):
         lens = [s] * (b - 1) + [RAGGED]
     else:
         b, s, h, d = VISION_MICROBATCH, 2049, 12, 64
-        hkv = h
         qkv = torch.randn(b, s, 3 * h * d, generator=g, device="cuda",
                           dtype=torch.bfloat16)
         q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
                    for i in range(3))
         lens = [s] * (b - 1) + [1777]
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k, v, lens, lens_t, g
+
+
+def visible_pairs(causal: bool, s: int, lens) -> int:
+    """(query, key) pairs the mask lets through, per head: query row i
+    sees min(i+1, len) keys (causal) or len keys."""
+    if causal:
+        return sum(sum(min(i + 1, n) for i in range(s)) for n in lens)
+    return s * sum(lens)
+
+
+def check_flash(torch, F, fa, causal: bool):
+    """K1 at the ViT's call or K2 at the prefill (``attention_inputs``)."""
+    q, k, v, lens, lens_t, _ = attention_inputs(torch, causal, 1 + causal)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
     name = fa.KERNELS[int(causal)]
     out = fa.flash_attention(q, k, v, lens_t, causal=causal)
     ref = fa.flash_attention_reference(q, k, v, lens_t, causal=causal)
@@ -173,13 +237,8 @@ def check_flash(torch, F, fa, causal: bool):
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=hkv != h))
 
-    # work this data needs: query row i sees min(i+1, len) keys (causal)
-    # or len keys; each tensor is read or written once
-    if causal:
-        seen = sum(sum(min(i + 1, n) for i in range(s)) for n in lens)
-    else:
-        seen = s * sum(lens)
-    flops = 4.0 * d * h * seen
+    # work this data needs; each tensor is read or written once
+    flops = 4.0 * d * h * visible_pairs(causal, s, lens)
     nbytes = 2.0 * b * s * d * (2 * h + 2 * hkv)
     bms, by = bound_ms(flops, nbytes)
     return {"name": name, "route": "cuda",
@@ -191,6 +250,116 @@ def check_flash(torch, F, fa, causal: bool):
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms, "check": check,
             "shape": {"q": list(q.shape), "k": list(k.shape), "lens": lens}}
+
+
+def check_flash_bwd(torch, F, fa, causal: bool):
+    """K4a, K4b and K4c at the training path's calls (shapes of
+    ``attention_inputs``, dO from a seeded generator), each against its
+    plain version on the same lse and dd. Returns three kernel entries;
+    their ``library_ms`` is SDPA's whole backward (dq, dk and dv together)
+    with the same mask."""
+    q, k, v, lens, lens_t, g = attention_inputs(torch, causal, 4 + causal)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    scale = 1.0 / d ** 0.5
+    do = torch.randn(b, s, h, d, generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    out = fa.flash_attention_reference(q, k, v, lens_t, causal=causal)
+    dd = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    kw = dict(causal=causal, scale=scale)
+    lse_ref = fa.flash_bwd_lse_reference(q, k, lens_t, **kw)
+    args = (q, k, v, do, lse_ref, dd)
+
+    lse = fa.flash_bwd_lse(q, k, lens_t, **kw)
+    dq = fa.flash_bwd_dq(*args, lens_t, **kw)
+    dk, dv = fa.flash_bwd_dkv(*args, lens_t, **kw)
+    dq_ref = fa.flash_bwd_dq_reference(*args, lens_t, **kw)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*args, lens_t, **kw)
+    p, ds = fa.flash_bwd_probs(*args, lens_t, **kw)
+    qg = q.float().abs().reshape(b, s, hkv, h // hkv, d)
+    dog = do.float().abs().reshape(b, s, hkv, h // hkv, d)
+    mass_dq = (torch.einsum("bhgqk,bkhd->bqhgd", ds.abs(), k.float().abs())
+               * scale).reshape(b, s, h, d)
+    mass_dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.abs(), qg) * scale
+    mass_dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    del p, ds, qg, dog
+    mutants = {"lse": {}, "dq": {}, "dk": {}, "dv": {}}
+    for shift in (-1, 1):
+        off = lens_t.clone()
+        off[-1] += shift
+        label = f"lens[-1]{shift:+d}"
+        mutants["lse"][label] = fa.flash_bwd_lse_reference(q, k, off, **kw)
+        mutants["dq"][label] = fa.flash_bwd_dq_reference(*args, off, **kw)
+        mutants["dk"][label], mutants["dv"][label] = (
+            fa.flash_bwd_dkv_reference(*args, off, **kw))
+    torch.cuda.synchronize()
+    checks = {
+        "lse": compare(torch, lse, lse_ref, "flash_bwd_lse", mutants["lse"]),
+        "dq": compare(torch, dq, dq_ref, "flash_bwd_dq", mutants["dq"],
+                      mass_dq),
+        "dk": compare(torch, dk, dk_ref, "flash_bwd_dkv", mutants["dk"],
+                      mass_dk),
+        "dv": compare(torch, dv, dv_ref, "flash_bwd_dkv", mutants["dv"],
+                      mass_dv)}
+    del mutants, mass_dq, mass_dk, mass_dv
+    scale_of = {name: {"max_abs_ref": ref.float().abs().max().item(),
+                       "mean_abs_ref": ref.float().abs().mean().item()}
+                for name, ref in (("lse", lse_ref), ("dq", dq_ref),
+                                  ("dk", dk_ref), ("dv", dv_ref))}
+
+    ms = {"lse": time_ms(torch, lambda: fa.flash_bwd_lse(q, k, lens_t, **kw)),
+          "dq": time_ms(torch, lambda: fa.flash_bwd_dq(*args, lens_t, **kw)),
+          "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(*args, lens_t,
+                                                         **kw))}
+    plain_ms = {
+        "lse": time_ms(torch, lambda: fa.flash_bwd_lse_reference(
+            q, k, lens_t, **kw), reps=3),
+        "dq": time_ms(torch, lambda: fa.flash_bwd_dq_reference(
+            *args, lens_t, **kw), reps=3),
+        "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_reference(
+            *args, lens_t, **kw), reps=3)}
+    keys = torch.arange(s, device="cuda")
+    mask = (keys[None, :] < lens_t[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (keys[None, :] <= keys[:, None])[None, None]
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                       enable_gqa=hkv != h)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True))
+    del o, qt, kt, vt
+
+    seen = visible_pairs(causal, s, lens)
+    q_bytes, kv_bytes, stat_bytes = 2.0 * b * s * h * d, \
+        2.0 * b * s * hkv * d, 4.0 * b * h * s
+    work = {"lse": (2.0 * d * h * seen, q_bytes + kv_bytes + stat_bytes),
+            "dq": (6.0 * d * h * seen,
+                   3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes),
+            "dkv": (8.0 * d * h * seen,
+                    2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes)}
+    shape = {"q": list(q.shape), "k": list(k.shape), "lens": lens,
+             "causal": causal}
+    entries = []
+    for key, name, line, err in (
+            ("lse", "flash_bwd_lse", 163, checks["lse"]["max_abs_err"]),
+            ("dq", "flash_bwd_dq", 204, checks["dq"]["max_abs_err"]),
+            ("dkv", "flash_bwd_dkv", 245, max(checks["dk"]["max_abs_err"],
+                                              checks["dv"]["max_abs_err"]))):
+        bms, by = bound_ms(*work[key])
+        parts = ("dk", "dv") if key == "dkv" else (key,)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "u2tokenizer_torch/csrc/flash_bwd.cu",
+            "replaces": f"u2tokenizer_tpu/ops/flash_attention.py:{line}",
+            "max_abs_err": err, "ms": ms[key], "plain_ms": plain_ms[key],
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "library_call": "SDPA backward: dq, dk and dv together",
+            "check": {part: checks[part] for part in parts},
+            "ref_scale": {part: scale_of[part] for part in parts},
+            "shape": shape})
+    return entries
 
 
 def check_decode(torch, da, attn):
@@ -254,13 +423,15 @@ def check_decode(torch, da, attn):
 def drive_main_path(torch, max_new: int):
     from u2tokenizer_torch.config import GenerationConfig, U2ModelConfig
     from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
+    from u2tokenizer_torch.models.layers import cast_for_inference
     from u2tokenizer_torch.models.u2_model import U2CausalLM
     from u2tokenizer_torch.ops import decode_attention as da
     from u2tokenizer_torch.ops import flash_attention as fa
 
     cfg = U2ModelConfig()  # μ²Qwen3-1.7B, full width and depth
     t0 = time.perf_counter()
-    model = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    model = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
+                                          device="cuda", seed=0))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
 
@@ -319,6 +490,21 @@ def drive_main_path(torch, max_new: int):
             "decode_profile": profile}
 
 
+def device_time(torch, prof):
+    """The kernels a profile saw on the card, and their summed time in us
+    by the first 90 characters of their names; the ranges that
+    record_function marks on the card's timeline (the optimizer step's,
+    say) span kernels and are left out."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    by_name = {}
+    for e in kernels:
+        name = e.name[:90]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    return kernels, by_name
+
+
 def profile_decode(torch, generate, embeds, prompt_len, steps: int = 8):
     """torch.profiler over ``steps`` decode steps (after 2 unprofiled
     ones): the card's busy share of the wall clock, kernels launched per
@@ -336,19 +522,28 @@ def profile_decode(torch, generate, embeds, prompt_len, steps: int = 8):
                               range(2, 2 + steps))
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    kernels, by_name = device_time(torch, prof)
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
             "device_ms_per_step": busy_us / steps / 1e3,
             "device_busy_share": busy_us / wall_us,
             "kernels_per_step": len(kernels) / steps,
-            "top_device_ms_per_step": {n[:90]: t / steps / 1e3
+            "top_device_ms_per_step": {n: t / steps / 1e3
                                        for n, t in top}}
+
+
+def reduced_config(num_chunks: int):
+    """μ²Qwen3-1.7B at full width, cut to 2 ViT, 1 μ²tokenizer and 2
+    decoder layers and ``num_chunks`` depth chunks."""
+    from u2tokenizer_torch.config import U2ModelConfig
+
+    base = U2ModelConfig()
+    return dataclasses.replace(
+        base, num_chunks=num_chunks,
+        vision=dataclasses.replace(base.vision, num_layers=2),
+        u2t=dataclasses.replace(base.u2t, num_layers=1),
+        llm=dataclasses.replace(base.llm, num_layers=2))
 
 
 def check_reference(torch):
@@ -356,19 +551,16 @@ def check_reference(torch):
     and 4 chunks: the card (bf16, kernels) against the CPU (fp32, plain
     versions) on the same weights. Compares the prefill's last-position
     logits and reports greedy token agreement over 4 decode steps."""
-    from u2tokenizer_torch.config import (GenerationConfig, U2ModelConfig)
+    from u2tokenizer_torch.config import GenerationConfig
     from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
+    from u2tokenizer_torch.models.layers import cast_for_inference
     from u2tokenizer_torch.models.u2_model import U2CausalLM
 
-    base = U2ModelConfig()
-    cfg = dataclasses.replace(
-        base, num_chunks=4,
-        vision=dataclasses.replace(base.vision, num_layers=2),
-        u2t=dataclasses.replace(base.u2t, num_layers=1),
-        llm=dataclasses.replace(base.llm, num_layers=2))
+    cfg = reduced_config(num_chunks=4)
     b, s = 2, 384
     cpu = U2CausalLM(cfg, dtype=torch.float32, device="cpu", seed=1)
-    gpu = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=2)
+    gpu = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
+                                        device="cuda", seed=2))
     gpu.load_state_dict(cpu.state_dict())
 
     g = torch.Generator().manual_seed(1)
@@ -400,6 +592,335 @@ def check_reference(torch):
             "tokens_gpu": tok_out.tolist()}
 
 
+def training_batch(torch, cfg, seq: int, valid, prompt: int, seed: int = 0):
+    """A host batch as the dataset gives it: ``len(valid)`` rows of ``seq``
+    tokens (row r valid for ``valid[r]``, right-padded to the model's
+    max length), labels -100 over the image rows, the first ``prompt``
+    tokens and the padding; volumes, ids and question ids from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    b = len(valid)
+    d, h, w = cfg.vision.input_spatial
+    vocab = cfg.llm.vocab_size
+    ids = torch.randint(0, vocab, (b, seq), generator=g)
+    mask = torch.arange(seq)[None, :] < torch.tensor(valid)[:, None]
+    labels = torch.where(mask, ids, torch.full_like(ids, -100))
+    labels[:, :prompt] = -100
+    return {"images": torch.randn(b, cfg.num_chunks, d, h, w, generator=g),
+            "input_ids": ids, "question_ids": torch.randint(
+                0, vocab, (b, 64), generator=g),
+            "attention_mask": mask.to(torch.int32), "labels": labels}
+
+
+def drive_training(torch, fa, da, steps: int):
+    """SFT of full-width μ²Qwen3-1.7B through ``make_trainer`` and
+    ``run_training``: ``steps`` steps on one seeded batch, a checkpoint at
+    the end into a temporary directory, one more step profiled."""
+    from u2tokenizer_torch.config import TrainConfig, U2ModelConfig
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.train.loop import MetricLogger, run_training
+    from u2tokenizer_torch.train.sft import make_trainer
+
+    cfg = U2ModelConfig()
+    with tempfile.TemporaryDirectory() as out:
+        tcfg = TrainConfig(max_steps=steps, log_steps=1, output_dir=out)
+        t0 = time.perf_counter()
+        model = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0,
+                           remat=tcfg.remat)
+        state, train_step = make_trainer(model, tcfg, steps)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        batch = training_batch(torch, cfg, tcfg.model_max_length,
+                               [TRAIN_VALID], TRAIN_PROMPT)
+        probes = {"vision": model.vision_tower.vision_tower.blocks[0].attn.qkv
+                  .weight, "llm": model.llm.model.layers[0].mlp.down_proj
+                  .weight, "embed": model.llm.model.embed_tokens}
+        snap = lambda: {k: p.detach()[:4].clone() for k, p in probes.items()}
+        snaps, times = [snap()], []
+
+        def timed_step(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            snaps.append(snap())
+            return state, metrics
+
+        for name in fa.launches:
+            fa.launches[name] = 0
+        da.launches[da.KERNEL] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = run_training(tcfg, state, timed_step,
+                             lambda epoch: itertools.repeat(batch, steps),
+                             logger=MetricLogger(out))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {**fa.launches, **da.launches}
+        peak = torch.cuda.max_memory_allocated()
+        with open(f"{out}/metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        ckpt_bytes = sum(e.stat().st_size for e in os.scandir(
+            f"{out}/checkpoints/{steps}"))
+        device_batch = {k: v.to("cuda") for k, v in batch.items()}
+        profile = profile_train_step(torch, state, train_step, device_batch)
+    del state, model, train_step, device_batch
+
+    losses = [r["loss"] for r in records]
+    norms = [r["grad_norm"] for r in records]
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad_norm: {records}")
+    unchanged = [k for k in probes if not torch.equal(snaps[1][k], snaps[0][k])]
+    if unchanged:  # the first update has lr 0 (optax's count starts at 0)
+        raise AssertionError(f"parameters moved at lr 0: {unchanged}")
+    still = [k for k in probes if torch.equal(snaps[2][k], snaps[1][k])]
+    if still:
+        raise AssertionError(f"parameters did not move at lr > 0: {still}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    s_step = statistics.median(times[1:])
+    seq = tcfg.model_max_length
+    return {"model": "mu2Qwen3-1.7B", "params": "fp32", "compute": "bf16",
+            "n_params": n_params,
+            "batch": 1, "seq": seq, "valid_tokens": TRAIN_VALID,
+            "remat": tcfg.remat, "optimizer": "AdamW",
+            "learning_rate": tcfg.learning_rate, "steps": steps,
+            "model_build_s": build_s, "step_s": times,
+            "s_per_step": s_step, "tokens_per_s": seq / s_step,
+            "run_training_s": run_s,
+            "checkpoint_and_loop_s": run_s - sum(times),
+            "checkpoint_gb": ckpt_bytes / 1e9, "peak_mem_gb": peak / 1e9,
+            "loss": losses, "grad_norm": norms,
+            "token_accuracy": [r["token_accuracy"] for r in records],
+            "launches": launches,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "step_profile": profile}
+
+
+def profile_train_step(torch, state, train_step, batch):
+    """torch.profiler over one train step: the card's busy share of its
+    wall clock and device time by kernel, with the flash backward's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels, by_name = device_time(torch, prof)
+    busy_us = sum(by_name.values())
+    share = lambda *keys: sum(t for n, t in by_name.items()
+                              if any(k in n for k in keys)) / max(busy_us, 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "kernels": len(kernels),
+            "flash_bwd_share": share("lse_kernel", "dq_kernel", "dkv_kernel"),
+            "flash_fwd_share": share("flash_fwd_kernel"),
+            "top_device_ms": {n: t / 1e3 for n, t in top}}
+
+
+def planted_faults(torch, fa):
+    """Faults of the flash backward's wiring, as replacements of ``fa``'s
+    kernel wrappers, that the training reference check must reject: dk
+    without its scale, dd left out of dS, dk and dv summed over only the
+    first q head of each GQA group, and lse taken over the keys past the
+    causal frontier. (A key off by one at the end of ``lens`` is left to
+    the kernel checks: in a causal layer only rows that the loss masks see
+    it, and in the ViT it is one key of 2049 in one of 8 rows.)"""
+    lse, dq, dkv = fa.flash_bwd_lse, fa.flash_bwd_dq, fa.flash_bwd_dkv
+
+    def dk_unscaled(*args, scale, **kw):
+        dk, dv = dkv(*args, scale=scale, **kw)
+        return dk / scale, dv
+
+    def without_dd(kernel):
+        return lambda q, k, v, do, lse_, dd, lens, **kw: kernel(
+            q, k, v, do, lse_, torch.zeros_like(dd), lens, **kw)
+
+    def first_head_only(q, k, v, do, lse_, dd, lens, **kw):
+        group = q.shape[2] // k.shape[2]
+        keep = (torch.arange(q.shape[2], device=q.device) % group
+                == 0)[:, None]
+        return dkv(q, k, v, do * keep.to(do.dtype), lse_, dd * keep, lens,
+                   **kw)
+
+    def lse_not_causal(q, k, lens, *, causal, scale):
+        return lse(q, k, lens, causal=False, scale=scale)
+
+    return {"dk unscaled": {"flash_bwd_dkv": dk_unscaled},
+            "dd dropped": {"flash_bwd_dq": without_dd(dq),
+                           "flash_bwd_dkv": without_dd(dkv)},
+            "GQA sum of the first q head": {"flash_bwd_dkv": first_head_only},
+            "lse not causal": {"flash_bwd_lse": lse_not_causal}}
+
+
+def plain_attention(fa):
+    """Replacements that run the plain versions of K1, K2 and K4a-c on the
+    card in place of the kernels (bf16 in, fp32 arithmetic)."""
+    return {"_flash_cuda": lambda q, k, v, lens, causal, scale:
+            fa.flash_attention_reference(q, k, v, lens, causal=causal,
+                                         scale=scale),
+            "flash_bwd_lse": fa.flash_bwd_lse_reference,
+            "flash_bwd_dq": fa.flash_bwd_dq_reference,
+            "flash_bwd_dkv": fa.flash_bwd_dkv_reference}
+
+
+@contextlib.contextmanager
+def planted(fa, replacements):
+    """``fa``'s functions named in ``replacements`` swapped for theirs
+    inside the block."""
+    saved = {name: getattr(fa, name) for name in replacements}
+    for name, fn in replacements.items():
+        setattr(fa, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fa, name, fn)
+
+
+def gradient_readings(torch, model, ref):
+    """Per parameter: the cosine of its gradient to ``ref``'s (flat fp64)
+    and the ratio of their norms, summed in fp64."""
+    out = {}
+    for name, p in model.named_parameters():
+        g, r = p.grad.double().flatten().cpu(), ref[name]
+        gn, rn = g.norm().item(), r.norm().item()
+        if gn == rn == 0:  # no path to the loss (the top-k's score net)
+            out[name] = {"cos": 1.0, "norm_ratio": 1.0}
+            continue
+        out[name] = {"cos": torch.dot(g, r).item() / (gn * rn)
+                     if gn * rn else 0.0,
+                     "norm_ratio": gn / rn if rn else math.inf}
+    return out
+
+
+def left_out(name: str):
+    """Why the training reference check leaves this parameter's gradient
+    out (see TRAIN_COS_MIN), or None where it holds it."""
+    if name.endswith("wk.bias"):
+        return "key_bias"
+    if name.startswith(("u2tokenizer.tta_module.",
+                        "u2tokenizer.query_tokens")):
+        return "aggregator"
+    return None
+
+
+def judged(name: str) -> bool:
+    return left_out(name) is None
+
+
+def misfits(readings):
+    """The judged parameters whose gradient the limits reject."""
+    return {name: r for name, r in readings.items()
+            if judged(name)
+            and not (r["cos"] >= TRAIN_COS_MIN
+                     and abs(r["norm_ratio"] - 1) <= TRAIN_NORM_TOL)}
+
+
+def worst_leaves(readings):
+    """The lowest cosine and the norm ratio furthest from 1 among the
+    judged parameters."""
+    some = {n: r for n, r in readings.items() if judged(n)}
+    c = min(some, key=lambda n: some[n]["cos"])
+    q = max(some, key=lambda n: abs(some[n]["norm_ratio"] - 1))
+    return {"min_cos": [c, some[c]["cos"]],
+            "worst_norm_ratio": [q, some[q]["norm_ratio"]]}
+
+
+def left_out_medians(readings):
+    """Per group of ``left_out``: its size and the median cosine and norm
+    ratio of its parameters' gradients."""
+    out = {}
+    for group in ("key_bias", "aggregator"):
+        some = [r for n, r in readings.items() if left_out(n) == group]
+        out[group] = {"leaves": len(some), "median_cos": statistics.median(
+            r["cos"] for r in some), "median_norm_ratio": statistics.median(
+            r["norm_ratio"] for r in some)}
+    return out
+
+
+def train_reference_readings(torch, fa):
+    """One train step of the reduced-depth, full-width model (4 chunks, the
+    fewest that give the μ²tokenizer's 1024-token top-k enough candidates;
+    2 rows of 384 tokens, one valid for 300) on the CPU (fp32, plain
+    versions) and, from the same fp32 weights, on the card (bf16 compute,
+    kernels): sound, with the plain attention, and under each of
+    ``planted_faults``. Returns the CPU's loss, the card's sound loss, and
+    ``gradient_readings`` of the sound step, of the plain attention's and
+    of each fault's."""
+    from u2tokenizer_torch.config import TrainConfig
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.train.sft import make_trainer
+
+    cfg = reduced_config(num_chunks=4)
+    batch = training_batch(torch, cfg, 384, [384, 300], 280, seed=1)
+    cpu = U2CausalLM(cfg, dtype=torch.float32, device="cpu", seed=1,
+                     remat=True)
+    gpu = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=2,
+                     remat=True)
+    gpu.load_state_dict(cpu.state_dict())
+    weights = {k: v.clone() for k, v in gpu.state_dict().items()}
+    state, step = make_trainer(cpu, TrainConfig(), 1)
+    _, metrics = step(state, batch)
+    loss_cpu = float(metrics["loss"])
+    ref = {n: p.grad.double().flatten() for n, p in cpu.named_parameters()}
+    del cpu, state, step
+    card_batch = {k: v.to("cuda") for k, v in batch.items()}
+
+    def card_step(replacements):
+        gpu.load_state_dict(weights)
+        state, step = make_trainer(gpu, TrainConfig(), 1)
+        with planted(fa, replacements):
+            _, metrics = step(state, card_batch)
+        return float(metrics["loss"]), gradient_readings(torch, gpu, ref)
+
+    loss_gpu, sound = card_step({})
+    plain = card_step(plain_attention(fa))[1]
+    faults = {label: card_step(rep)[1]
+              for label, rep in planted_faults(torch, fa).items()}
+    return loss_cpu, loss_gpu, sound, plain, faults
+
+
+def check_train_reference(torch, fa):
+    """``train_reference_readings`` held to TRAIN_LOSS_TOL, TRAIN_COS_MIN
+    and TRAIN_NORM_TOL; fails unless the same limits reject every planted
+    fault."""
+    loss_cpu, loss_gpu, sound, plain, faults = train_reference_readings(
+        torch, fa)
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    if not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"reduced model train step: card vs CPU loss "
+                             f"relative error {rel:.4g} over {TRAIN_LOSS_TOL}")
+    bad = misfits(sound)
+    if bad:
+        raise AssertionError(f"reduced model train step: gradients off the "
+                             f"CPU's (cosine >= {TRAIN_COS_MIN}, norm ratio "
+                             f"within {TRAIN_NORM_TOL} of 1): {bad}")
+    caught = {}
+    for label, readings in faults.items():
+        bad = misfits(readings)
+        if not bad:
+            raise AssertionError(f"the training reference limits do not "
+                                 f"reject the planted fault {label}: "
+                                 f"{worst_leaves(readings)}")
+        caught[label] = {**worst_leaves(readings),
+                         "leaves_rejected": len(bad)}
+    return {"loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel_err": rel,
+            "loss_tol": TRAIN_LOSS_TOL, "grad_cos_min": TRAIN_COS_MIN,
+            "grad_norm_tol": TRAIN_NORM_TOL,
+            "leaves_held": sum(map(judged, sound)), "leaves": len(sound),
+            "held": worst_leaves(sound),
+            "left_out": {"kernels": left_out_medians(sound),
+                         "plain_attention": left_out_medians(plain)},
+            "plain_attention": worst_leaves(plain),
+            "planted_faults": caught}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--max-new", type=int, default=MAX_NEW)
@@ -422,10 +943,12 @@ def main() -> int:
         log(f"chip_smoke: the port is not importable here ({e}); run from "
             "the root of a checkout")
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     card = gpu_line()
     print(json.dumps({"card": card, "torch": torch.__version__,
-                      "cuda": torch.version.cuda}), flush=True)
+                      "cuda": torch.version.cuda, "tf32": False}), flush=True)
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -437,27 +960,61 @@ def main() -> int:
     kernels = [check_flash(torch, F, fa, causal=False),
                check_flash(torch, F, fa, causal=True),
                check_decode(torch, da, attn)]
-    for k in kernels:
+    vit_bwd = check_flash_bwd(torch, F, fa, causal=False)
+    dec_bwd = check_flash_bwd(torch, F, fa, causal=True)
+    for k in kernels + vit_bwd + dec_bwd:
         print(json.dumps({"kernel_check": k}), flush=True)
+    # one entry per kernel: the ViT's call, with the decoder's beside it
+    for vit, dec in zip(vit_bwd, dec_bwd):
+        vit["max_abs_err"] = max(vit["max_abs_err"], dec["max_abs_err"])
+        vit["decoder_call"] = {key: dec[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        kernels.append(vit)
     if args.kernels_only:
         return 0
 
     main_path = drive_main_path(torch, args.max_new)
-    counts = main_path["launches"]
+    serve_counts = main_path["launches"]
     vit = 12 * math.ceil(BATCH * 8 / VISION_MICROBATCH)
-    expected = {"flash_fwd_noncausal": vit, "flash_fwd_causal": 28,
-                da.KERNEL: 28 * (args.max_new - 1)}
+    expected = {name: 0 for name in serve_counts}
+    expected.update({"flash_fwd_noncausal": vit, "flash_fwd_causal": 28,
+                     da.KERNEL: 28 * (args.max_new - 1)})
     main_path["card"] = card
     print(json.dumps({"main_path": main_path}), flush=True)
-    if counts != expected:
-        raise AssertionError(f"launches {counts} != expected {expected}")
-
+    if serve_counts != expected:
+        raise AssertionError(f"launches {serve_counts} != expected "
+                             f"{expected}")
     print(json.dumps({"reference_check": check_reference(torch)}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train = drive_training(torch, fa, da, TRAIN_STEPS)
+    train_counts = train["launches"]
+    # per step: the ViT's 12 layers (not rematerialised) and the decoder's
+    # 28, forward again in the backward under remat
+    per_step = {name: 0 for name in train_counts}
+    per_step.update({"flash_fwd_noncausal": 12, "flash_fwd_causal": 56,
+                     "flash_bwd_lse": 40, "flash_bwd_dq": 40,
+                     "flash_bwd_dkv": 40})
+    train["card"] = card
+    print(json.dumps({"train_path": train}), flush=True)
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    if train_counts != want:
+        raise AssertionError(f"training launches {train_counts} != "
+                             f"expected {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_reference_check": check_train_reference(
+        torch, fa)}), flush=True)
 
     for k in kernels:
-        k["launches"] = counts[k["name"]]
-        k.pop("shape")
-        k.pop("check")
+        by_path = {"serve": serve_counts[k["name"]],
+                   "train": train_counts[k["name"]]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
+        for key in ("shape", "check", "ref_scale"):
+            k.pop(key, None)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,7 +49,7 @@ def test_no_jax_imports(path):
 
 def test_port_imports_without_jax():
     code = ("import sys, u2tokenizer_torch.models.generate, "
-            "u2tokenizer_torch.weights; "
+            "u2tokenizer_torch.weights, u2tokenizer_torch.train.loop; "
             "sys.exit(any(m.split('.')[0] in %r for m in sys.modules))"
             % (FORBIDDEN,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -58,7 +58,8 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("name,variant", [
     ("U2ModelConfig", "default"), ("U2ModelConfig", "tiny"),
-    ("LLMConfig", "tiny"), ("GenerationConfig", "default")])
+    ("LLMConfig", "tiny"), ("GenerationConfig", "default"),
+    ("TrainConfig", "default")])
 def test_config_copies_match(name, variant):
     jcls, tcls = getattr(j_config, name), getattr(t_config, name)
     jcfg = jcls.tiny() if variant == "tiny" else jcls()

@@ -1,8 +1,9 @@
 """μ²-TPU's PyTorch/CUDA port for NVIDIA Hopper.
 
-The serving path of the JAX package (``u2tokenizer_tpu``) rebuilt on
-PyTorch: one CT volume in, one report out, with the attention hot spots in
-hand-written CUDA kernels (``csrc/``). The module layout mirrors the JAX
+The serving path (one CT volume in, one report out) and the SFT training
+path of the JAX package (``u2tokenizer_tpu``) rebuilt on PyTorch, with the
+attention hot spots, forward and backward, in hand-written CUDA kernels
+(``csrc/``). The module layout mirrors the JAX
 package. Entry points run on the GPU unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper computes its plain
 PyTorch version instead.
@@ -13,7 +14,9 @@ __version__ = "0.1.0"
 from .config import (  # noqa: F401
     GenerationConfig,
     LLMConfig,
+    MeshConfig,
     ProjectorConfig,
+    TrainConfig,
     U2ModelConfig,
     U2TokenizerConfig,
     VisionConfig,

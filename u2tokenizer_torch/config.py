@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 def _tuple(x) -> Tuple[int, ...]:
@@ -236,3 +236,51 @@ class GenerationConfig:
     temperature: float = 1.0
     eos_token_id: int = -1
     pad_token_id: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout, carried so that training configs round-trip
+    between the two packages. The port trains on one card; meshes wait for
+    the port of ``parallel/``."""
+
+    data: int = 1
+    fsdp: int = 1
+    tensor: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.fsdp * self.tensor
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """SFT hyperparameters (reference defaults: script/amos_mm_stage1/*.sh,
+    src/train/train_stage1.py:95-136)."""
+
+    learning_rate: float = 4e-6
+    weight_decay: float = 0.0
+    warmup_ratio: float = 0.03
+    lr_schedule: str = "cosine"
+    num_epochs: float = 4.0
+    per_device_batch_size: int = 1
+    grad_accum_steps: int = 1
+    max_steps: Optional[int] = None
+    model_max_length: int = 1024
+    seed: int = 42
+    bf16: bool = True
+    # gradient checkpointing of each decoder layer: True or "nothing" =
+    # full recompute (minimum memory), False or "off" = none; the JAX
+    # package's "dots" / "dots_no_batch" policies are not ported yet
+    remat: Union[bool, str] = True
+    # > 0: compute the LM loss from hidden states in sequence chunks of
+    # this size (never materializing the (B, S, vocab) logits); 0 = plain
+    # full-logits loss
+    ce_chunk: int = 0
+    freeze_vision_tower: bool = False
+    freeze_backbone: bool = False
+    save_steps: int = 2000
+    save_total_limit: int = 2
+    log_steps: int = 10
+    output_dir: str = "./output/u2-tpu"
+    mesh: MeshConfig = field(default_factory=MeshConfig)

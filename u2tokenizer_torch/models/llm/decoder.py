@@ -13,6 +13,11 @@ Attention routing mirrors the JAX package's:
 
 The KV cache is updated in place (the JAX package returns a new one); the
 functions still return it so the call sites read like their counterparts.
+
+``remat`` (True or "nothing") checkpoints each decoder layer while
+gradients are recorded, the counterpart of the JAX package's
+``nn.remat(DecoderLayer, policy=nothing_saveable)``: the layer keeps only
+its input and runs its forward again in the backward.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...config import LLMConfig
 from ...ops.attention import (gqa_sdpa, gqa_sdpa_headmajor,
@@ -213,14 +219,29 @@ class DecoderLayer(nn.Module):
         return x, cache_kv
 
 
+def remat_enabled(remat) -> bool:
+    """TrainConfig.remat -> whether decoder layers are checkpointed: True or
+    "nothing" (full recompute) or False or "off". The JAX package's policies
+    that keep matmul outputs are not ported."""
+    if remat in (True, "nothing"):
+        return True
+    if remat in (False, "off"):
+        return False
+    if remat in ("dots", "dots_no_batch"):
+        raise NotImplementedError(f"remat policy {remat!r} is not ported yet")
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 class DecoderModel(nn.Module):
     """Embedding table + decoder layers + final norm."""
 
-    def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
+                 remat=False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat_enabled(remat)
         self.embed_tokens = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.hidden_size, device=device))
         self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, device)
@@ -249,18 +270,22 @@ class DecoderModel(nn.Module):
                 cache_kv = (cache.k[i], cache.v[i],
                             cache.k_scale[i] if cache.quantized else None,
                             cache.v_scale[i] if cache.quantized else None)
-            x, _ = layer(x, rope, mask, cache_kv, write_index, lens,
-                         decode_bounds)
+            args = (x, rope, mask, cache_kv, write_index, lens, decode_bounds)
+            if self.remat and torch.is_grad_enabled():
+                x, _ = checkpoint(layer, *args, use_reentrant=False)
+            else:
+                x, _ = layer(*args)
         return self.norm(x), cache
 
 
 class CausalLM(nn.Module):
     """DecoderModel + LM head (tied to the embedding table or separate)."""
 
-    def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
+                 remat=False):
         super().__init__()
         self.cfg = cfg
-        self.model = DecoderModel(cfg, dtype, device)
+        self.model = DecoderModel(cfg, dtype, device, remat)
         if not cfg.tie_word_embeddings:
             self.lm_head = QDense(cfg.hidden_size, cfg.vocab_size,
                                   cfg.lm_head_bias, dtype, device)

@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from ..config import U2ModelConfig
-from .layers import cast_for_inference, init_weights
+from .layers import init_weights
 from .llm.decoder import CausalLM
 from .projector import build_projector
 from .u2tok.u2tokenizer import U2Tokenizer
@@ -42,12 +42,14 @@ def causal_padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:
 
 class U2CausalLM(nn.Module):
     """The model, built on ``device`` (the GPU unless the caller passes
-    another) with parameters drawn from ``seed``. With ``dtype`` other than
-    fp32, matrices are cast to it and 1-D parameters stay fp32, as in the
-    JAX package's ``cast_for_inference``; every product runs in ``dtype``."""
+    another) with fp32 parameters drawn from ``seed``; every product runs
+    in ``dtype``, as ``U2CausalLM(cfg, dtype)`` with ``model.init`` gives in
+    the JAX package. Training updates the fp32 parameters; serving first
+    casts the matrices to ``dtype`` with ``layers.cast_for_inference``.
+    ``remat`` checkpoints each decoder layer (``DecoderModel``)."""
 
     def __init__(self, cfg: U2ModelConfig, dtype=torch.bfloat16,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, remat=False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -59,10 +61,8 @@ class U2CausalLM(nn.Module):
             raise NotImplementedError("the port needs the μ²tokenizer enabled")
         self.u2tokenizer = U2Tokenizer(cfg.llm.hidden_size, cfg.u2t, dtype,
                                        device)
-        self.llm = CausalLM(cfg.llm, dtype, device)
+        self.llm = CausalLM(cfg.llm, dtype, device, remat)
         init_weights(self, seed)
-        if dtype != torch.float32:
-            cast_for_inference(self, dtype)
 
     @property
     def device(self) -> torch.device:

@@ -13,12 +13,17 @@ the flax tree, so the path maps one to one, with three renames:
 Every other leaf keeps its name and layout. Values are cast to each
 parameter's dtype. The load is strict: an entry with no parameter, a shape
 that differs, or a parameter left unfilled raises.
+
+``flax_path`` maps the other way, so that a trainable filter written for
+the JAX package's gradient paths (``fn("params/vision_tower/...") ->
+bool``, as ``train/sft.py`` and ``cli train`` use it) selects the same
+parameters of the port (``trainable_names``).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Mapping
+from typing import Callable, List, Mapping
 
 import numpy as np
 import torch
@@ -70,3 +75,30 @@ def load_flax_params(model: nn.Module, flat: Mapping[str, object]) -> None:
     missing = sorted(set(params) - filled)
     if missing:
         raise KeyError(f"parameters with no flax counterpart: {missing}")
+
+
+def flax_path(name: str, modules: Mapping[str, nn.Module]) -> str:
+    """Torch parameter name -> the path the JAX package's train step hands
+    its trainable filter: ``"params/"`` + the flax path."""
+    *parents, leaf = name.split(".")
+    parts = []
+    for i, part in enumerate(parents):
+        if part.isdigit() and isinstance(modules.get(".".join(parents[:i])),
+                                         nn.ModuleList):
+            parts[-1] = f"{parts[-1]}_{part}"
+        else:
+            parts.append(part)
+    owner = modules.get(".".join(parents))
+    if leaf == "weight" and isinstance(owner, Dense):
+        leaf = "kernel"
+    elif leaf == "weight" and isinstance(owner, LayerNorm):
+        leaf = "scale"
+    return "/".join(["params", *parts, leaf])
+
+
+def trainable_names(model: nn.Module,
+                    trainable_filter: Callable[[str], bool]) -> List[str]:
+    """The parameter names of ``model`` whose flax path the filter keeps."""
+    modules = dict(model.named_modules())
+    return [name for name, _ in model.named_parameters()
+            if trainable_filter(flax_path(name, modules))]
