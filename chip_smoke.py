@@ -9,17 +9,24 @@ Run from the root of a checkout. It
      hand-written kernels from ``u2tokenizer_torch/csrc`` with nvcc;
   2. checks each kernel against its plain PyTorch version on the card at
      the shapes the serving and training paths give it, with ragged lengths
-     in one row, shows that the same limits reject a mask off by one key,
-     and times the kernel, the plain version and, where one PyTorch call
-     computes the same function, that call (CUDA events, median of 7);
-  3. drives the serving path once: full-width μ²Qwen3-1.7B with random
-     weights from a fixed seed cast to bf16, int8 KV cache, 4 CT volumes of
-     (8, 32, 256, 256), a 1024-token prompt (one row 900), greedy decode of
-     768 tokens; asserts the output and that every kernel ran on that path
-     the expected number of times; then profiles 8 decode steps
-     (torch.profiler: the card's busy share, kernels per step);
+     in one row, shows that the same limits reject a mask off by one key
+     (and, for K3's int4 form, nibbles swapped or read unsigned), and times
+     the kernel, the plain version and, where one PyTorch call computes the
+     same function, that call (CUDA events, median of 7);
+  3. drives the serving path twice, each time full-width μ²Qwen3-1.7B with
+     random weights from a fixed seed cast to bf16, CT volumes of
+     (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
+     tokens and a greedy decode of 768 tokens: first bf16 weights, the int8
+     KV cache and 4 volumes; then the configuration of the JAX package's
+     ``bench.py``: decoder weights quantized to int8, the int4 KV cache,
+     112 volumes, the ViT over groups of 128 chunks. Each asserts the
+     output and that every kernel ran on its path the expected number of
+     times, then profiles 8 decode steps (torch.profiler: the card's busy
+     share, kernels per step);
   4. checks a reduced-depth, full-width model on the card against the same
-     weights run in fp32 on the CPU through the plain versions;
+     weights run in fp32 on the CPU through the plain versions: bf16
+     weights with the int8 cache, and int8 or int4 weights (quantized once
+     on the CPU) with the int4 cache;
   5. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
      parameters and bf16 compute, AdamW at the ``TrainConfig`` defaults,
      decoder layers rematerialised, 6 steps of ``run_training`` on one
@@ -64,10 +71,13 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # version rounds the normalised ones, two errors of up to 2^-9 relative on
 # each term p_j v_j: mtol = 2^-8 of the terms' absolute sum. It matters
 # where a few keys carry all the weight and cancel, as in K2's early causal
-# rows (0.0156 at |ref| ~0.5). K3 rounds as its plain version does. atol
-# covers the typical |ref| of 0.04. A one-key change to the mask moves
-# outputs by more, and each check below shows it: the kernel must fail
-# these limits against a plain version whose mask is off by one key.
+# rows (0.0156 at |ref| ~0.5). atol covers the typical |ref| of 0.04. K3's
+# plain version repeats its rounding (fp32 scores, bf16 probabilities), so
+# the two differ only by the order of fp32 sums and one rounding of the
+# bf16 output: rtol, and atol 1e-3 for outputs near zero. A one-key change
+# to the mask moves outputs by more, and each check below shows it: the
+# kernel must fail these limits against a plain version whose mask is off
+# by one key (and, for K3's int4 form, that reads the nibbles wrongly).
 #
 # The backward kernels take the same inputs as their plain versions (the
 # plain lse and dd), so each is held alone. K4a's lse is fp32 from fp32 sums
@@ -81,12 +91,18 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # about one ulp (rtol); atol 1e-3 covers outputs near zero.
 TOL = {"flash_fwd_noncausal": (4e-3, 1e-2, 2.0 ** -8),
        "flash_fwd_causal": (4e-3, 1e-2, 2.0 ** -8),
-       "decode_attention_int8": (4e-3, 1e-2, 0.0),
+       "decode_attention_int8": (1e-3, 1e-2, 0.0),
+       "decode_attention_int4": (1e-3, 1e-2, 0.0),
        "flash_bwd_lse": (1e-4, 1e-5, 0.0),
        "flash_bwd_dq": (1e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_dkv": (1e-3, 1e-2, 2.0 ** -8)}
 PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 768, 4, 8
 RAGGED = 900               # the last row's prompt length
+QUESTION = 64              # question tokens, the μ²tokenizer's text condition
+# The serving configuration of the JAX package's bench.py: int8 decoder
+# weights, int4 KV cache, 112 volumes, the ViT over groups of 128 chunks.
+QUANT_BATCH, QUANT_WEIGHTS, QUANT_CACHE, QUANT_MICROBATCH = 112, "int8", \
+    "int4", 128
 TRAIN_STEPS = 6
 TRAIN_VALID, TRAIN_PROMPT = 900, 320  # the training row: valid, unlabelled
 # Train step of the reduced model, card (bf16 compute) against CPU (fp32),
@@ -156,7 +172,7 @@ def excess(torch, out, ref, mass, name: str):
 def compare(torch, out, ref, name: str, mutants, mass=None) -> dict:
     """Hold ``out`` to ``ref`` under TOL[name], and show that the same
     limits reject each of ``mutants``: plain versions whose mask is off by
-    one key."""
+    one key, or that read the cache wrongly."""
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
     err, ratio = excess(torch, out, ref, mass, name)
@@ -168,11 +184,11 @@ def compare(torch, out, ref, name: str, mutants, mass=None) -> dict:
         m_err, m_ratio = excess(torch, out, mutant, mass, name)
         if m_ratio <= 1:
             raise AssertionError(f"{name}: the limits {TOL[name]} do not tell "
-                                 f"the kernel from a mask with {label} "
-                                 f"(max abs diff {m_err:.4g})")
+                                 f"the kernel from a plain version with "
+                                 f"{label} (max abs diff {m_err:.4g})")
         caught[label] = {"max_abs_diff": m_err, "x_limit": m_ratio}
     return {"max_abs_err": err, "x_limit": ratio, "tol": list(TOL[name]),
-            "off_by_one_key": caught}
+            "mutants": caught}
 
 
 def attention_inputs(torch, causal: bool, seed: int):
@@ -362,23 +378,40 @@ def check_flash_bwd(torch, F, fa, causal: bool):
     return entries
 
 
-def check_decode(torch, da, attn):
-    """K3 at a mid-run decode step: 4 rows, 16 q / 8 kv heads of 128, an
-    int8 cache of 1024 + 768 slots, one row's prompt 900 tokens long."""
-    b, h, hkv, d = BATCH, 16, 8, 128
+def nibbles(p, torch, order: str):
+    """A packed int4 cache read wrongly, as an int8 cache of its values:
+    the nibbles of each byte swapped, or read unsigned."""
+    if order == "swapped":
+        pair = (p >> 4, ((p & 0x0F) ^ 8) - 8)
+    else:
+        pair = (p & 0x0F, (p >> 4) & 0x0F)
+    return torch.stack(pair, dim=-1).flatten(-2)
+
+
+def check_decode(torch, da, attn, bits: int, b: int):
+    """K3 at a mid-run decode step of a serving path: ``b`` rows, 16 q / 8
+    kv heads of 128, an int8 (``bits`` 8) or packed int4 (4) cache of
+    1024 + 768 slots, the last row's prompt 900 tokens long."""
+    h, hkv, d = 16, 8, 128
     s_total, step = PROMPT + MAX_NEW, (MAX_NEW - 1) // 2
+    name = da.KERNELS[bits]
     g = torch.Generator(device="cuda").manual_seed(3)
     q = torch.randn(b, 1, h, d, generator=g, device="cuda",
                     dtype=torch.bfloat16)
     # distinct caches, cycled while timing, so that the 50 MB L2 holds none
     # (the serving loop reads 28 layers' caches in turn)
+    cache_bytes = 2 * b * hkv * s_total * d * bits // 8
     caches = []
-    for _ in range(16):
+    for _ in range(max(2, min(16, math.ceil(8 * 50e6 / cache_bytes)))):
         kf, vf = (torch.randn(b, s_total, hkv, d, generator=g, device="cuda",
                               dtype=torch.bfloat16) for _ in range(2))
-        (kq, ks), (vq, vs) = attn.quantize_kv(kf), attn.quantize_kv(vf)
+        (kq, ks), (vq, vs) = (attn.quantize_kv(x, dtype=f"int{bits}")
+                              for x in (kf, vf))
+        if bits == 4:
+            kq, vq = attn.pack_nibbles(kq), attn.pack_nibbles(vq)
         caches.append(tuple(x.transpose(1, 2).contiguous() for x in
                             (kq, ks[..., 0], vq, vs[..., 0])))
+        del kf, vf
     plen_l = [PROMPT] * (b - 1) + [RAGGED]
     plen = torch.tensor(plen_l, dtype=torch.int32, device="cuda")
     end = torch.full((b,), PROMPT + step + 1, dtype=torch.int32,
@@ -394,8 +427,14 @@ def check_decode(torch, da, attn):
             q, kq, ks, vq, vs, off, end, PROMPT)
         mutants[f"end{shift:+d}"] = da.decode_attention_reference(
             q, kq, ks, vq, vs, plen, end + shift, PROMPT)
+    if bits == 4:
+        for order in ("swapped", "unsigned"):
+            mutants[f"nibbles {order}"] = da.decode_attention_reference(
+                q, nibbles(kq, torch, order), ks, nibbles(vq, torch, order),
+                vs, plen, end, PROMPT)
     torch.cuda.synchronize()
-    check = compare(torch, out, ref, da.KERNEL, mutants)
+    check = compare(torch, out, ref, name, mutants)
+    del mutants
 
     it = iter(range(1 << 30))
 
@@ -407,87 +446,139 @@ def check_decode(torch, da, attn):
     plain_ms = time_ms(torch, lambda: da.decode_attention_reference(
         q, kq, ks, vq, vs, plen, end, PROMPT), inner=4)
     rows = sum(n + step + 1 for n in plen_l)  # visible cache rows
-    nbytes = hkv * rows * (2 * d + 2 * 2) + 2 * (2 * b * h * d)
-    flops = 4.0 * d * (h // hkv) * hkv * rows
+    # per visible row and kv head: D*bits/8 bytes of K and of V, two bf16
+    # scales; q read and the output written once
+    nbytes = hkv * rows * (2 * d * bits // 8 + 2 * 2) + 2 * (2 * b * h * d)
+    flops = 4.0 * d * h * rows
     bms, by = bound_ms(flops, nbytes)
-    return {"name": da.KERNEL, "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "u2tokenizer_torch/csrc/decode_attention.cu",
             "replaces": "u2tokenizer_tpu/ops/decode_attention.py:32",
             "max_abs_err": check.pop("max_abs_err"), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "check": check,
             "shape": {"q": list(q.shape), "k": list(kq.shape),
-                      "prompt_len": plen_l, "end": PROMPT + step + 1}}
+                      "prompt_len": f"{PROMPT} x{b - 1}, {RAGGED}",
+                      "end": PROMPT + step + 1}}
 
 
-def drive_main_path(torch, max_new: int):
+def reset_launches(*modules):
+    for module in modules:
+        for name in module.launches:
+            module.launches[name] = 0
+
+
+def read_launches(*modules):
+    return {name: n for module in modules for name, n in
+            module.launches.items()}
+
+
+def drive_main_path(torch, max_new: int, batch: int, weights: str,
+                    cache: str, vision_microbatch: int):
+    """One serving run of full-width μ²Qwen3-1.7B through
+    ``make_multimodal_generate_fn``: weights cast to bf16 and, unless
+    ``weights`` is "bf16", the decoder's quantized in place to int8 or
+    int4; a ``cache`` KV cache; ``batch`` volumes; the ViT over groups of
+    ``vision_microbatch`` chunks. Times each stage, reads the kernel
+    launches of the run and profiles 8 decode steps."""
     from u2tokenizer_torch.config import GenerationConfig, U2ModelConfig
     from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
-    from u2tokenizer_torch.models.layers import cast_for_inference
+    from u2tokenizer_torch.models.quantize import (cast_for_inference,
+                                                   quantize_llm_weights)
     from u2tokenizer_torch.models.u2_model import U2CausalLM
     from u2tokenizer_torch.ops import decode_attention as da
     from u2tokenizer_torch.ops import flash_attention as fa
 
     cfg = U2ModelConfig()  # μ²Qwen3-1.7B, full width and depth
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
                                           device="cuda", seed=0))
+    if weights != "bf16":
+        quantize_llm_weights(model, weights)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
 
     g = torch.Generator(device="cuda").manual_seed(0)
     d, h, w = cfg.vision.input_spatial
-    images = torch.randn(BATCH, cfg.num_chunks, d, h, w, generator=g,
+    images = torch.randn(batch, cfg.num_chunks, d, h, w, generator=g,
                          device="cuda", dtype=torch.bfloat16)
     vocab = cfg.llm.vocab_size
-    input_ids = torch.randint(0, vocab, (BATCH, PROMPT), generator=g,
+    input_ids = torch.randint(0, vocab, (batch, PROMPT), generator=g,
                               device="cuda")
-    question_ids = torch.randint(0, vocab, (BATCH, 64), generator=g,
+    question_ids = torch.randint(0, vocab, (batch, QUESTION), generator=g,
                                  device="cuda")
-    prompt_len = torch.tensor([PROMPT] * (BATCH - 1) + [RAGGED],
+    prompt_len = torch.tensor([PROMPT] * (batch - 1) + [RAGGED],
                               dtype=torch.int32, device="cuda")
     gen = GenerationConfig(max_new_tokens=max_new, do_sample=False,
                            eos_token_id=-2, pad_token_id=0)
     generate = make_multimodal_generate_fn(
-        model, gen, cache_dtype="int8", vision_microbatch=VISION_MICROBATCH)
+        model, gen, cache_dtype=cache, vision_microbatch=vision_microbatch)
 
-    for name in fa.launches:
-        fa.launches[name] = 0
-    da.launches[da.KERNEL] = 0
+    reset_launches(fa, da)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     embeds = generate.embeds(input_ids, images, question_ids)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    cache, tok0, done0, hidden = generate.prefill_stage(embeds, prompt_len)
+    kv, tok0, done0, hidden = generate.prefill_stage(embeds, prompt_len)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    _, _, rest = generate.decode_steps(cache, tok0, done0, prompt_len,
+    _, _, rest = generate.decode_steps(kv, tok0, done0, prompt_len,
                                        range(max_new - 1))
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     tokens = torch.cat([tok0[:, None], rest], dim=1)
-    launches = {**fa.launches, **da.launches}
+    launches = read_launches(fa, da)
+    peak = torch.cuda.max_memory_allocated()
+    del kv
     profile = profile_decode(torch, generate, embeds, prompt_len)
 
-    assert tuple(embeds.shape) == (BATCH, PROMPT, cfg.llm.hidden_size)
+    assert tuple(embeds.shape) == (batch, PROMPT, cfg.llm.hidden_size)
     assert torch.isfinite(embeds).all(), "non-finite prompt embeddings"
     assert torch.isfinite(hidden).all(), "NaN/inf in the prefill hidden states"
-    assert tuple(tokens.shape) == (BATCH, max_new), tokens.shape
+    assert tuple(tokens.shape) == (batch, max_new), tokens.shape
     assert tokens.dtype == torch.int64
     assert ((tokens >= 0) & (tokens < vocab)).all(), "token out of range"
     total = t3 - t0
-    return {"model": "mu2Qwen3-1.7B", "batch": BATCH, "prompt": PROMPT,
-            "prompt_len": prompt_len.tolist(), "max_new_tokens": max_new,
-            "cache": "int8", "weights": "bf16",
-            "vision_microbatch": VISION_MICROBATCH,
+    return {"model": "mu2Qwen3-1.7B", "batch": batch, "prompt": PROMPT,
+            "prompt_len": f"{PROMPT} x{batch - 1}, {RAGGED}",
+            "question_tokens": QUESTION, "max_new_tokens": max_new,
+            "cache": cache, "weights": weights, "weight_gb": weight_gb,
+            "vision_microbatch": vision_microbatch,
             "model_build_s": build_s, "vision_s": t1 - t0,
             "prefill_s": t2 - t1, "decode_s": t3 - t2, "total_s": total,
-            "reports_per_min": 60.0 * BATCH / total,
+            "reports_per_min": 60.0 * batch / total,
             "decode_ms_per_step": 1e3 * (t3 - t2) / max(max_new - 1, 1),
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "first_tokens": tokens[:, :8].tolist(), "launches": launches,
+            "peak_mem_gb": peak / 1e9,
+            "first_tokens": tokens[:4, :8].tolist(), "launches": launches,
             "decode_profile": profile}
+
+
+def serve_and_check(torch, da, max_new: int, batch: int, weights: str,
+                    cache: str, vision_microbatch: int, card: str):
+    """``drive_main_path``, printed, with its launches held to what the
+    code gives: K1 once per ViT layer per group of chunks, K2 once per
+    decoder layer, the cache's K3 form once per decoder layer per decode
+    step, no other kernel."""
+    run = drive_main_path(torch, max_new, batch, weights, cache,
+                          vision_microbatch)
+    run["card"] = card
+    print(json.dumps({f"serve_{weights}_weights_{cache}_cache": run}),
+          flush=True)
+    chunks = batch * 8
+    groups = (chunks // vision_microbatch if chunks > vision_microbatch
+              and chunks % vision_microbatch == 0 else 1)
+    expected = {name: 0 for name in run["launches"]}
+    expected.update({"flash_fwd_noncausal": 12 * groups,
+                     "flash_fwd_causal": 28,
+                     da.KERNELS[int(cache[3:])]: 28 * (max_new - 1)})
+    if run["launches"] != expected:
+        raise AssertionError(f"{weights} weights, {cache} cache: launches "
+                             f"{run['launches']} != expected {expected}")
+    return run
 
 
 def device_time(torch, prof):
@@ -546,14 +637,18 @@ def reduced_config(num_chunks: int):
         llm=dataclasses.replace(base.llm, num_layers=2))
 
 
-def check_reference(torch):
+def check_reference(torch, weights: str = "bf16", cache: str = "int8"):
     """Full-width model cut to 2 ViT, 1 μ²tokenizer and 2 decoder layers
     and 4 chunks: the card (bf16, kernels) against the CPU (fp32, plain
-    versions) on the same weights. Compares the prefill's last-position
-    logits and reports greedy token agreement over 4 decode steps."""
+    versions) on the same weights, with a ``cache`` KV cache. With
+    ``weights`` "int8" or "int4" the decoder's weights are quantized once,
+    on the CPU, and the card loads the same integers and scales. Compares
+    the prefill's last-position logits and reports greedy token agreement
+    over 4 decode steps."""
     from u2tokenizer_torch.config import GenerationConfig
     from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
-    from u2tokenizer_torch.models.layers import cast_for_inference
+    from u2tokenizer_torch.models.quantize import (cast_for_inference,
+                                                   quantize_llm_weights)
     from u2tokenizer_torch.models.u2_model import U2CausalLM
 
     cfg = reduced_config(num_chunks=4)
@@ -561,6 +656,9 @@ def check_reference(torch):
     cpu = U2CausalLM(cfg, dtype=torch.float32, device="cpu", seed=1)
     gpu = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
                                         device="cuda", seed=2))
+    if weights != "bf16":  # the card's model takes the quantized layout
+        quantize_llm_weights(cpu, weights)
+        quantize_llm_weights(gpu, weights)
     gpu.load_state_dict(cpu.state_dict())
 
     g = torch.Generator().manual_seed(1)
@@ -573,23 +671,24 @@ def check_reference(torch):
 
     results = {}
     for name, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
-        fn = make_multimodal_generate_fn(model, gen, "int8")
+        fn = make_multimodal_generate_fn(model, gen, cache)
         args = [x.to(dev) for x in (ids, images, qids, plen)]
         embeds = fn.embeds(*args[:3])
-        cache, tok0, done0, hidden = fn.prefill_stage(embeds, args[3])
+        kv, tok0, done0, hidden = fn.prefill_stage(embeds, args[3])
         last = hidden[torch.arange(b, device=dev), (args[3] - 1).long()]
         logits = model.lm_logits(last[:, None])[:, 0].float().cpu()
-        _, _, rest = fn.decode_steps(cache, tok0, done0, args[3], range(4))
+        _, _, rest = fn.decode_steps(kv, tok0, done0, args[3], range(4))
         results[name] = (logits, torch.cat([tok0[:, None], rest], 1).cpu())
     (ref, tok_ref), (out, tok_out) = results["cpu"], results["gpu"]
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
     agree = (tok_ref == tok_out).float().mean().item()
     if not rel <= 5e-2:
-        raise AssertionError(f"reduced model: card vs CPU logits relative "
-                             f"error {rel:.4g} over 5e-2")
-    return {"logits_rel_err": rel, "logits_tol": 5e-2,
-            "token_agreement": agree, "tokens_cpu": tok_ref.tolist(),
-            "tokens_gpu": tok_out.tolist()}
+        raise AssertionError(f"reduced model, {weights} weights, {cache} "
+                             f"cache: card vs CPU logits relative error "
+                             f"{rel:.4g} over 5e-2")
+    return {"weights": weights, "cache": cache, "logits_rel_err": rel,
+            "logits_tol": 5e-2, "token_agreement": agree,
+            "tokens_cpu": tok_ref.tolist(), "tokens_gpu": tok_out.tolist()}
 
 
 def training_batch(torch, cfg, seq: int, valid, prompt: int, seed: int = 0):
@@ -647,9 +746,7 @@ def drive_training(torch, fa, da, steps: int):
             snaps.append(snap())
             return state, metrics
 
-        for name in fa.launches:
-            fa.launches[name] = 0
-        da.launches[da.KERNEL] = 0
+        reset_launches(fa, da)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state = run_training(tcfg, state, timed_step,
@@ -657,7 +754,7 @@ def drive_training(torch, fa, da, steps: int):
                              logger=MetricLogger(out))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = {**fa.launches, **da.launches}
+        launches = read_launches(fa, da)
         peak = torch.cuda.max_memory_allocated()
         with open(f"{out}/metrics.jsonl") as f:
             records = [json.loads(line) for line in f]
@@ -959,49 +1056,60 @@ def main() -> int:
 
     kernels = [check_flash(torch, F, fa, causal=False),
                check_flash(torch, F, fa, causal=True),
-               check_decode(torch, da, attn)]
+               check_decode(torch, da, attn, 8, BATCH)]
+    int4 = check_decode(torch, da, attn, 4, QUANT_BATCH)
+    int4_b4 = check_decode(torch, da, attn, 4, BATCH)
     vit_bwd = check_flash_bwd(torch, F, fa, causal=False)
     dec_bwd = check_flash_bwd(torch, F, fa, causal=True)
-    for k in kernels + vit_bwd + dec_bwd:
+    for k in kernels + [int4, int4_b4] + vit_bwd + dec_bwd:
         print(json.dumps({"kernel_check": k}), flush=True)
-    # one entry per kernel: the ViT's call, with the decoder's beside it
+    # one entry per kernel: K3-int4 at the quantized path's batch with the
+    # B=4 call beside it; K4 at the ViT's call with the decoder's beside it
+    beside = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+    int4["max_abs_err"] = max(int4["max_abs_err"], int4_b4["max_abs_err"])
+    int4[f"batch{BATCH}_call"] = {key: int4_b4[key] for key in beside}
+    kernels.append(int4)
     for vit, dec in zip(vit_bwd, dec_bwd):
         vit["max_abs_err"] = max(vit["max_abs_err"], dec["max_abs_err"])
-        vit["decoder_call"] = {key: dec[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}
+        vit["decoder_call"] = {key: dec[key] for key in beside}
         kernels.append(vit)
+    del int4_b4, vit_bwd, dec_bwd
+    gc.collect()
+    torch.cuda.empty_cache()
     if args.kernels_only:
         return 0
 
-    main_path = drive_main_path(torch, args.max_new)
-    serve_counts = main_path["launches"]
-    vit = 12 * math.ceil(BATCH * 8 / VISION_MICROBATCH)
-    expected = {name: 0 for name in serve_counts}
-    expected.update({"flash_fwd_noncausal": vit, "flash_fwd_causal": 28,
-                     da.KERNEL: 28 * (args.max_new - 1)})
-    main_path["card"] = card
-    print(json.dumps({"main_path": main_path}), flush=True)
-    if serve_counts != expected:
-        raise AssertionError(f"launches {serve_counts} != expected "
-                             f"{expected}")
-    print(json.dumps({"reference_check": check_reference(torch)}), flush=True)
+    counts = {"serve": serve_and_check(
+        torch, da, args.max_new, BATCH, "bf16", "int8", VISION_MICROBATCH,
+        card)["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["serve_quantized"] = serve_and_check(
+        torch, da, MAX_NEW, QUANT_BATCH, QUANT_WEIGHTS, QUANT_CACHE,
+        QUANT_MICROBATCH, card)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for weights, cache in (("bf16", "int8"), ("int8", "int4"),
+                           ("int4", "int4")):
+        print(json.dumps({"reference_check": check_reference(
+            torch, weights, cache)}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
     train = drive_training(torch, fa, da, TRAIN_STEPS)
-    train_counts = train["launches"]
+    counts["train"] = train["launches"]
     # per step: the ViT's 12 layers (not rematerialised) and the decoder's
     # 28, forward again in the backward under remat
-    per_step = {name: 0 for name in train_counts}
+    per_step = {name: 0 for name in counts["train"]}
     per_step.update({"flash_fwd_noncausal": 12, "flash_fwd_causal": 56,
                      "flash_bwd_lse": 40, "flash_bwd_dq": 40,
                      "flash_bwd_dkv": 40})
     train["card"] = card
     print(json.dumps({"train_path": train}), flush=True)
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
-    if train_counts != want:
-        raise AssertionError(f"training launches {train_counts} != "
+    if counts["train"] != want:
+        raise AssertionError(f"training launches {counts['train']} != "
                              f"expected {want}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1009,8 +1117,7 @@ def main() -> int:
         torch, fa)}), flush=True)
 
     for k in kernels:
-        by_path = {"serve": serve_counts[k["name"]],
-                   "train": train_counts[k["name"]]}
+        by_path = {path: n[k["name"]] for path, n in counts.items()}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         for key in ("shape", "check", "ref_scale"):

@@ -8,8 +8,14 @@ cache slot S+i for every row, its RoPE position is the row's true
 S <= j <= S+i (the two-interval mask). Rows that emitted EOS keep emitting
 ``pad_token_id``.
 
-Not ported yet: chunked prefill, shared-prefix prefill, host-chunked
-decode, sampled decoding, fan-out and speculative decoding.
+The model may hold float or weight-only quantized decoder weights
+(``models.quantize.quantize_llm_weights``); the cache is float, int8 or
+packed int4 (``cache_dtype``), and with int8 or int4 every decode step's
+attention runs through kernel K3 on the GPU.
+
+Not ported yet: chunked prefill and decode (``prefill_chunk``,
+``decode_chunk``), shared-prefix prefill, sampled decoding, fan-out and
+speculative decoding.
 """
 
 from __future__ import annotations
@@ -103,8 +109,9 @@ class Generate:
 def make_generate_fn(model, gen: GenerationConfig,
                      cache_dtype="int8") -> Generate:
     """generate(inputs_embeds, prompt_len) -> (B, max_new) int64 tokens.
-    ``cache_dtype`` is "int8" (the serving cache, decoded by kernel K3 on
-    the GPU) or a float torch dtype."""
+    ``cache_dtype`` is "int8" or "int4" (the quantized serving caches, each
+    decoded by its form of kernel K3 on the GPU; ``bench.py`` of the JAX
+    package serves int4) or a float torch dtype."""
     return Generate(model, gen, cache_dtype)
 
 
@@ -159,7 +166,8 @@ def make_multimodal_generate_fn(model: U2CausalLM, gen: GenerationConfig,
                                 vision_microbatch: int = 128,
                                 ) -> MultimodalGenerate:
     """generate(input_ids, images, question_ids, prompt_len) -> (B, max_new)
-    int64 tokens, on the model's device."""
+    int64 tokens, on the model's device; ``cache_dtype`` as for
+    ``make_generate_fn``."""
     if gen.do_sample:
         raise NotImplementedError("sampled decoding is not ported yet")
     return MultimodalGenerate(model, gen, cache_dtype, vision_microbatch)

@@ -45,7 +45,10 @@ class U2CausalLM(nn.Module):
     another) with fp32 parameters drawn from ``seed``; every product runs
     in ``dtype``, as ``U2CausalLM(cfg, dtype)`` with ``model.init`` gives in
     the JAX package. Training updates the fp32 parameters; serving first
-    casts the matrices to ``dtype`` with ``layers.cast_for_inference``.
+    casts the matrices to ``dtype`` with ``quantize.cast_for_inference``
+    and may then quantize the decoder's weights in place with
+    ``quantize.quantize_llm_weights`` (int8 or int4), or build the model
+    with ``cfg.llm.quantized_weights`` set and load quantized weights.
     ``remat`` checkpoints each decoder layer (``DecoderModel``)."""
 
     def __init__(self, cfg: U2ModelConfig, dtype=torch.bfloat16,

@@ -86,24 +86,52 @@ def relative_position_bias(table: torch.Tensor, seq_len: int,
     return table[rel].permute(2, 0, 1)[None]
 
 
-def quantize_kv(x: torch.Tensor, eps: float = 1e-6):
-    """Per-(position, head) symmetric int8 quantization of K/V rows.
+def quantize_kv(x: torch.Tensor, eps: float = 1e-6, dtype="int8"):
+    """Per-(position, head) symmetric quantization of K/V rows.
 
-    x: (B, S, H, D) -> (int8 values, (B, S, H, 1) bf16 scales). 127 levels,
-    round half to even (``torch.round``), like ``jnp.round``."""
-    levels = 127.0
+    x: (B, S, H, D) -> (int8 values, (B, S, H, 1) bf16 scales), in ``x``'s
+    dtype until the cast, round half to even (``torch.round``), like
+    ``jnp.round``. ``dtype`` "int8" (or ``torch.int8``) takes 127 levels,
+    "int4" 7; the int4 values come back one to an int8 and are packed for
+    the cache by ``pack_nibbles``."""
+    levels = 7.0 if dtype == "int4" else 127.0
     scale = x.abs().amax(dim=-1, keepdim=True) / levels
     scale = torch.clamp(scale, min=eps)
     q = torch.clamp(torch.round(x / scale), -levels, levels).to(torch.int8)
     return q, scale.to(torch.bfloat16)
 
 
+def pack_nibbles(q: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Pack int4 values (any integer dtype, in [-8, 7]) pairwise along
+    ``dim`` into int8 bytes, the low nibble the even index: size n -> n/2.
+
+    This is the port's int4 storage, since torch has no int4 dtype. The
+    int4 KV cache holds k/v as (B, Hkv, S, D/2) int8 packed along D; the
+    int4 weights hold (ng, g/2, out) packed along the group axis, the
+    layout of the JAX package's ``pack_int4``."""
+    q = q.to(torch.int8).movedim(dim, -1)
+    packed = (q[..., 0::2] & 0x0F) | (q[..., 1::2] << 4)
+    return packed.movedim(-1, dim).contiguous()
+
+
+def unpack_nibbles(packed: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inverse of ``pack_nibbles``: int8 bytes -> int8 values in [-8, 7],
+    each nibble sign-extended, size n -> 2n along ``dim``."""
+    d = dim % packed.dim()
+    lo = ((packed & 0x0F) ^ 8) - 8  # the low nibble, sign-extended
+    hi = packed >> 4                 # an arithmetic shift sign-extends
+    return torch.stack([lo, hi], dim=d + 1).flatten(d, d + 1)
+
+
 def gqa_sdpa_quantized(q, k_int, k_scale, v_int, v_scale, *, mask=None,
                        scale: Optional[float] = None):
-    """GQA attention over the int8 head-major cache: k/v (B, Hkv, Sk, D)
-    int8 with (B, Hkv, Sk) scales. k-scales fold into the scores and
-    v-scales into the probabilities."""
+    """GQA attention over the quantized head-major cache: k/v (B, Hkv, Sk, D)
+    int8, or (B, Hkv, Sk, D/2) packed int4 (``pack_nibbles``, unpacked
+    here first), with (B, Hkv, Sk) scales. k-scales fold into the scores
+    and v-scales into the probabilities."""
     b, sq, h, d = q.shape
+    if k_int.shape[-1] != d:
+        k_int, v_int = unpack_nibbles(k_int), unpack_nibbles(v_int)
     hkv, sk = k_int.shape[1], k_int.shape[2]
     if scale is None:
         scale = 1.0 / (d ** 0.5)

@@ -1,28 +1,34 @@
-"""Single-token decode attention over the int8 KV cache: kernel K3.
+"""Single-token decode attention over the quantized KV cache: kernel K3.
 
 Replaces the Pallas kernel ``_decode_kernel`` of
-``u2tokenizer_tpu/ops/decode_attention.py``. The CUDA source is
-``u2tokenizer_torch/csrc/decode_attention.cu``; its header says what bounds
-the kernel on the H100 (bytes) and what the design does about it.
+``u2tokenizer_tpu/ops/decode_attention.py``, which serves the int8 and the
+int4 cache alike. The CUDA source
+``u2tokenizer_torch/csrc/decode_attention.cu`` has one template over the
+element width and two entries, ``decode_attention_int8`` for the int8
+cache (B, Hkv, S, D) and ``decode_attention_int4`` for the packed int4
+cache (B, Hkv, S, D/2) (``attention.pack_nibbles``: low nibble = even d);
+its header says what bounds the kernel on the H100 (bytes) and what the
+design does about it.
 
-For a CUDA tensor ``decode_attention_quantized`` launches the kernel or
-raises; for a CPU tensor it computes ``decode_attention_reference``, the
-plain version of the same function. ``launches["decode_attention_int8"]``
-counts kernel launches.
+For a CUDA tensor ``decode_attention_quantized`` launches the entry that
+the cache's last dimension names, or raises; for a CPU tensor it computes
+``decode_attention_reference``, the plain version of the same function.
+``launches[name]`` counts each entry's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from . import _build
-from .attention import gqa_sdpa_quantized
+from .attention import _scalar, unpack_nibbles
 
-KERNEL = "decode_attention_int8"
-launches = {KERNEL: 0}
+KERNELS = {8: "decode_attention_int8", 4: "decode_attention_int4"}
+launches = {name: 0 for name in KERNELS.values()}
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100
 
 
@@ -37,15 +43,30 @@ def visible_keys(prompt_len, end, s_prompt: int, sk: int) -> torch.Tensor:
 def decode_attention_reference(q, k_int, k_scale, v_int, v_scale, prompt_len,
                                end, s_prompt: int,
                                scale: Optional[float] = None):
-    """Plain version: the quantized GQA attention under the two-interval
-    decode mask."""
-    visible = visible_keys(prompt_len, end, s_prompt, k_int.shape[2])
-    return gqa_sdpa_quantized(q, k_int, k_scale, v_int, v_scale,
-                              mask=visible[:, None, None, :], scale=scale)
+    """Plain version, over the int8 or the packed int4 cache, in the
+    kernel's (and the TPU kernel's) order of rounding: q times the scale in
+    q's dtype, scores in fp32 with the k-scale folded in, the softmax over
+    the visible keys in fp32, the probabilities times the v-scale rounded
+    to q's dtype, the value sum in fp32, the output in q's dtype."""
+    b, _, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / d ** 0.5
+    if k_int.shape[-1] != d:
+        k_int, v_int = unpack_nibbles(k_int), unpack_nibbles(v_int)
+    hkv, sk = k_int.shape[1], k_int.shape[2]
+    qs = (q * _scalar(scale, q.dtype)).float().reshape(b, hkv, h // hkv, d)
+    scores = torch.einsum("bhgd,bhkd->bhgk", qs, k_int.float())
+    scores = scores * k_scale.float()[:, :, None, :]
+    visible = visible_keys(prompt_len, end, s_prompt, sk)
+    scores = scores.masked_fill(~visible[:, None, None, :], -math.inf)
+    p = torch.softmax(scores, dim=-1) * v_scale.float()[:, :, None, :]
+    out = torch.einsum("bhgk,bhkd->bhgd", p.to(q.dtype).float(),
+                       v_int.float())
+    return out.to(q.dtype).reshape(b, 1, h, d)
 
 
-def _entry():
-    fn = getattr(_build.library("decode_attention"), KERNEL)
+def _entry(name: str):
+    fn = getattr(_build.library("decode_attention"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
@@ -54,14 +75,21 @@ def _entry():
     return fn
 
 
-def _decode_cuda(q, k_int, k_scale, v_int, v_scale, prompt_len, end,
-                 s_prompt: int, scale: float):
+def check_operands(q, k_int, k_scale, v_int, v_scale, prompt_len,
+                   end) -> str:
+    """What the kernel takes, checked before a launch: returns the entry's
+    name (``KERNELS``), or raises on a dtype, shape, layout or size it does
+    not take."""
     b, one, h, d = q.shape
-    hkv, sk = k_int.shape[1], k_int.shape[2]
+    hkv, sk, row = k_int.shape[1:]
+    if row not in (d, d // 2):
+        raise ValueError(f"decode attention: a cache row of {row} bytes is "
+                         f"neither int8 nor packed int4 at D={d}")
+    bits = 8 * row // d
     expect = (
         (q, torch.bfloat16, (b, 1, h, d)),
-        (k_int, torch.int8, (b, hkv, sk, d)),
-        (v_int, torch.int8, (b, hkv, sk, d)),
+        (k_int, torch.int8, (b, hkv, sk, row)),
+        (v_int, torch.int8, (b, hkv, sk, row)),
         (k_scale, torch.bfloat16, (b, hkv, sk)),
         (v_scale, torch.bfloat16, (b, hkv, sk)),
         (prompt_len, torch.int32, (b,)),
@@ -80,26 +108,35 @@ def _decode_cuda(q, k_int, k_scale, v_int, v_scale, prompt_len, end,
     if d not in (64, 128) or h % hkv or group not in (1, 2, 4, 8):
         raise ValueError(f"decode attention: D={d}, H={h}, Hkv={hkv} not "
                          "supported (D in 64/128, group in 1/2/4/8)")
-    smem = (group * sk + (256 // (d // 16)) * group * d) * 4
+    smem = (group * sk + 8 * group * d) * 4  # scores + 8 warps' partials
     if smem > SMEM_LIMIT:
         raise ValueError(f"decode attention: cache length {sk} needs {smem} "
                          "bytes of shared memory")
+    return KERNELS[bits]
+
+
+def _decode_cuda(q, k_int, k_scale, v_int, v_scale, prompt_len, end,
+                 s_prompt: int, scale: float):
+    name = check_operands(q, k_int, k_scale, v_int, v_scale, prompt_len, end)
+    b, _, h, d = q.shape
+    hkv, sk = k_int.shape[1], k_int.shape[2]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry()(q.data_ptr(), k_int.data_ptr(), k_scale.data_ptr(),
+    err = _entry(name)(q.data_ptr(), k_int.data_ptr(), k_scale.data_ptr(),
                    v_int.data_ptr(), v_scale.data_ptr(), prompt_len.data_ptr(),
                    end.data_ptr(), out.data_ptr(), b, h, hkv, sk, d,
                    int(s_prompt), scale, stream)
-    _build.check(err, KERNEL)
-    launches[KERNEL] += 1
+    _build.check(err, name)
+    launches[name] += 1
     return out
 
 
 def decode_attention_quantized(q, k_int, k_scale, v_int, v_scale,
                                prompt_len, end, s_prompt: int,
                                scale: Optional[float] = None):
-    """q (B, 1, H, D); k/v (B, Hkv, S, D) int8 head-major cache; scales
-    (B, Hkv, S) bf16; prompt_len, end (B,) int32 -> (B, 1, H, D)."""
+    """q (B, 1, H, D); k/v the head-major cache, (B, Hkv, S, D) int8 or
+    (B, Hkv, S, D/2) packed int4; scales (B, Hkv, S) bf16; prompt_len,
+    end (B,) int32 -> (B, 1, H, D)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":

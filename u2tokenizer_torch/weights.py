@@ -7,12 +7,18 @@ entry into the parameter of the same path. The port's module tree mirrors
 the flax tree, so the path maps one to one, with three renames:
 
   * ``name_<i>`` (flax's list naming) -> ``name.<i>`` (an ``nn.ModuleList``);
-  * a ``Dense`` kernel (in, out) -> ``weight`` (out, in), transposed;
+  * a ``Dense`` kernel (in, out) -> ``weight`` (out, in), transposed; this
+    holds for the int8 kernel of a quantized ``QDense`` too, while its
+    packed int4 kernel (ng, g/2, out) keeps the JAX package's layout;
   * a ``LayerNorm`` ``scale`` -> ``weight``.
 
-Every other leaf keeps its name and layout. Values are cast to each
-parameter's dtype. The load is strict: an entry with no parameter, a shape
-that differs, or a parameter left unfilled raises.
+Every other leaf keeps its name and layout, the quantized trees' ``scale``
+and ``embed_scale`` included. Integer leaves (the int8 and packed int4
+kernels, the int8 embedding table) are copied as integers and float leaves
+are cast to each parameter's float dtype; a model built without quantized
+weights refuses a quantized tree. The load is strict: an entry with no
+parameter, a shape or kind (integer or float) that differs, or a parameter
+left unfilled raises.
 
 ``flax_path`` maps the other way, so that a trainable filter written for
 the JAX package's gradient paths (``fn("params/vision_tower/...") ->
@@ -48,7 +54,7 @@ def torch_name(flax_path: str, modules: Mapping[str, nn.Module]):
     owner = modules.get(".".join(parts))
     transpose = False
     if leaf == "kernel" and isinstance(owner, Dense):
-        leaf, transpose = "weight", True
+        leaf, transpose = "weight", owner.weight.dim() == 2
     elif leaf == "scale" and isinstance(owner, LayerNorm):
         leaf = "weight"
     return ".".join(parts + [leaf]), transpose
@@ -63,13 +69,20 @@ def load_flax_params(model: nn.Module, flat: Mapping[str, object]) -> None:
         name, transpose = torch_name(path, modules)
         if name not in params:
             raise KeyError(f"{path}: the port has no parameter {name!r}")
-        src = torch.from_numpy(np.array(value, dtype=np.float32))
+        arr = np.asarray(value)
+        if arr.dtype.kind not in "biu":  # float leaves, bf16 included
+            arr = arr.astype(np.float32)
+        src = torch.from_numpy(np.array(arr))
         if transpose:
             src = src.t()
         dst = params[name]
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{path}: shape {tuple(src.shape)} does not fit "
                              f"{name} {tuple(dst.shape)}")
+        if src.is_floating_point() != dst.is_floating_point():
+            raise TypeError(f"{path}: {src.dtype} does not fit {name} "
+                            f"{dst.dtype} (quantized weights need a model "
+                            "built with cfg.llm.quantized_weights)")
         dst.copy_(src.to(dtype=dst.dtype, device=dst.device))
         filled.add(name)
     missing = sorted(set(params) - filled)
