@@ -12,7 +12,10 @@ Run from the root of a checkout. It
      in one row, shows that the same limits reject a mask off by one key
      (and, for K3's int4 form, nibbles swapped or read unsigned), and times
      the kernel, the plain version and, where one PyTorch call computes the
-     same function, that call (CUDA events, median of 7);
+     same function, that call (CUDA events, median of 7); the flash
+     backward also at the training path's own decoder call (B=1) and at
+     two small shapes on the edges of its 64-row tiles, and one line sets
+     K4b + K4c beside SDPA's whole backward at each call;
   3. drives the serving path twice, each time full-width μ²Qwen3-1.7B with
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
@@ -191,26 +194,42 @@ def compare(torch, out, ref, name: str, mutants, mass=None) -> dict:
             "mutants": caught}
 
 
-def attention_inputs(torch, causal: bool, seed: int):
-    """q, k, v and lens at a call of the main paths: the ViT's (8 chunks,
-    2049 tokens, 12 heads of 64, q/k/v strided views of the fused qkv,
-    lens (2049 x7, 1777)) or the decoder's (4 rows, 1024 tokens, 16 q / 8
-    kv heads of 128, lens (1024 x3, 900))."""
+# Attention calls of the main paths: the ViT's (8 chunks, 2049 tokens, 12
+# heads of 64, q/k/v strided views of the fused qkv), the decoder's prefill
+# (4 rows, 1024 tokens, 16 q / 8 kv heads of 128) and the training path's
+# decoder call (one row of 1024, 900 valid). The flash backward is also
+# held at two small shapes at the edges of its 64-row tiles: 193 = 3*64 + 1
+# tokens (one row into a tile), rows valid for 65 and 63 keys (one past and
+# one short of a tile) and the last for 128 (a tile boundary, so the lens
+# mutants cross it), at group 1 with fused q/k/v and at group 2.
+VIT_CALL = dict(causal=False, b=VISION_MICROBATCH, s=2049, h=12, hkv=12,
+                d=64, lens=[2049] * (VISION_MICROBATCH - 1) + [1777],
+                fused=True)
+PREFILL_CALL = dict(causal=True, b=BATCH, s=PROMPT, h=16, hkv=8, d=128,
+                    lens=[PROMPT] * (BATCH - 1) + [RAGGED], fused=False)
+TRAIN_DECODER_CALL = dict(PREFILL_CALL, b=1, lens=[TRAIN_VALID])
+EDGE_CALLS = [dict(causal=False, b=3, s=193, h=2, hkv=2, d=64,
+                   lens=[65, 63, 128], fused=True),
+              dict(causal=True, b=3, s=193, h=4, hkv=2, d=128,
+                   lens=[65, 63, 128], fused=False)]
+
+
+def attention_inputs(torch, call: dict, seed: int):
+    """q, k, v, lens (a list) and lens_t (int32 on the card) at ``call``,
+    from a seeded generator, which is returned too."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if causal:
-        b, s, h, hkv, d = BATCH, PROMPT, 16, 8, 128
-        q = torch.randn(b, s, h, d, generator=g, device="cuda",
-                        dtype=torch.bfloat16)
-        k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda",
-                            dtype=torch.bfloat16) for _ in range(2))
-        lens = [s] * (b - 1) + [RAGGED]
-    else:
-        b, s, h, d = VISION_MICROBATCH, 2049, 12, 64
+    b, s, h, hkv, d = (call[key] for key in ("b", "s", "h", "hkv", "d"))
+    if call["fused"]:
         qkv = torch.randn(b, s, 3 * h * d, generator=g, device="cuda",
                           dtype=torch.bfloat16)
         q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
                    for i in range(3))
-        lens = [s] * (b - 1) + [1777]
+    else:
+        q = torch.randn(b, s, h, d, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+    lens = list(call["lens"])
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     return q, k, v, lens, lens_t, g
 
@@ -224,8 +243,9 @@ def visible_pairs(causal: bool, s: int, lens) -> int:
 
 
 def check_flash(torch, F, fa, causal: bool):
-    """K1 at the ViT's call or K2 at the prefill (``attention_inputs``)."""
-    q, k, v, lens, lens_t, _ = attention_inputs(torch, causal, 1 + causal)
+    """K1 at the ViT's call or K2 at the prefill."""
+    q, k, v, lens, lens_t, _ = attention_inputs(
+        torch, PREFILL_CALL if causal else VIT_CALL, 1 + causal)
     b, s, h, d = q.shape
     hkv = k.shape[2]
     name = fa.KERNELS[int(causal)]
@@ -268,13 +288,48 @@ def check_flash(torch, F, fa, causal: bool):
             "shape": {"q": list(q.shape), "k": list(k.shape), "lens": lens}}
 
 
-def check_flash_bwd(torch, F, fa, causal: bool):
-    """K4a, K4b and K4c at the training path's calls (shapes of
-    ``attention_inputs``, dO from a seeded generator), each against its
-    plain version on the same lse and dd. Returns three kernel entries;
-    their ``library_ms`` is SDPA's whole backward (dq, dk and dv together)
-    with the same mask."""
-    q, k, v, lens, lens_t, g = attention_inputs(torch, causal, 4 + causal)
+def time_flash_bwd(torch, F, fa, q, k, v, do, lse, dd, lens_t, kw):
+    """CUDA-event times (ms) of K4a, K4b and K4c, of their plain versions,
+    and of SDPA's whole backward with the same mask."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    causal = kw["causal"]
+    args = (q, k, v, do, lse, dd)
+    ms = {"lse": time_ms(torch, lambda: fa.flash_bwd_lse(q, k, lens_t, **kw)),
+          "dq": time_ms(torch, lambda: fa.flash_bwd_dq(*args, lens_t, **kw)),
+          "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(*args, lens_t,
+                                                         **kw))}
+    plain_ms = {
+        "lse": time_ms(torch, lambda: fa.flash_bwd_lse_reference(
+            q, k, lens_t, **kw), reps=3),
+        "dq": time_ms(torch, lambda: fa.flash_bwd_dq_reference(
+            *args, lens_t, **kw), reps=3),
+        "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_reference(
+            *args, lens_t, **kw), reps=3)}
+    keys = torch.arange(s, device="cuda")
+    mask = (keys[None, :] < lens_t[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (keys[None, :] <= keys[:, None])[None, None]
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                       enable_gqa=hkv != h)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True))
+    del o, qt, kt, vt
+    return ms, plain_ms, library_ms
+
+
+def check_flash_bwd(torch, F, fa, call: dict, seed: int,
+                    timed: bool = True):
+    """K4a, K4b and K4c at ``call`` (``attention_inputs``; dO from the same
+    seeded generator), each against its plain version on the same lse and
+    dd. Returns three kernel entries; their ``library_ms`` is SDPA's whole
+    backward (dq, dk and dv together) with the same mask. With ``timed``
+    False only the checks run and the times are None."""
+    causal = call["causal"]
+    q, k, v, lens, lens_t, g = attention_inputs(torch, call, seed)
     b, s, h, d = q.shape
     hkv = k.shape[2]
     scale = 1.0 / d ** 0.5
@@ -323,29 +378,11 @@ def check_flash_bwd(torch, F, fa, causal: bool):
                 for name, ref in (("lse", lse_ref), ("dq", dq_ref),
                                   ("dk", dk_ref), ("dv", dv_ref))}
 
-    ms = {"lse": time_ms(torch, lambda: fa.flash_bwd_lse(q, k, lens_t, **kw)),
-          "dq": time_ms(torch, lambda: fa.flash_bwd_dq(*args, lens_t, **kw)),
-          "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(*args, lens_t,
-                                                         **kw))}
-    plain_ms = {
-        "lse": time_ms(torch, lambda: fa.flash_bwd_lse_reference(
-            q, k, lens_t, **kw), reps=3),
-        "dq": time_ms(torch, lambda: fa.flash_bwd_dq_reference(
-            *args, lens_t, **kw), reps=3),
-        "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_reference(
-            *args, lens_t, **kw), reps=3)}
-    keys = torch.arange(s, device="cuda")
-    mask = (keys[None, :] < lens_t[:, None])[:, None, None, :]
-    if causal:
-        mask = mask & (keys[None, :] <= keys[:, None])[None, None]
-    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                       enable_gqa=hkv != h)
-    dot = do.transpose(1, 2).contiguous()
-    library_ms = time_ms(torch, lambda: torch.autograd.grad(
-        o, (qt, kt, vt), dot, retain_graph=True))
-    del o, qt, kt, vt
+    ms = plain_ms = {"lse": None, "dq": None, "dkv": None}
+    library_ms = None
+    if timed:
+        ms, plain_ms, library_ms = time_flash_bwd(torch, F, fa, q, k, v, do,
+                                                  lse_ref, dd, lens_t, kw)
 
     seen = visible_pairs(causal, s, lens)
     q_bytes, kv_bytes, stat_bytes = 2.0 * b * s * h * d, \
@@ -376,6 +413,23 @@ def check_flash_bwd(torch, F, fa, causal: bool):
             "ref_scale": {part: scale_of[part] for part in parts},
             "shape": shape})
     return entries
+
+
+def flash_bwd_summary(calls: dict) -> dict:
+    """Per call: K4b + K4c against SDPA's whole backward, and each
+    kernel's share of its bound (bound_ms / ms)."""
+    out = {}
+    for label, (lse, dq, dkv) in calls.items():
+        pair = dq["ms"] + dkv["ms"]
+        out[label] = {"k4b_ms": dq["ms"], "k4c_ms": dkv["ms"],
+                      "k4a_ms": lse["ms"], "k4b_plus_k4c_ms": pair,
+                      "sdpa_backward_ms": dq["library_ms"],
+                      "k4b_plus_k4c_over_sdpa": pair / dq["library_ms"],
+                      "k4b_share_of_bound": dq["bound_ms"] / dq["ms"],
+                      "k4c_share_of_bound": dkv["bound_ms"] / dkv["ms"],
+                      "k4a_share_of_bound": lse["bound_ms"] / lse["ms"],
+                      "shape": dq["shape"]}
+    return out
 
 
 def nibbles(p, torch, order: str):
@@ -761,7 +815,8 @@ def drive_training(torch, fa, da, steps: int):
         ckpt_bytes = sum(e.stat().st_size for e in os.scandir(
             f"{out}/checkpoints/{steps}"))
         device_batch = {k: v.to("cuda") for k, v in batch.items()}
-        profile = profile_train_step(torch, state, train_step, device_batch)
+        profile = profile_train_step(torch, fa, state, train_step,
+                                     device_batch)
     del state, model, train_step, device_batch
 
     losses = [r["loss"] for r in records]
@@ -795,11 +850,14 @@ def drive_training(torch, fa, da, steps: int):
             "step_profile": profile}
 
 
-def profile_train_step(torch, state, train_step, batch):
+def profile_train_step(torch, fa, state, train_step, batch):
     """torch.profiler over one train step: the card's busy share of its
-    wall clock and device time by kernel, with the flash backward's share."""
+    wall clock and device time by kernel, with the flash backward's share
+    (its kernels matched by their ``__global__`` names); raises if that
+    share reads 0 while the step launched K4."""
     from torch.profiler import ProfilerActivity, profile
 
+    before = read_launches(fa)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -812,10 +870,17 @@ def profile_train_step(torch, state, train_step, batch):
     share = lambda *keys: sum(t for n, t in by_name.items()
                               if any(k in n for k in keys)) / max(busy_us, 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    bwd_launches = sum(n - before[name] for name, n in read_launches(
+        fa).items() if name in fa.BWD_KERNELS)
+    bwd_share = share("lse_kernel", "dq_kernel", "dkv_kernel")
+    if bwd_launches and not bwd_share:
+        raise AssertionError(f"the profiled step launched K4 {bwd_launches} "
+                             f"times but no kernel named lse_kernel, "
+                             f"dq_kernel or dkv_kernel took device time")
     return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
-            "kernels": len(kernels),
-            "flash_bwd_share": share("lse_kernel", "dq_kernel", "dkv_kernel"),
+            "kernels": len(kernels), "flash_bwd_launches": bwd_launches,
+            "flash_bwd_share": bwd_share,
             "flash_fwd_share": share("flash_fwd_kernel"),
             "top_device_ms": {n: t / 1e3 for n, t in top}}
 
@@ -1059,22 +1124,34 @@ def main() -> int:
                check_decode(torch, da, attn, 8, BATCH)]
     int4 = check_decode(torch, da, attn, 4, QUANT_BATCH)
     int4_b4 = check_decode(torch, da, attn, 4, BATCH)
-    vit_bwd = check_flash_bwd(torch, F, fa, causal=False)
-    dec_bwd = check_flash_bwd(torch, F, fa, causal=True)
-    for k in kernels + [int4, int4_b4] + vit_bwd + dec_bwd:
+    vit_bwd = check_flash_bwd(torch, F, fa, VIT_CALL, 4)
+    dec_bwd = check_flash_bwd(torch, F, fa, PREFILL_CALL, 5)
+    b1_bwd = check_flash_bwd(torch, F, fa, TRAIN_DECODER_CALL, 6)
+    edge_bwd = [e for i, call in enumerate(EDGE_CALLS)
+                for e in check_flash_bwd(torch, F, fa, call, 7 + i,
+                                         timed=False)]
+    for k in (kernels + [int4, int4_b4] + vit_bwd + dec_bwd + b1_bwd
+              + edge_bwd):
         print(json.dumps({"kernel_check": k}), flush=True)
+    print(json.dumps({"flash_bwd_calls": flash_bwd_summary(
+        {"vit": vit_bwd, "decoder": dec_bwd, "decoder_b1": b1_bwd}),
+        "card": card}), flush=True)
     # one entry per kernel: K3-int4 at the quantized path's batch with the
-    # B=4 call beside it; K4 at the ViT's call with the decoder's beside it
+    # B=4 call beside it; K4 at the ViT's call with the decoder's (B=4, and
+    # the training path's B=1) beside it, its error the largest of all the
+    # K4 checks
     beside = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     int4["max_abs_err"] = max(int4["max_abs_err"], int4_b4["max_abs_err"])
     int4[f"batch{BATCH}_call"] = {key: int4_b4[key] for key in beside}
     kernels.append(int4)
-    for vit, dec in zip(vit_bwd, dec_bwd):
-        vit["max_abs_err"] = max(vit["max_abs_err"], dec["max_abs_err"])
+    for i, (vit, dec, b1) in enumerate(zip(vit_bwd, dec_bwd, b1_bwd)):
+        vit["max_abs_err"] = max(e["max_abs_err"] for e in
+                                 (vit, dec, b1, *edge_bwd[i::3]))
         vit["decoder_call"] = {key: dec[key] for key in beside}
+        vit["decoder_call_b1"] = {key: b1[key] for key in beside}
         kernels.append(vit)
-    del int4_b4, vit_bwd, dec_bwd
+    del int4_b4, vit_bwd, dec_bwd, b1_bwd, edge_bwd
     gc.collect()
     torch.cuda.empty_cache()
     if args.kernels_only:

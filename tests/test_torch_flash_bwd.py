@@ -35,8 +35,17 @@ CASES = [
     (False, 2, 129, 4, 2, 32, [129, 70]),      # GQA 2, padded query rows
     (True, 1, 129, 2, 2, 32, None),
     (True, 2, 129, 4, 2, 32, [129, 100]),      # GQA 2, ragged lens
+    # the edges of the CUDA kernels' 64-row tiles: 193 = 3*64 + 1 rows end
+    # one row into a tile and 191 one row before one; lens one past, one
+    # short of and at a tile boundary (128), as chip_smoke.py's EDGE_CALLS
+    (False, 3, 193, 2, 2, 32, [65, 63, 128]),
+    (False, 3, 191, 4, 2, 32, [129, 127, 191]),
+    (True, 3, 193, 4, 2, 32, [65, 63, 128]),
+    (True, 3, 191, 2, 2, 32, [129, 127, 191]),
 ]
-IDS = ["noncausal", "noncausal-gqa-lens", "causal", "causal-gqa-lens"]
+IDS = ["noncausal", "noncausal-gqa-lens", "causal", "causal-gqa-lens",
+       "noncausal-tile-edge", "noncausal-gqa-tile-edge",
+       "causal-gqa-tile-edge", "causal-tile-edge"]
 
 
 def _rand(shape, seed):

@@ -16,29 +16,76 @@
 // K4a does 2*D FLOP (QK^T), K4b 6*D (QK^T, dO V^T, dS K) and K4c 8*D (the
 // same two score products again, P^T dO and dS^T Q), against O(S*D) bytes;
 // at the training shapes (ViT 2049 tokens, D = 64; decoder 1024 tokens,
-// D = 128) each is far above the card's ~295 FLOP/byte ridge. The design is
-// the simple one: 64-row tiles, 4 warps per block, bf16 WMMA (mma.sync) with
-// fp32 accumulation, scores and probabilities staged in shared memory.
-//   * K4a: one block per (64-row q tile, head, batch) walks K in 64-key
-//     tiles up to lens[b] and the causal frontier with an fp32 running
-//     max and sum.
-//   * K4b: one block per (q tile, head, batch) holds the Q and dO tiles in
-//     shared memory; for each K/V tile it forms S and dP, then dS, and
-//     accumulates dS K in registers (WMMA fragments); one scale at the end.
-//   * K4c: one block per (64-key tile, kv head, batch) holds its K and V
-//     tiles and walks the group's q heads, and for each the q tiles from the
-//     causal frontier on, accumulating dV and dK in fp32 shared memory. The
-//     GQA group is summed inside the block, as on the TPU, so no atomics are
-//     needed and the result is deterministic. A block whose keys all lie at
-//     or past lens[b] writes zeros without reading anything else.
-// P and dS are rounded to bf16 before their products (the TPU kernel takes
-// them in fp32). Tiles past lens[b] are skipped, the ragged edge (2049 =
-// 32*64 + 1) is masked in the kernel, nothing is padded on the host, and
-// rows past the sequence are never written.
+// D = 128) each is far above the card's ~295 FLOP/byte ridge. So K4b and
+// K4c keep the tensor cores on wgmma, every fp32 intermediate in registers,
+// and the copies off the threads that compute.
 //
-// Not yet done (later work): wgmma and TMA, register-resident dK/dV,
-// fusing K4a into K4b.
+// K4b and K4c: one warpgroup (4 warps, 128 threads) a block, 64-row tiles.
+//   * K4c: a block owns 64 keys of one kv head (grid: key tiles, kv heads,
+//     batch). K and V stay in shared memory; the block walks the GQA
+//     group's q heads and, for each, the q tiles from the causal frontier
+//     on. Per q tile: S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 with
+//     both operands in shared memory, into registers (fp32, 32 a thread
+//     each); P^T and dS^T formed in registers from lse and dd staged with
+//     the tile and rounded to bf16; then dV += P^T dO and dK += dS^T Q by
+//     wgmma m64nDk16 with P^T / dS^T as the register A operand (wgmma's
+//     accumulator layout of 16 columns is its A layout) and dO / Q read
+//     MN-major from the same tiles. dK and dV (D/2 fp32 each a thread) stay
+//     in registers for the whole walk; no fp32 tile goes through shared
+//     memory. The group is summed inside the block: no atomics,
+//     deterministic.
+//   * K4b: a block owns 64 query rows of one head. Q and dO stay in shared
+//     memory; per K/V tile, S = Q K^T and dP = dO V^T into registers, dS in
+//     registers, dQ += dS K with dS as the register A operand; dQ stays in
+//     registers until the scaled bf16 store.
+//   * In an iteration S and dP are separate wgmma groups: P is formed while
+//     dP is in flight, and in K4c dV += P^T dO runs while dS^T is formed.
+//   * Copies: TMA. Thread 0 asks for each 64-row tile (one 64 x 64 box per
+//     64 columns of the head dim, 128-byte swizzled as wgmma reads it; rows
+//     past the sequence arrive as zeros) and an mbarrier reports its bytes.
+//     Two stages: K4c's Q/dO tiles, K4b's K/V tiles; the next tile is in
+//     flight while this one is used. K4c's lse and dd (64 fp32 each, whose
+//     rows need not be 16-byte aligned) come by 4-byte cp.async, one value
+//     a thread. The threads that compute spend no instructions on the
+//     tiles' copies, where this design's first version, with per-thread
+//     16-byte cp.async, stalled on issuing them (PERF.md, PR 4).
+//   * Shared memory per block, registers a thread (ptxas, CUDA 12.9,
+//     causal / non-causal, no spills), blocks per SM (of 232,448 B and
+//     65,536 registers):
+//       K4b  D=64   50,200 B  122 / 122  4      D=128   99,352 B  156 / 154  2
+//       K4c  D=64   51,224 B  168 / 161  3      D=128  100,376 B  236 / 230  2
+//     where PR 2's fp32 staging (K4c 125,440 / 190,976 B) allowed one K4c
+//     block. K4c at D=128 holds 128 accumulator floats, S^T and dP^T (64)
+//     and the bf16 P^T and dS^T operands (32) a thread.
+//   * Masks: only tiles that cross lens[b], the sequence end or the causal
+//     diagonal test each (query, key) pair; a masked pair gets P = 0. A
+//     K4c block whose keys all lie at or past lens[b] writes zeros without
+//     reading anything else; rows past the sequence are never written.
+//   * Grid order, and the B=1 decoder call (16 key tiles x 8 kv heads =
+//     128 K4c blocks on 132 SMs; under the causal mask key tile 0 walks 2 x
+//     16 q tiles and the last 2 x 1). Two options were weighed: ordering
+//     the grid so the longest tiles start first, or splitting a key tile's
+//     q range over two blocks and summing the two fp32 partial dK/dV in a
+//     fixed order. Chosen: ordering (block_of_grid). Under the causal mask
+//     the blocks run tile-major, the costliest tile of every head first,
+//     so the short tiles fill in behind (the B=4 decoder call has 512 K4c
+//     blocks for 264 slots). The split would need a (2, B, Sk, Hkv, D) fp32
+//     scratch and a second pass over it, a launch that K4c's count and the
+//     TPU kernel do not have; at B=1 every block is resident at once, so
+//     the call lasts as long as tile 0's walk (PERF.md gives its time).
+// P and dS are rounded to bf16 before their products (the TPU kernel takes
+// them in fp32). Nothing is padded on the host.
+//
+// K4a is PR 2's simple design: one block per (64-row q tile, head, batch)
+// walks K in 64-key tiles up to lens[b] and the causal frontier with an
+// fp32 running max and sum, bf16 WMMA, scores staged in shared memory.
+//
+// Not yet done (later work): a producer warp with setmaxnreg and two
+// consumer warpgroups taking turns (so that one's exp overlaps the other's
+// wgmma), the B=1 split above, K4a's redesign and its removal by saving
+// lse in the forward.
 
+#include <cuda.h>  // CUtensorMap; its encoder is fetched from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -55,26 +102,23 @@ constexpr int NWARPS = 4;     // each warp owns 16 rows of the block's tile
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float MASKED = -1e30f;  // the TPU kernel's NEG_INF for masked keys
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-
 struct Strides {  // in elements: batch, sequence, head
   long long b, s, h;
 };
 
+// ---------------------------------------------------------------- K4a ----
+
 template <int D>
 struct Dims {
-  static constexpr int LDH = D + 8;   // bf16 tile row stride (Q, K, V, dO)
+  static constexpr int LDH = D + 8;   // bf16 tile row stride (Q, K)
   static constexpr int LDS = 64 + 4;  // fp32 score row stride
-  static constexpr int LDP = 64 + 8;  // bf16 probability row stride
-  static constexpr int LDO = D + 4;   // fp32 accumulator row stride
   static constexpr size_t tile = size_t(64) * LDH * 2;
   static constexpr size_t score = size_t(64) * LDS * 4;
-  static constexpr size_t prob = size_t(64) * LDP * 2;
-  static constexpr size_t accum = size_t(64) * LDO * 4;
 };
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
 
 // Copy rows [row0, row0 + 64) of a (rows, D) bf16 matrix with the given row
 // stride into a shared tile; rows at or past `limit` are zero-filled.
@@ -114,28 +158,6 @@ __device__ __forceinline__ void mm_abt(float* c, const bf16* a, const bf16* b) {
     wmma::store_matrix_sync(c + nf * 16, acc, Dims<D>::LDS, wmma::mem_row_major);
   }
 }
-
-// c (16 x D fp32 in shared memory, row stride LDO) += a (16 x 64 bf16, row
-// stride LDP) . b (64 x D bf16, row stride LDH).
-template <int D>
-__device__ __forceinline__ void mm_ab_acc(float* c, const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int nf = 0; nf < D / 16; ++nf) {
-    Acc acc;
-    wmma::load_matrix_sync(acc, c + nf * 16, Dims<D>::LDO, wmma::mem_row_major);
-#pragma unroll
-    for (int kf = 0; kf < 4; ++kf) {
-      FragA fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, a + kf * 16, Dims<D>::LDP);
-      wmma::load_matrix_sync(fb, b + kf * 16 * Dims<D>::LDH + nf * 16, Dims<D>::LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + nf * 16, acc, Dims<D>::LDO, wmma::mem_row_major);
-  }
-}
-
-// ---------------------------------------------------------------- K4a ----
 
 template <int D>
 struct LseLayout {
@@ -207,238 +229,574 @@ lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse[((long long)b * gridDim.y + h) * sq + q_idx] = m_run + logf(fmaxf(l_run, 1e-30f));
 }
 
+// ------------------------------------------- K4b and K4c: building blocks ----
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes from global to shared memory, asynchronously; zero-filled when
+// !ok (src is then any valid address and is not read).
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed cp.async groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// An mbarrier in shared memory that completes a phase when one arrival and
+// the bytes of the TMA copies it was told to expect have come in.
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// Tiles in shared memory: 64 rows of D bf16 values, as D/64 column blocks
+// of 64 rows x 128 bytes, each block 1024-byte aligned, the 16-byte chunk j
+// of row r stored at chunk j ^ (r % 8) of its row: the 128-byte swizzle in
+// which TMA writes a box and wgmma reads an operand. One layout serves a
+// tile both as a K-major operand (the head dim summed: S = Q K^T) and as an
+// MN-major one (rows summed: dV = P^T dO).
+template <int D>
+struct Tile {
+  static constexpr int bytes = 64 * D * 2;
+  static constexpr int block = 64 * 128;  // one column block
+};
+
+// Rows [row0, row0 + 64) of head `head` of batch `b` into the tile at
+// shared address `dst` by TMA (one 64 x 64 box per column block; rows past
+// the sequence arrive as zeros), completing on `bar`. One thread issues it.
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned dst, const CUtensorMap& map, int row0,
+                                         int head, int b, unsigned bar) {
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst + cb * Tile<D>::block),
+        "l"(reinterpret_cast<uint64_t>(&map)), "r"(cb * 64), "r"(head), "r"(row0), "r"(b),
+        "r"(bar)
+        : "memory");
+}
+
+// wgmma shared-memory descriptors (128-byte swizzle; the tile 1024-byte
+// aligned). K-major, for the k-th 16 columns of the head dim: rows 128
+// bytes apart, groups of 8 rows 1024 apart. MN-major, for rows 16k..16k+15
+// of the tile taken as the summed (K) dimension and the head dim as N:
+// groups of 8 rows 1024 apart (SBO), column blocks Tile::block apart (LBO).
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(unsigned tile, int k) {
+  return smem_desc(tile + (k / 4) * Tile<D>::block + (k % 4) * 32, 16, 1024);
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(unsigned tile, int k) {
+  return smem_desc(tile + k * 16 * 128, Tile<D>::block, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the wgmma.wait_group that makes it valid.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// d (64 x N fp32 over the warpgroup) += a . b for one k-step of 16: the
+// warp w of the group holds rows 16w + lane/4 and 16w + lane/4 + 8, the
+// m16n8 accumulator layout of mma.sync for each 8 columns. _ss: a and b
+// K-major from shared memory; _rs: a (16 rows a warp, bf16, the m16k16 A
+// layout) from registers, b MN-major from shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[8][4], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128_t(float (&d)[16][4], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[D / 8][4], const unsigned (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_t<64>(float (&d)[8][4], const unsigned (&a)[4], uint64_t b) {
+  wgmma_rs_n64_t(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[16][4], const unsigned (&a)[4], uint64_t b) {
+  wgmma_rs_n128_t(d, a, b);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+}
+
+// c (64 x 64) += a . b^T over the head dim, a and b 64-row tiles.
+template <int D>
+__device__ __forceinline__ void scores(float (&c)[8][4], unsigned a, unsigned b) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) wgmma_ss_n64(c, desc_k<D>(a, k), desc_k<D>(b, k));
+}
+
+// acc (64 x D) += a . b, a (64 x 64 bf16) in registers, b a 64-row tile.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const unsigned (&a)[4][4],
+                                           unsigned b) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wgmma_rs_t<D>(acc, a[k], desc_mn<D>(b, k));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// The 64 x 64 fp32 accumulator as four bf16 A operands of 16 columns:
+// tiles 2t and 2t+1 hold exactly the values A chunk t needs in each lane.
+__device__ __forceinline__ void to_operand(unsigned (&a)[4][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    a[t][0] = pack_bf16(c[2 * t][0], c[2 * t][1]);
+    a[t][1] = pack_bf16(c[2 * t][2], c[2 * t][3]);
+    a[t][2] = pack_bf16(c[2 * t + 1][0], c[2 * t + 1][1]);
+    a[t][3] = pack_bf16(c[2 * t + 1][2], c[2 * t + 1][3]);
+  }
+}
+
+// The (tile, head, batch) a block of a (tiles, heads, batch) grid owns.
+// Blocks are dispatched in index order. Without the causal mask every tile
+// of a head costs the same and the tile runs fastest, so the blocks of a
+// head, which read the same rows, run together. Under it the order is
+// tile-major, the costliest tile of every head first (K4c: key tile 0,
+// which meets every q tile; K4b: the last q tile, which meets every key
+// tile), so the short tiles fill in behind the long ones.
+struct Block {
+  int tile, head, b;
+};
+
+template <bool CAUSAL, bool LAST_FIRST>
+__device__ __forceinline__ Block block_of_grid() {
+  if (!CAUSAL) return Block{(int)blockIdx.x, (int)blockIdx.y, (int)blockIdx.z};
+  const int n = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int rest = n % (gridDim.y * gridDim.z);
+  const int rank = n / (gridDim.y * gridDim.z);
+  return Block{LAST_FIRST ? (int)gridDim.x - 1 - rank : rank,
+               rest % (int)gridDim.y, rest / (int)gridDim.y};
+}
+
+// Rows r0 and r0 + 8 of the warpgroup's 64 x D accumulator, times `mul`,
+// to bf16 rows of `out` (row stride `stride`); rows at or past `limit` are
+// skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, long long stride,
+                                           const float (&acc)[D / 8][4],
+                                           int r0, int limit, int lane,
+                                           float mul) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + half * 8;
+    if (r >= limit) continue;
+    bf16* row = out + (long long)r * stride + (lane % 4) * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8) = __floats2bfloat162_rn(
+          acc[nt][2 * half] * mul, acc[nt][2 * half + 1] * mul);
+  }
+}
+
+// The 1024-byte aligned start of the dynamic shared memory (the launch
+// asks for 1024 bytes more than the layout).
+__device__ __forceinline__ unsigned aligned_smem(const unsigned char* smem) {
+  return (smem_addr(smem) + 1023u) & ~1023u;
+}
+
 // ---------------------------------------------------------------- K4b ----
 
 template <int D>
 struct DqLayout {
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = q + Dims<D>::tile;
-  static constexpr size_t k = dout + Dims<D>::tile;
-  static constexpr size_t v = k + Dims<D>::tile;
-  static constexpr size_t s = v + Dims<D>::tile;
-  static constexpr size_t dp = s + Dims<D>::score;
-  static constexpr size_t ds = dp + Dims<D>::score;
-  static constexpr size_t bytes = ds + Dims<D>::prob;
-  // the epilogue stages dQ (64 x LDO fp32) over the K and V tiles
-  static_assert(Dims<D>::accum <= 2 * Dims<D>::tile, "dQ staging overflows K/V");
+  static constexpr int tile = Tile<D>::bytes;
+  static constexpr int q = 0;
+  static constexpr int dout = q + tile;
+  static constexpr int stage0 = dout + tile;  // stage s: K at +0, V at +tile
+  static constexpr int stage = 2 * tile;
+  static constexpr int bars = stage0 + 2 * stage;  // Q/dO, then one a stage
+  static constexpr int bytes = bars + 3 * 8 + 1024;
 };
 
+// q, k, v and dO are read through TMA maps (tensor_map below).
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 3 : 2)
+dq_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
+          const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap dout,
           const float* __restrict__ lse, const float* __restrict__ dd,
           const int* __restrict__ lens, bf16* __restrict__ dq, int sq, int sk,
-          int group, float scale, Strides qs, Strides ks, Strides vs,
-          Strides os, Strides dqs) {
+          int group, float scale, Strides dqs) {
   using L = DqLayout<D>;
-  constexpr int LDH = Dims<D>::LDH, LDS = Dims<D>::LDS, LDP = Dims<D>::LDP;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sO = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
+  const unsigned base = aligned_smem(smem);
+  const unsigned bar = base + L::bars;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const Block blk = block_of_grid<CAUSAL, true>();
+  const int q0 = blk.tile * BQ;
+  const int h = blk.head;
+  const int b = blk.b;
   const int kvh = h / group;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int len = min(lens[b], sk);
-  const bf16* kb = k + b * ks.b + kvh * ks.h;
-  const bf16* vb = v + b * vs.b + kvh * vs.h;
 
   int kv_end = len;
   if (CAUSAL) kv_end = min(kv_end, q0 + BQ);
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int n_tiles = max((kv_end + BK - 1) / BK, 0);
 
-  load_tile<D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq);
-  load_tile<D>(sO, dout + b * os.b + h * os.h, os.s, q0, sq);
-  const int row = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int q_idx = q0 + row;
-  const bool row_ok = q_idx < sq;
-  const long long stat = ((long long)b * gridDim.y + h) * sq + q_idx;
-  const float lse_r = row_ok ? lse[stat] : 0.f;
-  const float dd_r = row_ok ? dd[stat] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int t) {  // K/V tile t into stage t % 2, by one thread
+    const unsigned st = base + L::stage0 + (t & 1) * L::stage;
+    const unsigned full = bar + 8 * (1 + (t & 1));
+    mbar_expect(full, 2 * L::tile);
+    tma_tile<D>(st, k, t * BK, kvh, b, full);
+    tma_tile<D>(st + L::tile, v, t * BK, kvh, b, full);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect(bar, 2 * L::tile);
+    tma_tile<D>(base + L::q, q, q0, h, b, bar);
+    tma_tile<D>(base + L::dout, dout, q0, h, b, bar);
+    if (n_tiles > 0) issue(0);
+  }
 
-  Acc acc[D / 16];
+  // this lane's rows of the block's tile: r0 and r0 + 8
+  const int r0 = warp * 16 + lane / 4;
+  float lse_r[2], dd_r[2];
 #pragma unroll
-  for (int nf = 0; nf < D / 16; ++nf) wmma::fill_fragment(acc[nf], 0.f);
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + 8 * i;
+    const long long stat = ((long long)b * gridDim.y + h) * sq + qi;
+    lse_r[i] = qi < sq ? lse[stat] : 0.f;
+    dd_r[i] = qi < sq ? dd[stat] : 0.f;
+  }
 
+  float acc[D / 8][4];
+  zero(acc);
+  mbar_wait(bar, 0);
   for (int t = 0; t < n_tiles; ++t) {
+    if (threadIdx.x == 0 && t + 1 < n_tiles) issue(t + 1);
+    mbar_wait(bar + 8 * (1 + (t & 1)), (t >> 1) & 1);
     const int k0 = t * BK;
-    __syncthreads();
-    load_tile<D>(sK, kb, ks.s, k0, sk);
-    load_tile<D>(sV, vb, vs.s, k0, sk);
-    __syncthreads();
-    mm_abt<D>(sS + warp * 16 * LDS, sQ + warp * 16 * LDH, sK);   // S
-    mm_abt<D>(sP + warp * 16 * LDS, sO + warp * 16 * LDH, sV);   // dP
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < BK / 2; ++j) {
-      const int c = half * (BK / 2) + j;
-      const int key = k0 + c;
-      const bool visible = row_ok && key < len && (!CAUSAL || key <= q_idx);
-      const float p = visible ? __expf(sS[row * LDS + c] * scale - lse_r) : 0.f;
-      sDS[row * LDP + c] = __float2bfloat16(p * (sP[row * LDS + c] - dd_r));
-    }
-    __syncwarp();
+    const unsigned sK = base + L::stage0 + (t & 1) * L::stage;
+    const unsigned sV = sK + L::tile;
+    float s[8][4], dp[8][4];
+    zero(s);  // before the fence: wgmma then reads what these wrote
+    zero(dp);
+    wgmma_fence();
+    scores<D>(s, base + L::q, sK);      // S
+    wgmma_commit();
+    scores<D>(dp, base + L::dout, sV);  // dP, in flight while P is formed
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool edge = k0 + BK > len || (CAUSAL && k0 + BK - 1 > q0);
 #pragma unroll
-    for (int nf = 0; nf < D / 16; ++nf) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int kf = 0; kf < BK / 16; ++kf) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, sDS + warp * 16 * LDP + kf * 16, LDP);
-        wmma::load_matrix_sync(fb, sK + kf * 16 * LDH + nf * 16, LDH);
-        wmma::mma_sync(acc[nf], fa, fb, acc[nf]);
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = __expf(s[j][e] * scale - lse_r[i]);
+        if (edge) {
+          const int key = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+          if (key >= len || (CAUSAL && key > q0 + r0 + 8 * i)) p = 0.f;
+        }
+        s[j][e] = p;
       }
     }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - dd_r[e >> 1]);  // dS
+    unsigned ds[4][4];
+    to_operand(ds, dp);
+    wgmma_fence();
+    accumulate<D>(acc, ds, sK);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warp is done with this stage
   }
 
-  __syncthreads();  // every warp is done with K and V: stage dQ over them
-  float* stage = reinterpret_cast<float*>(smem + L::k);
-  constexpr int LDO = Dims<D>::LDO;
-#pragma unroll
-  for (int nf = 0; nf < D / 16; ++nf)
-    wmma::store_matrix_sync(stage + warp * 16 * LDO + nf * 16, acc[nf], LDO,
-                            wmma::mem_row_major);
-  __syncwarp();
-  if (row_ok) {
-    bf16* orow = dq + b * dqs.b + (long long)q_idx * dqs.s + h * dqs.h + half * (D / 2);
-    const float* srow = stage + row * LDO + half * (D / 2);
-#pragma unroll 8
-    for (int j = 0; j < D / 2; j += 2)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j) =
-          __floats2bfloat162_rn(srow[j] * scale, srow[j + 1] * scale);
-  }
+  store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, acc, q0 + r0, sq, lane,
+                scale);
 }
 
 // ---------------------------------------------------------------- K4c ----
 
 template <int D>
 struct DkvLayout {
-  static constexpr size_t k = 0;
-  static constexpr size_t v = k + Dims<D>::tile;
-  static constexpr size_t q = v + Dims<D>::tile;
-  static constexpr size_t dout = q + Dims<D>::tile;
-  static constexpr size_t s = dout + Dims<D>::tile;
-  static constexpr size_t dp = s + Dims<D>::score;
-  static constexpr size_t p = dp + Dims<D>::score;
-  static constexpr size_t ds = p + Dims<D>::prob;
-  static constexpr size_t dk = ds + Dims<D>::prob;
-  static constexpr size_t dv = dk + Dims<D>::accum;
-  static constexpr size_t lse = dv + Dims<D>::accum;
-  static constexpr size_t dd = lse + BQ * 4;
-  static constexpr size_t bytes = dd + BQ * 4;
+  static constexpr int tile = Tile<D>::bytes;
+  static constexpr int k = 0;
+  static constexpr int v = k + tile;
+  static constexpr int stage0 = v + tile;  // stage s: Q at +0, dO at +tile
+  static constexpr int stage = 2 * tile;
+  static constexpr int stats0 = stage0 + 2 * stage;  // stage s: lse, dd (BQ fp32 each)
+  static constexpr int stats = 2 * BQ * 4;
+  static constexpr int bars = stats0 + 2 * stats;  // K/V, then one a stage
+  static constexpr int bytes = bars + 3 * 8 + 1024;
 };
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS)
-dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 3 : 2)
+dkv_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
+           const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap dout,
            const float* __restrict__ lse, const float* __restrict__ dd,
            const int* __restrict__ lens, bf16* __restrict__ dk,
            bf16* __restrict__ dv, int h, int sq, int sk, int group,
-           float scale, Strides qs, Strides ks, Strides vs, Strides os,
-           Strides dks, Strides dvs) {
+           float scale, Strides dks, Strides dvs) {
   using L = DkvLayout<D>;
-  constexpr int LDH = Dims<D>::LDH, LDS = Dims<D>::LDS, LDP = Dims<D>::LDP;
-  constexpr int LDO = Dims<D>::LDO;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sO = reinterpret_cast<bf16*>(smem + L::dout);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sdK = reinterpret_cast<float*>(smem + L::dk);
-  float* sdV = reinterpret_cast<float*>(smem + L::dv);
-  float* sL = reinterpret_cast<float*>(smem + L::lse);
-  float* sD = reinterpret_cast<float*>(smem + L::dd);
+  const unsigned base = aligned_smem(smem);
+  const unsigned bar = base + L::bars;
+  const float* stats = reinterpret_cast<const float*>(smem + (base - smem_addr(smem)) + L::stats0);
 
-  const int k0 = blockIdx.x * BK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const Block blk = block_of_grid<CAUSAL, false>();
+  const int k0 = blk.tile * BK;
+  const int kvh = blk.head;
+  const int b = blk.b;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int len = min(lens[b], sk);
-  // lanes 2r and 2r+1 share key row `row` of this warp's 16 keys
-  const int row = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int key = k0 + row;
-  bf16* dk_row = dk + b * dks.b + (long long)key * dks.s + kvh * dks.h + half * (D / 2);
-  bf16* dv_row = dv + b * dvs.b + (long long)key * dvs.s + kvh * dvs.h + half * (D / 2);
+  bf16* dkb = dk + b * dks.b + kvh * dks.h;
+  bf16* dvb = dv + b * dvs.b + kvh * dvs.h;
 
   if (k0 >= len) {  // every key of the tile is masked: dk = dv = 0
-    if (key < sk) {
-      const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-      for (int j = 0; j < D / 2; j += 2) {
-        *reinterpret_cast<__nv_bfloat162*>(dk_row + j) = zero;
-        *reinterpret_cast<__nv_bfloat162*>(dv_row + j) = zero;
+    constexpr int PER_ROW = D / 8;
+    for (int i = threadIdx.x; i < 64 * PER_ROW; i += NTHREADS) {
+      const int key = k0 + i / PER_ROW;
+      const int c = (i % PER_ROW) * 8;
+      if (key < sk) {
+        *reinterpret_cast<uint4*>(dkb + (long long)key * dks.s + c) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dvb + (long long)key * dvs.s + c) = make_uint4(0u, 0u, 0u, 0u);
       }
     }
     return;
   }
 
-  load_tile<D>(sK, k + b * ks.b + kvh * ks.h, ks.s, k0, sk);
-  load_tile<D>(sV, v + b * vs.b + kvh * vs.h, vs.s, k0, sk);
-  for (int i = threadIdx.x; i < 64 * LDO; i += NTHREADS) sdK[i] = sdV[i] = 0.f;
-
   const int q_first = CAUSAL ? k0 / BQ : 0;  // q tiles before it see no key here
-  const int n_qt = (sq + BQ - 1) / BQ;
-  for (int g = 0; g < group; ++g) {
-    const int hq = kvh * group + g;
-    const bf16* qb = q + b * qs.b + hq * qs.h;
-    const bf16* ob = dout + b * os.b + hq * os.h;
-    const long long stat0 = ((long long)b * h + hq) * sq;
-    for (int qt = q_first; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // all warps are done with the previous Q/dO tile
-      load_tile<D>(sQ, qb, qs.s, q0, sq);
-      load_tile<D>(sO, ob, os.s, q0, sq);
-      for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-        const bool ok = q0 + i < sq;
-        sL[i] = ok ? lse[stat0 + q0 + i] : 0.f;
-        sD[i] = ok ? dd[stat0 + q0 + i] : 0.f;
-      }
-      __syncthreads();
-      mm_abt<D>(sS + warp * 16 * LDS, sK + warp * 16 * LDH, sQ);   // S^T
-      mm_abt<D>(sDP + warp * 16 * LDS, sV + warp * 16 * LDH, sO);  // dP^T
-      __syncwarp();
-#pragma unroll 8
-      for (int j = 0; j < BQ / 2; ++j) {
-        const int c = half * (BQ / 2) + j;
-        const int qi = q0 + c;
-        const bool visible = key < len && qi < sq && (!CAUSAL || key <= qi);
-        const float p = visible ? __expf(sS[row * LDS + c] * scale - sL[c]) : 0.f;
-        sP[row * LDP + c] = __float2bfloat16(p);
-        sDS[row * LDP + c] = __float2bfloat16(p * (sDP[row * LDS + c] - sD[c]));
-      }
-      __syncwarp();
-      mm_ab_acc<D>(sdV + warp * 16 * LDO, sP + warp * 16 * LDP, sO);   // P^T dO
-      mm_ab_acc<D>(sdK + warp * 16 * LDO, sDS + warp * 16 * LDP, sQ);  // dS^T Q
-    }
+  const int n_qt = max((sq + BQ - 1) / BQ - q_first, 0);
+  const int n_iter = group * n_qt;  // (q head of the group, q tile) pairs
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();  // the zero fill is visible even where no q tile ran
-  if (key < sk) {
-    const float* krow = sdK + row * LDO + half * (D / 2);
-    const float* vrow = sdV + row * LDO + half * (D / 2);
-#pragma unroll 8
-    for (int j = 0; j < D / 2; j += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_row + j) =
-          __floats2bfloat162_rn(krow[j] * scale, krow[j + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv_row + j) =
-          __floats2bfloat162_rn(vrow[j], vrow[j + 1]);
+  __syncthreads();
+  // the Q, dO, lse and dd tiles of step `it` into stage it % 2: Q and dO
+  // by TMA from thread 0, lse and dd by cp.async, one value a thread
+  auto issue = [&](int it) {
+    const int hq = kvh * group + it / n_qt;
+    const int q0 = (q_first + it % n_qt) * BQ;
+    if (threadIdx.x == 0) {
+      const unsigned st = base + L::stage0 + (it & 1) * L::stage;
+      const unsigned full = bar + 8 * (1 + (it & 1));
+      mbar_expect(full, 2 * L::tile);
+      tma_tile<D>(st, q, q0, hq, b, full);
+      tma_tile<D>(st + L::tile, dout, q0, hq, b, full);
     }
+    if (threadIdx.x < 2 * BQ) {
+      const int i = threadIdx.x % BQ;
+      const float* src = (threadIdx.x < BQ ? lse : dd) + ((long long)b * h + hq) * sq;
+      const bool ok = q0 + i < sq;
+      cp_async4(base + L::stats0 + (it & 1) * L::stats + threadIdx.x * 4,
+                ok ? src + q0 + i : src, ok);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect(bar, 2 * L::tile);
+    tma_tile<D>(base + L::k, k, k0, kvh, b, bar);
+    tma_tile<D>(base + L::v, v, k0, kvh, b, bar);
   }
+  if (n_iter > 0) issue(0);
+  cp_async_commit();
+  mbar_wait(bar, 0);
+
+  // this lane's key rows of the tile: r0 and r0 + 8
+  const int r0 = warp * 16 + lane / 4;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  for (int it = 0; it < n_iter; ++it) {
+    if (it + 1 < n_iter) issue(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    mbar_wait(bar + 8 * (1 + (it & 1)), (it >> 1) & 1);
+    __syncthreads();  // every thread's lse and dd value is in
+    const int q0 = (q_first + it % n_qt) * BQ;
+    const unsigned sQ = base + L::stage0 + (it & 1) * L::stage;
+    const unsigned sO = sQ + L::tile;
+    const float* sL = stats + (it & 1) * (L::stats / 4);
+    const float* sD = sL + BQ;
+    float s[8][4], dp[8][4];
+    zero(s);  // before the fence: wgmma then reads what these wrote
+    zero(dp);
+    wgmma_fence();
+    scores<D>(s, base + L::k, sQ);   // S^T
+    wgmma_commit();
+    scores<D>(dp, base + L::v, sO);  // dP^T, in flight while P^T is formed
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool edge = k0 + BK > len || q0 + BQ > sq || (CAUSAL && q0 < k0 + BK);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + (lane % 4) * 2 + (e & 1);
+        float p = __expf(s[j][e] * scale - sL[c]);
+        if (edge) {
+          const int key = k0 + r0 + 8 * (e >> 1);
+          const int qi = q0 + c;
+          if (key >= len || qi >= sq || (CAUSAL && key > qi)) p = 0.f;
+        }
+        s[j][e] = p;  // P^T
+      }
+    }
+    unsigned pa[4][4], da[4][4];
+    to_operand(pa, s);
+    wgmma_fence();
+    accumulate<D>(dv_acc, pa, sO);  // dV += P^T dO, in flight while dS^T is formed
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + (lane % 4) * 2 + (e & 1);
+        dp[j][e] = s[j][e] * (dp[j][e] - sD[c]);  // dS^T
+      }
+    }
+    to_operand(da, dp);
+    wgmma_fence();
+    accumulate<D>(dk_acc, da, sQ);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  store_rows<D>(dkb, dks.s, dk_acc, k0 + r0, sk, lane, scale);
+  store_rows<D>(dvb, dvs.s, dv_acc, k0 + r0, sk, lane, 1.f);
 }
 
 // --------------------------------------------------------------- launch ----
@@ -451,6 +809,57 @@ int prepare(Kernel kern, size_t smem) {
 
 Strides strides(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// A TMA map of a bf16 (batch, rows, heads, D) tensor with the given
+// strides (in elements: batch, row, head; the head dim contiguous), read in
+// boxes of 64 rows x 64 values of one head, 128-byte swizzled (the Tile
+// layout); rows past `rows` read as zeros.
+int tensor_map(CUtensorMap* map, const void* data, int b, int rows, int heads, int d,
+               const Strides& st) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    int err = (int)cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                    cudaEnableDefault, &found);
+#else
+    int err = (int)cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                           &found);
+#endif
+    if (err) return err;
+    if (found != cudaDriverEntryPointSuccess || !fn) return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)rows,
+                              (cuuint64_t)b};
+  const cuuint64_t bytes[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                               (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(data),
+                            dims, bytes, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The TMA maps of q, k, v and dO (strides in that order in `st`).
+int qkvo_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+              const void* dout, int b, int h, int hkv, int sq, int sk, int d,
+              const long long* st) {
+  int err = tensor_map(&maps[0], q, b, sq, h, d, strides(st, 0));
+  if (!err) err = tensor_map(&maps[1], k, b, sk, hkv, d, strides(st, 1));
+  if (!err) err = tensor_map(&maps[2], v, b, sk, hkv, d, strides(st, 2));
+  if (!err) err = tensor_map(&maps[3], dout, b, sq, h, d, strides(st, 3));
+  return err;
 }
 
 template <int D, bool CAUSAL>
@@ -477,14 +886,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   auto kern = dq_kernel<D, CAUSAL>;
   const size_t smem = DqLayout<D>::bytes;
   int err = prepare(kern, smem);
+  CUtensorMap maps[4];
+  if (!err) err = qkvo_maps(maps, q, k, v, dout, b, h, hkv, sq, sk, D, st);
   if (err) return err;
   dim3 grid((sq + BQ - 1) / BQ, h, b);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dd), lens,
-      static_cast<bf16*>(dq), sq, sk, h / hkv, scale, strides(st, 0),
-      strides(st, 1), strides(st, 2), strides(st, 3), strides(st, 4));
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(dd), lens, static_cast<bf16*>(dq), sq, sk,
+      h / hkv, scale, strides(st, 4));
   return (int)cudaGetLastError();
 }
 
@@ -496,15 +905,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   auto kern = dkv_kernel<D, CAUSAL>;
   const size_t smem = DkvLayout<D>::bytes;
   int err = prepare(kern, smem);
+  CUtensorMap maps[4];
+  if (!err) err = qkvo_maps(maps, q, k, v, dout, b, h, hkv, sq, sk, D, st);
   if (err) return err;
   dim3 grid((sk + BK - 1) / BK, hkv, b);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dd), lens,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk, h / hkv,
-      scale, strides(st, 0), strides(st, 1), strides(st, 2), strides(st, 3),
-      strides(st, 4), strides(st, 5));
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(dd), lens, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), h, sq, sk, h / hkv, scale, strides(st, 4),
+      strides(st, 5));
   return (int)cudaGetLastError();
 }
 
