@@ -13,9 +13,13 @@ Run from the root of a checkout. It
      (and, for K3's int4 form, nibbles swapped or read unsigned), and times
      the kernel, the plain version and, where one PyTorch call computes the
      same function, that call (CUDA events, median of 7); the flash
-     backward also at the training path's own decoder call (B=1) and at
-     two small shapes on the edges of its 64-row tiles, and one line sets
-     K4b + K4c beside SDPA's whole backward at each call;
+     forward K1/K2 and backward K4a-c at every call the paths make (K1
+     and K2 also at the quantized path's ViT group of 128 chunks and its
+     112-row prefill, held there on the batch's last 8 rows) and at two
+     small shapes on the edges of their 64-row tiles (untimed), with one
+     line for K1/K2 and one for K4a-c that set the kernels beside their
+     bound and SDPA at each call (the backward as K4b + K4c and as the
+     whole K4a + K4b + K4c against SDPA's whole backward);
   3. drives the serving path twice, each time full-width μ²Qwen3-1.7B with
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
@@ -58,6 +62,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -154,6 +159,27 @@ def time_ms(torch, fn, inner: int = 1, reps: int = 7, warmup: int = 2):
     return statistics.median(times)
 
 
+def ptxas_summary(report: str) -> dict:
+    """Per kernel (mangled name) of an ``nvcc -Xptxas -v`` report:
+    registers a thread, the spill line, and how often ptxas injected a
+    warpgroup wait or arrive around wgmma."""
+    out, name = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        injected = re.search(r"is injected .* in function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            out.setdefault(name, {"injected": 0})
+        elif injected:
+            out.setdefault(injected.group(1), {"injected": 0})["injected"] += 1
+        elif name and "spill" in line:
+            out[name]["spill"] = line.strip()
+        elif name and "registers" in line:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -208,6 +234,16 @@ VIT_CALL = dict(causal=False, b=VISION_MICROBATCH, s=2049, h=12, hkv=12,
 PREFILL_CALL = dict(causal=True, b=BATCH, s=PROMPT, h=16, hkv=8, d=128,
                     lens=[PROMPT] * (BATCH - 1) + [RAGGED], fused=False)
 TRAIN_DECODER_CALL = dict(PREFILL_CALL, b=1, lens=[TRAIN_VALID])
+# The quantized serving path's calls of K1 and K2: the ViT over groups of
+# 128 chunks (all 2049 tokens valid) and the prefill of 112 rows (the last
+# 900). There the plain version over the whole batch would need tens of GB
+# of fp32 scores, so it holds the batch's last HELD_ROWS rows (the ragged
+# one among them) and is timed on those.
+QUANT_VIT_CALL = dict(VIT_CALL, b=QUANT_MICROBATCH,
+                      lens=[2049] * QUANT_MICROBATCH)
+QUANT_PREFILL_CALL = dict(PREFILL_CALL, b=QUANT_BATCH,
+                          lens=[PROMPT] * (QUANT_BATCH - 1) + [RAGGED])
+HELD_ROWS = 8
 EDGE_CALLS = [dict(causal=False, b=3, s=193, h=2, hkv=2, d=64,
                    lens=[65, 63, 128], fused=True),
               dict(causal=True, b=3, s=193, h=4, hkv=2, d=128,
@@ -242,36 +278,58 @@ def visible_pairs(causal: bool, s: int, lens) -> int:
     return s * sum(lens)
 
 
-def check_flash(torch, F, fa, causal: bool):
-    """K1 at the ViT's call or K2 at the prefill."""
-    q, k, v, lens, lens_t, _ = attention_inputs(
-        torch, PREFILL_CALL if causal else VIT_CALL, 1 + causal)
-    b, s, h, d = q.shape
-    hkv = k.shape[2]
-    name = fa.KERNELS[int(causal)]
-    out = fa.flash_attention(q, k, v, lens_t, causal=causal)
-    ref = fa.flash_attention_reference(q, k, v, lens_t, causal=causal)
-    mutants = {}
-    for shift in (-1, 1):
-        off = lens_t.clone()
-        off[-1] += shift
-        mutants[f"lens[-1]{shift:+d}"] = fa.flash_attention_reference(
-            q, k, v, off, causal=causal)
-    mass = fa.flash_attention_reference(q, k, v.abs(), lens_t, causal=causal)
-    torch.cuda.synchronize()
-    check = compare(torch, out, ref, name, mutants, mass)
-
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lens_t,
-                                                   causal=causal))
-    plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(
-        q, k, v, lens_t, causal=causal), reps=3)
+def sdpa_mask(torch, lens_t, s: int, causal: bool):
+    """The boolean (B, 1, 1 or S, S) mask of SDPA's call: keys j < lens[b]
+    (and j <= i when causal)."""
     keys = torch.arange(s, device="cuda")
     mask = (keys[None, :] < lens_t[:, None])[:, None, None, :]
     if causal:
         mask = mask & (keys[None, :] <= keys[:, None])[None, None]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=hkv != h))
+    return mask
+
+
+def check_flash(torch, F, fa, call: dict, seed: int, timed: bool = True,
+                held: int = 0):
+    """K1 (a non-causal ``call``) or K2 (a causal one) on the batch of
+    ``attention_inputs``, held against its plain version, whose mask the
+    same limits must tell from one with lens[-1] one key off (a shift
+    past the sequence leaves the mask as it is and is not made). With
+    ``held`` only the batch's last ``held`` rows are held, and the plain
+    version is timed on those. With ``timed`` False only the check runs
+    and the times are None."""
+    causal = call["causal"]
+    q, k, v, lens, lens_t, _ = attention_inputs(torch, call, seed)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    name = fa.KERNELS[int(causal)]
+    out = fa.flash_attention(q, k, v, lens_t, causal=causal)
+    rows = slice(b - held, b) if held else slice(0, b)
+    hq, hk, hv, hl = q[rows], k[rows], v[rows], lens_t[rows]
+    ref = fa.flash_attention_reference(hq, hk, hv, hl, causal=causal)
+    mutants = {}
+    for shift in (-1, 1):
+        if not 0 < lens[-1] + shift <= s:
+            continue
+        off = hl.clone()
+        off[-1] += shift
+        mutants[f"lens[-1]{shift:+d}"] = fa.flash_attention_reference(
+            hq, hk, hv, off, causal=causal)
+    mass = fa.flash_attention_reference(hq, hk, hv.abs(), hl, causal=causal)
+    torch.cuda.synchronize()
+    check = compare(torch, out[rows], ref, name, mutants, mass)
+    del out, ref, mutants, mass
+
+    ms = plain_ms = library_ms = None
+    if timed:
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lens_t,
+                                                       causal=causal))
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(
+            hq, hk, hv, hl, causal=causal), reps=3)
+        mask = sdpa_mask(torch, lens_t, s, causal)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=hkv != h))
+        del mask, qt, kt, vt
 
     # work this data needs; each tensor is read or written once
     flops = 4.0 * d * h * visible_pairs(causal, s, lens)
@@ -283,9 +341,24 @@ def check_flash(torch, F, fa, causal: bool):
                          if causal else
                          "u2tokenizer_tpu/ops/flash_attention.py:45"),
             "max_abs_err": check.pop("max_abs_err"), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "check": check,
-            "shape": {"q": list(q.shape), "k": list(k.shape), "lens": lens}}
+            "plain_ms": plain_ms, "plain_rows": rows.stop - rows.start,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "library_call": "SDPA, the same mask", "check": check,
+            "shape": {"q": list(q.shape), "k": list(k.shape),
+                      "lens": lens if b <= 8 else
+                      f"{lens[0]} x{b - 1}, {lens[-1]}"}}
+
+
+def flash_fwd_summary(calls: dict) -> dict:
+    """Per call of K1 or K2: its time, its share of the bound
+    (bound_ms / ms) and its ratio to SDPA's call with the same mask."""
+    return {label: {"kernel": e["name"], "ms": e["ms"],
+                    "bound_ms": e["bound_ms"],
+                    "share_of_bound": e["bound_ms"] / e["ms"],
+                    "sdpa_ms": e["library_ms"],
+                    "over_sdpa": e["ms"] / e["library_ms"],
+                    "shape": e["shape"]}
+            for label, e in calls.items()}
 
 
 def time_flash_bwd(torch, F, fa, q, k, v, do, lse, dd, lens_t, kw):
@@ -306,10 +379,7 @@ def time_flash_bwd(torch, F, fa, q, k, v, do, lse, dd, lens_t, kw):
             *args, lens_t, **kw), reps=3),
         "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_reference(
             *args, lens_t, **kw), reps=3)}
-    keys = torch.arange(s, device="cuda")
-    mask = (keys[None, :] < lens_t[:, None])[:, None, None, :]
-    if causal:
-        mask = mask & (keys[None, :] <= keys[:, None])[None, None]
+    mask = sdpa_mask(torch, lens_t, s, causal)
     qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
@@ -416,15 +486,20 @@ def check_flash_bwd(torch, F, fa, call: dict, seed: int,
 
 
 def flash_bwd_summary(calls: dict) -> dict:
-    """Per call: K4b + K4c against SDPA's whole backward, and each
-    kernel's share of its bound (bound_ms / ms)."""
+    """Per call: K4b + K4c, and K4a + K4b + K4c (the whole flash
+    backward), against SDPA's whole backward, and each kernel's share of
+    its bound (bound_ms / ms)."""
     out = {}
     for label, (lse, dq, dkv) in calls.items():
         pair = dq["ms"] + dkv["ms"]
+        whole = lse["ms"] + pair
         out[label] = {"k4b_ms": dq["ms"], "k4c_ms": dkv["ms"],
                       "k4a_ms": lse["ms"], "k4b_plus_k4c_ms": pair,
+                      "k4a_plus_k4b_plus_k4c_ms": whole,
                       "sdpa_backward_ms": dq["library_ms"],
                       "k4b_plus_k4c_over_sdpa": pair / dq["library_ms"],
+                      "k4a_plus_k4b_plus_k4c_over_sdpa":
+                          whole / dq["library_ms"],
                       "k4b_share_of_bound": dq["bound_ms"] / dq["ms"],
                       "k4c_share_of_bound": dkv["bound_ms"] / dkv["ms"],
                       "k4a_share_of_bound": lse["bound_ms"] / lse["ms"],
@@ -852,9 +927,10 @@ def drive_training(torch, fa, da, steps: int):
 
 def profile_train_step(torch, fa, state, train_step, batch):
     """torch.profiler over one train step: the card's busy share of its
-    wall clock and device time by kernel, with the flash backward's share
-    (its kernels matched by their ``__global__`` names); raises if that
-    share reads 0 while the step launched K4."""
+    wall clock and device time by kernel, with the shares of the flash
+    forward and backward (their kernels matched by their ``__global__``
+    names); raises if either share reads 0 while the step launched its
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     before = read_launches(fa)
@@ -870,18 +946,26 @@ def profile_train_step(torch, fa, state, train_step, batch):
     share = lambda *keys: sum(t for n, t in by_name.items()
                               if any(k in n for k in keys)) / max(busy_us, 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    bwd_launches = sum(n - before[name] for name, n in read_launches(
-        fa).items() if name in fa.BWD_KERNELS)
+    launched = {name: n - before[name]
+                for name, n in read_launches(fa).items()}
+    bwd_launches = sum(launched[name] for name in fa.BWD_KERNELS)
+    fwd_launches = sum(launched[name] for name in fa.KERNELS)
     bwd_share = share("lse_kernel", "dq_kernel", "dkv_kernel")
+    fwd_share = share("flash_fwd_kernel")
     if bwd_launches and not bwd_share:
         raise AssertionError(f"the profiled step launched K4 {bwd_launches} "
                              f"times but no kernel named lse_kernel, "
                              f"dq_kernel or dkv_kernel took device time")
+    if fwd_launches and not fwd_share:
+        raise AssertionError(f"the profiled step launched K1/K2 "
+                             f"{fwd_launches} times but no kernel named "
+                             f"flash_fwd_kernel took device time")
     return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "kernels": len(kernels), "flash_bwd_launches": bwd_launches,
             "flash_bwd_share": bwd_share,
-            "flash_fwd_share": share("flash_fwd_kernel"),
+            "flash_fwd_launches": fwd_launches,
+            "flash_fwd_share": fwd_share,
             "top_device_ms": {n: t / 1e3 for n, t in top}}
 
 
@@ -1114,14 +1198,34 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {stem: [ln.strip() for ln in info["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {stem: ptxas_summary(info["ptxas"])
              for stem, info in _build.build_info.items()}
-    print(json.dumps({"build_s": build_s, "ptxas": ptxas}), flush=True)
+    nvcc = re.search(r"release ([\d.]+)", subprocess.run(
+        [_build._nvcc(), "--version"], capture_output=True,
+        text=True).stdout)
+    print(json.dumps({"build_s": build_s, "nvcc": nvcc and nvcc.group(1),
+                      "ptxas": ptxas}), flush=True)
 
-    kernels = [check_flash(torch, F, fa, causal=False),
-               check_flash(torch, F, fa, causal=True),
-               check_decode(torch, da, attn, 8, BATCH)]
+    k1 = check_flash(torch, F, fa, VIT_CALL, 1)
+    k2 = check_flash(torch, F, fa, PREFILL_CALL, 2)
+    fwd_calls = {
+        "vit": k1,
+        "vit_quantized": check_flash(torch, F, fa, QUANT_VIT_CALL, 11,
+                                     held=HELD_ROWS),
+        "prefill": k2,
+        "prefill_quantized": check_flash(torch, F, fa, QUANT_PREFILL_CALL,
+                                         10, held=HELD_ROWS),
+        "decoder_b1": check_flash(torch, F, fa, TRAIN_DECODER_CALL, 9)}
+    # K1 and K2 each at both tile-edge shapes, untimed
+    edge_fwd = [check_flash(torch, F, fa, dict(call, causal=causal),
+                            12 + 2 * i + causal, timed=False)
+                for i, call in enumerate(EDGE_CALLS)
+                for causal in (False, True)]
+    for k in list(fwd_calls.values()) + edge_fwd:
+        print(json.dumps({"kernel_check": k}), flush=True)
+    print(json.dumps({"flash_fwd_calls": flash_fwd_summary(fwd_calls),
+                      "card": card}), flush=True)
+    kernels = [k1, k2, check_decode(torch, da, attn, 8, BATCH)]
     int4 = check_decode(torch, da, attn, 4, QUANT_BATCH)
     int4_b4 = check_decode(torch, da, attn, 4, BATCH)
     vit_bwd = check_flash_bwd(torch, F, fa, VIT_CALL, 4)
@@ -1130,18 +1234,31 @@ def main() -> int:
     edge_bwd = [e for i, call in enumerate(EDGE_CALLS)
                 for e in check_flash_bwd(torch, F, fa, call, 7 + i,
                                          timed=False)]
-    for k in (kernels + [int4, int4_b4] + vit_bwd + dec_bwd + b1_bwd
-              + edge_bwd):
+    for k in kernels[2:] + [int4, int4_b4] + vit_bwd + dec_bwd + b1_bwd \
+            + edge_bwd:
         print(json.dumps({"kernel_check": k}), flush=True)
     print(json.dumps({"flash_bwd_calls": flash_bwd_summary(
         {"vit": vit_bwd, "decoder": dec_bwd, "decoder_b1": b1_bwd}),
         "card": card}), flush=True)
-    # one entry per kernel: K3-int4 at the quantized path's batch with the
-    # B=4 call beside it; K4 at the ViT's call with the decoder's (B=4, and
-    # the training path's B=1) beside it, its error the largest of all the
-    # K4 checks
+    # one entry per kernel: K1 at the ViT's call with the quantized path's
+    # beside it, K2 at the B=4 prefill with the quantized path's and the
+    # training path's beside it, each with the largest error of all its
+    # checks; K3-int4 at the quantized path's batch with the B=4 call
+    # beside it; K4 at the ViT's call with the decoder's (B=4, and the
+    # training path's B=1) beside it, its error the largest of all the K4
+    # checks
     beside = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
+    nested = {"vit": ("vit_quantized",),
+              "prefill": ("prefill_quantized", "decoder_b1")}
+    for top, labels in nested.items():
+        entry = fwd_calls[top]
+        for label in labels:
+            entry[f"{label}_call"] = {key: fwd_calls[label][key]
+                                      for key in beside + ("plain_rows",)}
+        entry["max_abs_err"] = max(
+            e["max_abs_err"] for e in list(fwd_calls.values()) + edge_fwd
+            if e["name"] == entry["name"])
     int4["max_abs_err"] = max(int4["max_abs_err"], int4_b4["max_abs_err"])
     int4[f"batch{BATCH}_call"] = {key: int4_b4[key] for key in beside}
     kernels.append(int4)
@@ -1151,7 +1268,7 @@ def main() -> int:
         vit["decoder_call"] = {key: dec[key] for key in beside}
         vit["decoder_call_b1"] = {key: b1[key] for key in beside}
         kernels.append(vit)
-    del int4_b4, vit_bwd, dec_bwd, b1_bwd, edge_bwd
+    del int4_b4, vit_bwd, dec_bwd, b1_bwd, edge_bwd, fwd_calls, edge_fwd
     gc.collect()
     torch.cuda.empty_cache()
     if args.kernels_only:
@@ -1197,7 +1314,7 @@ def main() -> int:
         by_path = {path: n[k["name"]] for path, n in counts.items()}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-        for key in ("shape", "check", "ref_scale"):
+        for key in ("shape", "check", "ref_scale", "plain_rows"):
             k.pop(key, None)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

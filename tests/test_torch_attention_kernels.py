@@ -38,6 +38,12 @@ def _rand(shape, seed):
     (True, 1, 129, 2, 2, 32, None),
     # GQA with per-row lens; rows past a row's length are compared too
     (True, 2, 128, 8, 2, 32, [100, 64]),
+    # the CUDA kernels' head dims and the edges of their 64-row tiles:
+    # 193 = 3*64 + 1 tokens, lens one past, one short of and at a tile
+    # boundary; K1's D=64 on 129 tokens, the ragged tail of the ViT's 2049
+    (False, 3, 193, 2, 2, 64, [65, 63, 128]),
+    (True, 3, 193, 4, 2, 128, [65, 63, 128]),
+    (False, 1, 129, 2, 2, 64, None),
 ])
 def test_flash_plain_matches_pallas(causal, b, s, h, hkv, d, lens):
     q = _rand((b, s, h, d), 0)

@@ -1,210 +1,252 @@
 // Flash-attention forward for Hopper (sm_90a): kernels K1 and K2.
 //
 // Replaces the TPU kernels in u2tokenizer_tpu/ops/flash_attention.py:
-//   K1  flash_fwd_noncausal  <- _kernel                  (ViT self-attention)
-//   K2  flash_fwd_causal     <- _kernel_causal_chunked   (decoder prefill)
+//   K1  flash_fwd_noncausal  <- _kernel                 (:45, ViT self-attention)
+//   K2  flash_fwd_causal     <- _kernel_causal_chunked  (:73, decoder prefill)
 //
 // What it computes: per (batch b, head h) softmax(q k^T * scale) v over the
 // keys j < lens[b] (and j <= i for query i when causal); query head h reads
-// kv head h / group (GQA). Tensors keep the framework's (B, S, H, D) layout
-// with arbitrary batch/sequence/head strides and a contiguous head dim, so
-// the ViT's fused qkv projection is read in place, without a transpose.
+// kv head h / group (GQA). Keys in [lens[b], sk) score -1e30 (the TPU
+// kernel's NEG_INF), keys past the sequence -inf. Tensors keep the
+// framework's (B, S, H, D) layout with arbitrary batch/sequence/head
+// strides and a contiguous head dim, so the ViT's q/k/v are read in place
+// from its fused qkv projection; nothing is padded on the host.
 //
-// Bound on the H100: FLOPs. K1 at the ViT shape does 4*2049^2*64 FLOP per
-// (chunk, head) against 2*2049*64*2 bytes read; K2 at the prefill shape is
-// likewise far above the card's ~295 FLOP/byte ridge. The TPU kernel kept a
-// head's whole K/V resident in VMEM; one ViT head's K alone (262 KB) is over
-// the 227 KB of shared memory a block may use, so this design walks K/V in
-// 64-key tiles with an fp32 online softmax instead. One block of 4 warps per
-// (q tile of 64 rows, head, batch); Q, the K/V tile, the score tile, the
-// bf16 probabilities and the fp32 output accumulator live in shared memory.
-// Both products run on the tensor cores through WMMA (bf16 in, fp32
-// accumulate). Tiles past lens[b] are skipped (they contribute exp(-inf) = 0),
-// and K2 stops at the q tile's causal frontier, so the work is what the data
-// needs. The ragged key tail (2049 = 32*64 + 1) is masked in the kernel: rows
-// past the sequence are zero-filled and scored -inf; nothing is padded on the
-// host. Query rows past the sequence are computed and not stored.
+// Bound on the H100: operations. Per visible (query, key) pair and head the
+// two products do 4*D FLOP against O(S*D) bytes read; at the ViT's shape
+// (2049 tokens, D = 64) and the prefill's (1024 tokens, D = 128) that is
+// far above the card's ~295 FLOP/byte ridge. The TPU kernel kept a head's
+// whole K/V resident in VMEM; one ViT head's K alone (262 KB) is over the
+// 227 KB a block may use, so this kernel walks K/V in 64-key tiles with an
+// fp32 online softmax, and keeps the tensor cores on wgmma with every fp32
+// intermediate in registers and the copies off the threads that compute.
 //
-// Not yet done (later work): wgmma and TMA, register-resident accumulators,
-// warp specialisation.
+// Design: one warpgroup (4 warps, 128 threads) a block owns 64 query rows
+// of one head (grid: q tiles, heads, batch).
+//   * Copies: TMA (hopper.cuh). Thread 0 asks for the Q tile once and for
+//     each 64-key K and V tile (one 64 x 64 box per 64 columns of the head
+//     dim, 128-byte swizzled as wgmma reads it; rows past the sequence
+//     arrive as zeros); an mbarrier a slot reports each tile's bytes. K has
+//     two slots: the next tile's K is in flight while this one is used. V
+//     has two slots at D=64; at D=128 one, and the next tile's V is asked
+//     for once O += P V of this one is done, in flight while the next S and
+//     softmax run: that brings a block to 66,592 B, so three blocks share an
+//     SM instead of two (on the H100 it read faster at the B=4 prefill than
+//     two V slots, and no slower at the other calls).
+//   * S = Q K^T by wgmma m64n64k16 with both operands in shared memory, into
+//     registers (fp32, 32 a thread: rows r0 and r0 + 8 of its warp's 16).
+//     The scores are taken to log2 units (scale * log2 e) and masked; the
+//     row max comes from the thread's 16 values of each row and shuffles
+//     within the quad (xor 1, 2); the running max m and the thread's part
+//     of the running sum l stay in registers (l is summed over the quad
+//     once, in the epilogue). P = exp2(S - m) is rounded to bf16 into the
+//     register A operand (wgmma's accumulator layout of 16 columns is its A
+//     layout), and O += P V runs by wgmma m64nDk16 with V read MN-major
+//     from the same swizzled layout that serves K as a K-major operand.
+//   * O stays in registers (D/2 fp32 a thread), rescaled by exp2(m_old -
+//     m_new) per row each tile and divided by l in the bf16 store. No
+//     score, probability or accumulator tile goes through shared memory.
+//   * Masks: only tiles that cross lens[b], the sequence end (2049 = 32*64
+//     + 1) or the causal diagonal test each (query, key) pair. Tiles at or
+//     past lens[b] and past the q tile's causal frontier are not visited.
+//     Query rows past the sequence are computed and not stored.
+//   * Grid order (block_of_grid): under the causal mask the costliest q
+//     tile (the last, which meets every key tile) of every head first, the
+//     q heads of a GQA group next to each other, so the short tiles fill in
+//     behind the long ones.
+// P is rounded to bf16 before its product, unnormalised (the TPU kernel
+// rounds it after normalising, in _kernel); chip_smoke.py's limit for K1/K2
+// allows for that.
+//
+// Shared memory per block, registers a thread (ptxas, CUDA 12.9, causal /
+// non-causal, no spills), blocks an SM (of 233,472 B, 1 KB of it reserved
+// a block, and 65,536 registers):
+//     D=64   42,024 B   90 / 92   5      D=128  66,592 B  133 / 128  3
+//
+// Not yet done (later work): tile t+1's S product overlapping tile t's
+// softmax inside the warpgroup (FA3's intra-warpgroup pipelining, with a
+// third K slot) was tried and read slower at every call on the H100: its
+// slot and registers cost a block an SM, and the blocks on an SM already
+// overlap one another's softmax and products. Left: a producer warp with
+// setmaxnreg and two consumer warpgroups taking turns; splitting the long
+// causal q tiles of the B=1 call, where every block is resident at once
+// and the last q tile's walk sets the time; saving the row logsumexp for
+// the backward, so that K4a goes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int NWARPS = 4;     // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float MASKED = -1e30f;  // the TPU kernel's NEG_INF for masked keys
-
 template <int D>
-struct Layout {
-  static constexpr int LDH = D + 8;   // bf16 Q/K/V tile row stride
-  static constexpr int LDS = BK + 4;  // fp32 score row stride
-  static constexpr int LDP = BK + 8;  // bf16 probability row stride
-  static constexpr int LDO = D + 4;   // fp32 accumulator row stride
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + size_t(BQ) * LDH * 2;
-  static constexpr size_t v = k + size_t(BK) * LDH * 2;
-  static constexpr size_t s = v + size_t(BK) * LDH * 2;
-  static constexpr size_t p = s + size_t(BQ) * LDS * 4;
-  static constexpr size_t o = p + size_t(BQ) * LDP * 2;
-  static constexpr size_t bytes = o + size_t(BQ) * LDO * 4;
+struct FwdLayout {
+  // V stages: two at D=64; one at D=128, where it brings a block from
+  // 82,968 to 66,592 B, so that three fit an SM instead of two
+  static constexpr int v_stages = D == 128 ? 1 : 2;
+  static constexpr int tile = Tile<D>::bytes;
+  static constexpr int q = 0;
+  static constexpr int k0 = q + tile;                // K tile t in slot t % 2
+  static constexpr int v0 = k0 + 2 * tile;           // V tile t in slot t % v_stages
+  static constexpr int bars = v0 + v_stages * tile;  // Q, the K slots, the V slots
+  static constexpr int n_bars = 3 + v_stages;
+  static constexpr int bytes = bars + n_bars * 8 + 1024;
 };
 
-// Copy rows [row0, row0 + nrows) of a (rows, D) bf16 matrix with the given
-// row stride into a shared tile; rows at or past `limit` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int limit, int nrows) {
-  constexpr int VEC = 8;  // bf16 values per 16-byte load
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < nrows * PER_ROW; i += NTHREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * Layout<D>::LDH + c) = val;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one 64-key tile's scores, in place: s (this
+// thread's part of S = Q K^T for keys k0.., rows q_row and q_row + 8)
+// becomes P = exp2(S * scale * log2 e - m) with m the running row max;
+// m_run and the thread's part of the running sum l_run move on, and alpha
+// is the factor that takes O from the old max to the new one. Only a tile
+// on an edge (`edge`) tests each (query, key) pair against the masks.
+template <bool CAUSAL>
+__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m_run)[2],
+                                               float (&l_run)[2], float (&alpha)[2],
+                                               float to_log2, bool edge, int k0,
+                                               int len, int sk, int q_row, int lane) {
+  float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * to_log2;
+      if (edge) {
+        const int key = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+        if (key >= sk) x = -INFINITY;  // past the sequence: not a key at all
+        else if (key >= len || (CAUSAL && key > q_row + 8 * (e >> 1))) x = MASKED;
+      }
+      s[j][e] = x;
+      m_new[e >> 1] = fmaxf(m_new[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // the quad's four threads hold a row
+    m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
+    m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 2));
+    alpha[i] = exp2_approx(m_run[i] - m_new[i]);
+    m_run[i] = m_new[i];
+    l_run[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_approx(s[j][e] - m_new[e >> 1]);
+      l_run[e >> 1] += p;
+      s[j][e] = p;
+    }
   }
 }
 
+// q, k and v are read through TMA maps (tensor_map in hopper.cuh).
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ lens,
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 4 : 3)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
+                 const __grid_constant__ CUtensorMap v, const int* __restrict__ lens,
                  bf16* __restrict__ out, int sq, int sk, int group, float scale,
-                 long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_ss, long long k_sh,
-                 long long v_sb, long long v_ss, long long v_sh,
-                 long long o_sb, long long o_ss, long long o_sh) {
-  using L = Layout<D>;
+                 Strides os) {
+  using L = FwdLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  float* sO = reinterpret_cast<float*>(smem + L::o);
+  const unsigned base = aligned_smem(smem);
+  const unsigned bar = base + L::bars;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const Block blk = block_of_grid<CAUSAL, true>();
+  const int q0 = blk.tile * BQ;
+  const int h = blk.head;
+  const int b = blk.b;
   const int kvh = h / group;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int len = min(lens[b], sk);
-
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + kvh * k_sh;
-  const bf16* vb = v + b * v_sb + kvh * v_sh;
 
   // keys that can be visible to this q tile
   int kv_end = len;
   if (CAUSAL) kv_end = min(kv_end, q0 + BQ);
   const int n_tiles = max((kv_end + BK - 1) / BK, 1);
 
-  load_tile<D>(sQ, qb, q_ss, q0, sq, BQ);
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sO[i] = 0.f;
+  // K tile t in slot t % 2 and V tile t in slot t % v_stages, each slot on
+  // its own mbarrier
+  auto k_bar = [&](int t) { return bar + 8 * (1 + (t & 1)); };
+  auto v_bar = [&](int t) { return bar + 8 * (3 + t % L::v_stages); };
+  auto issue_k = [&](int t) {  // by one thread
+    mbar_expect(k_bar(t), L::tile);
+    tma_tile<D>(base + L::k0 + (t & 1) * L::tile, k, t * BK, kvh, b, k_bar(t));
+  };
+  auto issue_v = [&](int t) {
+    mbar_expect(v_bar(t), L::tile);
+    tma_tile<D>(base + L::v0 + (t % L::v_stages) * L::tile, v, t * BK, kvh, b, v_bar(t));
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::n_bars; ++i) mbar_init(bar + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(bar, L::tile);
+    tma_tile<D>(base + L::q, q, q0, h, b, bar);
+    issue_k(0);
+    issue_v(0);
+  }
 
-  // softmax state: lanes 2r and 2r+1 share row `row` of this warp's 16 rows
-  const int row = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int q_idx = q0 + row;
-  float m_run = -INFINITY, l_run = 0.f;
-
+  // this lane's rows of the block's tile: r0 and r0 + 8
+  const int r0 = warp * 16 + lane / 4;
+  const float to_log2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's columns only
+  float acc[D / 8][4];
+  zero(acc);
+  mbar_wait(bar, 0);
   for (int t = 0; t < n_tiles; ++t) {
+    // the next tile's K (and, with two V stages, its V) is in flight while
+    // this one is used
+    if (threadIdx.x == 0 && t + 1 < n_tiles) {
+      issue_k(t + 1);
+      if (L::v_stages == 2) issue_v(t + 1);
+    }
     const int k0 = t * BK;
-    __syncthreads();  // all warps are done with the previous K/V tile
-    load_tile<D>(sK, kb, k_ss, k0, sk, BK);
-    load_tile<D>(sV, vb, v_ss, k0, sk, BK);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
+    mbar_wait(k_bar(t), (t >> 1) & 1);
+    float s[8][4], alpha[2];
+    zero(s);  // before the fence: wgmma then reads what these wrote
+    wgmma_fence();
+    scores<D>(s, base + L::q, base + L::k0 + (t & 1) * L::tile);  // S = Q K^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    const bool edge = k0 + BK > len || (CAUSAL && k0 + BK - 1 > q0);
+    online_softmax<CAUSAL>(s, m_run, l_run, alpha, to_log2, edge, k0, len, sk, q0 + r0,
+                           lane);
 #pragma unroll
-    for (int nf = 0; nf < BK / 16; ++nf) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kf = 0; kf < D / 16; ++kf) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * L::LDH + kf * 16, L::LDH);
-        wmma::load_matrix_sync(fb, sK + nf * 16 * L::LDH + kf * 16, L::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * L::LDS + nf * 16, acc, L::LDS,
-                              wmma::mem_row_major);
+    for (int nt = 0; nt < D / 8; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
     }
-    __syncwarp();
-
-    // online softmax over this tile's 64 keys, 32 per lane
-    float sv[BK / 2];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) {
-      const int c = half * (BK / 2) + j;
-      const int key = k0 + c;
-      float x = sS[row * L::LDS + c] * scale;
-      if (key >= sk) x = -INFINITY;  // past the sequence: not a key at all
-      else if (key >= len || (CAUSAL && key > q_idx)) x = MASKED;
-      sv[j] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m_run, tmax);
-    const float alpha = __expf(m_run - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) {
-      const float pj = __expf(sv[j] - m_new);
-      psum += pj;
-      sP[row * L::LDP + half * (BK / 2) + j] = __float2bfloat16(pj);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * alpha + psum;
-    m_run = m_new;
-#pragma unroll 8
-    for (int j = 0; j < D / 2; ++j) sO[row * L::LDO + half * (D / 2) + j] *= alpha;
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows
-#pragma unroll
-    for (int nf = 0; nf < D / 16; ++nf) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* o_tile = sO + warp * 16 * L::LDO + nf * 16;
-      wmma::load_matrix_sync(acc, o_tile, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kf = 0; kf < BK / 16; ++kf) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + warp * 16 * L::LDP + kf * 16, L::LDP);
-        wmma::load_matrix_sync(fb, sV + kf * 16 * L::LDH + nf * 16, L::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(o_tile, acc, L::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    unsigned pa[4][4];
+    to_operand(pa, s);
+    mbar_wait(v_bar(t), (t / L::v_stages) & 1);
+    wgmma_fence();
+    accumulate<D>(acc, pa, base + L::v0 + (t % L::v_stages) * L::tile);  // O += P V
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warp is done with this tile's K and V slots
+    if (L::v_stages == 1 && threadIdx.x == 0 && t + 1 < n_tiles) issue_v(t + 1);
   }
 
-  if (q_idx < sq) {
-    const float inv = 1.f / fmaxf(l_run, 1e-30f);
-    bf16* orow = out + b * o_sb + (long long)q_idx * o_ss + h * o_sh + half * (D / 2);
-    const float* srow = sO + row * L::LDO + half * (D / 2);
-#pragma unroll 8
-    for (int j = 0; j < D / 2; j += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + j) =
-          __floats2bfloat162_rn(srow[j] * inv, srow[j + 1] * inv);
-    }
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = 1.f / fmaxf(l, 1e-30f);
   }
+  store_rows<D>(out + b * os.b + h * os.h, os.s, acc, q0 + r0, sq, lane, inv[0], inv[1]);
 }
 
 template <int D, bool CAUSAL>
@@ -212,16 +254,17 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
            void* out, int b, int h, int hkv, int sq, int sk, float scale,
            const long long* st, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<D, CAUSAL>;
-  const size_t smem = Layout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const size_t smem = FwdLayout<D>::bytes;
+  int err = prepare(kern, smem);
+  CUtensorMap maps[3];
+  if (!err) err = tensor_map(&maps[0], q, b, sq, h, D, strides(st, 0));
+  if (!err) err = tensor_map(&maps[1], k, b, sk, hkv, D, strides(st, 1));
+  if (!err) err = tensor_map(&maps[2], v, b, sk, hkv, D, strides(st, 2));
+  if (err) return err;
   dim3 grid((sq + BQ - 1) / BQ, h, b);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), lens, static_cast<bf16*>(out), sq, sk,
-      h / hkv, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11]);
+  kern<<<grid, NTHREADS, smem, stream>>>(maps[0], maps[1], maps[2], lens,
+                                         static_cast<bf16*>(out), sq, sk, h / hkv,
+                                         scale, strides(st, 3));
   return (int)cudaGetLastError();
 }
 

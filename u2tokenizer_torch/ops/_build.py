@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
 Every ``u2tokenizer_torch/csrc/*.cu`` compiles with ``nvcc`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. Sources
+shared library with a plain C interface, loaded with ``ctypes``; the
+headers beside them (``csrc/*.cuh``) are shared by the sources. Sources
 build in parallel, one ``nvcc`` process each, at first use; a library is
-named by the hash of its source and flags, so a changed source rebuilds and
-an unchanged one is reused. Output goes to ``build/kernels/`` at the root
-of the checkout (git-ignored).
+named by the hash of its source, every header and the flags, so a changed
+source or header rebuilds and an unchanged one is reused. Output goes to
+``build/kernels/`` at the root of the checkout (git-ignored).
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine that has no ``nvcc``.
@@ -43,7 +44,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 

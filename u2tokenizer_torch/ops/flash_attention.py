@@ -4,13 +4,16 @@ backward kernels K4a (row logsumexp), K4b (dq) and K4c (dk/dv).
 Replaces the Pallas kernels of ``u2tokenizer_tpu/ops/flash_attention.py``:
 ``_kernel`` (K1), ``_kernel_causal_chunked`` (K2), ``_lse_kernel`` (K4a),
 ``_dq_kernel`` (K4b) and ``_dkv_kernel`` (K4c). The CUDA sources are
-``u2tokenizer_torch/csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``; their
-headers say what bounds each kernel on the H100 (FLOPs) and what the design
-does about it. K4b and K4c are wgmma kernels of one warpgroup a block:
-score tiles and the dQ, dK and dV accumulators stay in registers, P and dS
-feed the next product as register operands, and the Q/dO (K4c) or K/V (K4b)
-tiles arrive by TMA in two stages; the launcher builds the TMA maps from
-the strides these wrappers pass, so q/k/v may stay strided views.
+``u2tokenizer_torch/csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, which
+share their building blocks in ``csrc/hopper.cuh``; their headers say what
+bounds each kernel on the H100 (FLOPs) and what the design does about it.
+K1, K2, K4b and K4c are wgmma kernels of one warpgroup a block: score tiles
+and the O, dQ, dK and dV accumulators stay in registers (K1/K2 keep the
+online softmax's running max and sum there too), P and dS feed the next
+product as register operands, and the K/V (K1, K2, K4b) or Q/dO (K4c)
+tiles arrive by TMA while the previous one is used; the launcher builds the
+TMA maps from the strides these wrappers pass, so q/k/v may stay strided
+views.
 
 ``flash_attention`` takes the framework's (B, S, H, D) layout and is
 differentiable. Its backward computes ``dd = rowsum(dO * O)`` and then
