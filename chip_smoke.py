@@ -12,7 +12,12 @@ Run from the root of a checkout. It
      in one row, shows that the same limits reject a mask off by one key
      (and, for K3's int4 form, nibbles swapped or read unsigned), and times
      the kernel, the plain version and, where one PyTorch call computes the
-     same function, that call (CUDA events, median of 7); the flash
+     same function, that call (CUDA events, median of 7), with the
+     kernel's own device time beside (torch.profiler, ``device_ms``) and a
+     bound that counts FLOPs, bytes and exponentials (``bound_ms``); K3 at
+     steps 0, 383 and 767 of both serving paths, with a 3-token prompt in
+     the batch and at B=1, each also called twice for the same bits, with
+     a ``decode_calls`` line of its split counts and times; the flash
      forward K1/K2 and backward K4a-c at every call the paths make (K1
      and K2 also at the quantized path's ViT group of 128 chunks and its
      112-row prefill, held there on the batch's last 8 rows) and at two
@@ -71,6 +76,10 @@ import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
+EX2_PER_SM_CLOCK = 16      # MUFU.EX2 a clock on each SM (Hopper)
+# exponentials a second: EX2_PER_SM_CLOCK x SMs x the SM's max clock, set
+# by ``exp_peak`` from the card before the first bound is taken
+PEAK_EXP2 = None
 # Kernel vs plain version, per element:
 #     |out - ref| <= atol + rtol * |ref| + mtol * sum_j p_j |v_j|.
 # Both outputs are bf16 rounded from fp32 sums taken in another order, so
@@ -79,10 +88,14 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # version rounds the normalised ones, two errors of up to 2^-9 relative on
 # each term p_j v_j: mtol = 2^-8 of the terms' absolute sum. It matters
 # where a few keys carry all the weight and cancel, as in K2's early causal
-# rows (0.0156 at |ref| ~0.5). atol covers the typical |ref| of 0.04. K3's
-# plain version repeats its rounding (fp32 scores, bf16 probabilities), so
-# the two differ only by the order of fp32 sums and one rounding of the
-# bf16 output: rtol, and atol 1e-3 for outputs near zero. A one-key change
+# rows (0.0156 at |ref| ~0.5). atol covers the typical |ref| of 0.04. K3
+# takes a (row, kv head) with fewer than 512 visible rows in its plain
+# version's order of rounding (fp32 scores, bf16 probabilities), so the two
+# differ only by the order of fp32 sums and one rounding of the bf16
+# output: rtol, and atol 1e-3 for outputs near zero. Longer ones it splits
+# over the sequence and rounds each probability before normalising: up to
+# 2^-8 relative on each of 512 or more terms, which average out inside the
+# same limits. A one-key change
 # to the mask moves outputs by more, and each check below shows it: the
 # kernel must fail these limits against a plain version whose mask is off
 # by one key (and, for K3's int4 form, that reads the nibbles wrongly).
@@ -159,6 +172,30 @@ def time_ms(torch, fn, inner: int = 1, reps: int = 7, warmup: int = 2):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, kernel: str, calls: int = 7):
+    """The median device time (ms) of the kernel whose ``__global__`` name
+    is ``kernel`` over ``calls`` calls of ``fn`` (after one unprofiled),
+    from torch.profiler's trace of the card; each call launches it once.
+    The trace may miss a launch at the end of the window (seen on the H100
+    with 4 ms launches), so it must hold at least half of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels, _ = device_time(torch, prof)
+    times = [e.time_range.elapsed_us() for e in kernels
+             if f"::{kernel}<" in e.name]
+    if not calls // 2 <= len(times) <= calls:
+        raise AssertionError(f"device_ms: {len(times)} launches of {kernel} "
+                             f"in the trace of {calls} calls")
+    return statistics.median(times) / 1e3
+
+
 def ptxas_summary(report: str) -> dict:
     """Per kernel (mangled name) of an ``nvcc -Xptxas -v`` report:
     registers a thread, the spill line, and how often ptxas injected a
@@ -180,10 +217,28 @@ def ptxas_summary(report: str) -> dict:
     return out
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def exp_peak(torch) -> dict:
+    """Set PEAK_EXP2 from the card: its SM count (torch) and the SMs' max
+    clock (nvidia-smi), and return both."""
+    global PEAK_EXP2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    PEAK_EXP2 = EX2_PER_SM_CLOCK * sms * mhz * 1e6
+    return {"sms": sms, "sm_clock_max_mhz": mhz, "peak_exp2_per_s": PEAK_EXP2}
+
+
+def bound_ms(flops: float, nbytes: float, exps: float = 0.0):
+    """The least time (ms) the card could take: the largest of the FLOPs
+    at the bf16 tensor-core peak, the bytes at the memory's peak and the
+    exponentials at the special-function units' peak; and which one."""
+    times = {"operations": flops / PEAK_BF16_FLOPS,
+             "bytes": nbytes / PEAK_BYTES, "exp": exps / PEAK_EXP2}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 def excess(torch, out, ref, mass, name: str):
@@ -319,10 +374,12 @@ def check_flash(torch, F, fa, call: dict, seed: int, timed: bool = True,
     check = compare(torch, out[rows], ref, name, mutants, mass)
     del out, ref, mutants, mass
 
-    ms = plain_ms = library_ms = None
+    ms = dev_ms = plain_ms = library_ms = None
     if timed:
         ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lens_t,
                                                        causal=causal))
+        dev_ms = device_ms(torch, lambda: fa.flash_attention(
+            q, k, v, lens_t, causal=causal), "flash_fwd_kernel")
         plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(
             hq, hk, hv, hl, causal=causal), reps=3)
         mask = sdpa_mask(torch, lens_t, s, causal)
@@ -332,15 +389,17 @@ def check_flash(torch, F, fa, call: dict, seed: int, timed: bool = True,
         del mask, qt, kt, vt
 
     # work this data needs; each tensor is read or written once
-    flops = 4.0 * d * h * visible_pairs(causal, s, lens)
+    pairs = h * visible_pairs(causal, s, lens)  # one exponential each
+    flops = 4.0 * d * pairs
     nbytes = 2.0 * b * s * d * (2 * h + 2 * hkv)
-    bms, by = bound_ms(flops, nbytes)
+    bms, by = bound_ms(flops, nbytes, pairs)
     return {"name": name, "route": "cuda",
             "source": "u2tokenizer_torch/csrc/flash_fwd.cu",
             "replaces": ("u2tokenizer_tpu/ops/flash_attention.py:73"
                          if causal else
                          "u2tokenizer_tpu/ops/flash_attention.py:45"),
             "max_abs_err": check.pop("max_abs_err"), "ms": ms,
+            "device_ms": dev_ms,
             "plain_ms": plain_ms, "plain_rows": rows.stop - rows.start,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "library_call": "SDPA, the same mask", "check": check,
@@ -353,8 +412,10 @@ def flash_fwd_summary(calls: dict) -> dict:
     """Per call of K1 or K2: its time, its share of the bound
     (bound_ms / ms) and its ratio to SDPA's call with the same mask."""
     return {label: {"kernel": e["name"], "ms": e["ms"],
-                    "bound_ms": e["bound_ms"],
+                    "device_ms": e["device_ms"],
+                    "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
                     "share_of_bound": e["bound_ms"] / e["ms"],
+                    "device_share_of_bound": e["bound_ms"] / e["device_ms"],
                     "sdpa_ms": e["library_ms"],
                     "over_sdpa": e["ms"] / e["library_ms"],
                     "shape": e["shape"]}
@@ -362,8 +423,9 @@ def flash_fwd_summary(calls: dict) -> dict:
 
 
 def time_flash_bwd(torch, F, fa, q, k, v, do, lse, dd, lens_t, kw):
-    """CUDA-event times (ms) of K4a, K4b and K4c, of their plain versions,
-    and of SDPA's whole backward with the same mask."""
+    """CUDA-event times (ms) of K4a, K4b and K4c, their device times
+    (torch.profiler), the plain versions' times, and SDPA's whole backward
+    with the same mask."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     causal = kw["causal"]
@@ -372,6 +434,12 @@ def time_flash_bwd(torch, F, fa, q, k, v, do, lse, dd, lens_t, kw):
           "dq": time_ms(torch, lambda: fa.flash_bwd_dq(*args, lens_t, **kw)),
           "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(*args, lens_t,
                                                          **kw))}
+    dev_ms = {"lse": device_ms(torch, lambda: fa.flash_bwd_lse(
+        q, k, lens_t, **kw), "lse_kernel"),
+              "dq": device_ms(torch, lambda: fa.flash_bwd_dq(
+                  *args, lens_t, **kw), "dq_kernel"),
+              "dkv": device_ms(torch, lambda: fa.flash_bwd_dkv(
+                  *args, lens_t, **kw), "dkv_kernel")}
     plain_ms = {
         "lse": time_ms(torch, lambda: fa.flash_bwd_lse_reference(
             q, k, lens_t, **kw), reps=3),
@@ -388,7 +456,7 @@ def time_flash_bwd(torch, F, fa, q, k, v, do, lse, dd, lens_t, kw):
     library_ms = time_ms(torch, lambda: torch.autograd.grad(
         o, (qt, kt, vt), dot, retain_graph=True))
     del o, qt, kt, vt
-    return ms, plain_ms, library_ms
+    return ms, dev_ms, plain_ms, library_ms
 
 
 def check_flash_bwd(torch, F, fa, call: dict, seed: int,
@@ -448,11 +516,11 @@ def check_flash_bwd(torch, F, fa, call: dict, seed: int,
                 for name, ref in (("lse", lse_ref), ("dq", dq_ref),
                                   ("dk", dk_ref), ("dv", dv_ref))}
 
-    ms = plain_ms = {"lse": None, "dq": None, "dkv": None}
+    ms = dev_ms = plain_ms = {"lse": None, "dq": None, "dkv": None}
     library_ms = None
     if timed:
-        ms, plain_ms, library_ms = time_flash_bwd(torch, F, fa, q, k, v, do,
-                                                  lse_ref, dd, lens_t, kw)
+        ms, dev_ms, plain_ms, library_ms = time_flash_bwd(
+            torch, F, fa, q, k, v, do, lse_ref, dd, lens_t, kw)
 
     seen = visible_pairs(causal, s, lens)
     q_bytes, kv_bytes, stat_bytes = 2.0 * b * s * h * d, \
@@ -470,13 +538,14 @@ def check_flash_bwd(torch, F, fa, call: dict, seed: int,
             ("dq", "flash_bwd_dq", 204, checks["dq"]["max_abs_err"]),
             ("dkv", "flash_bwd_dkv", 245, max(checks["dk"]["max_abs_err"],
                                               checks["dv"]["max_abs_err"]))):
-        bms, by = bound_ms(*work[key])
+        bms, by = bound_ms(*work[key], h * seen)  # one exp a pair
         parts = ("dk", "dv") if key == "dkv" else (key,)
         entries.append({
             "name": name, "route": "cuda",
             "source": "u2tokenizer_torch/csrc/flash_bwd.cu",
             "replaces": f"u2tokenizer_tpu/ops/flash_attention.py:{line}",
-            "max_abs_err": err, "ms": ms[key], "plain_ms": plain_ms[key],
+            "max_abs_err": err, "ms": ms[key], "device_ms": dev_ms[key],
+            "plain_ms": plain_ms[key],
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "library_call": "SDPA backward: dq, dk and dv together",
             "check": {part: checks[part] for part in parts},
@@ -496,6 +565,14 @@ def flash_bwd_summary(calls: dict) -> dict:
         out[label] = {"k4b_ms": dq["ms"], "k4c_ms": dkv["ms"],
                       "k4a_ms": lse["ms"], "k4b_plus_k4c_ms": pair,
                       "k4a_plus_k4b_plus_k4c_ms": whole,
+                      "device_ms": {"k4a": lse["device_ms"],
+                                    "k4b": dq["device_ms"],
+                                    "k4c": dkv["device_ms"]},
+                      "bound_by": {"k4a": lse["bound_by"],
+                                   "k4b": dq["bound_by"],
+                                   "k4c": dkv["bound_by"]},
+                      "k4a_device_share_of_bound":
+                          lse["bound_ms"] / lse["device_ms"],
                       "sdpa_backward_ms": dq["library_ms"],
                       "k4b_plus_k4c_over_sdpa": pair / dq["library_ms"],
                       "k4a_plus_k4b_plus_k4c_over_sdpa":
@@ -517,21 +594,31 @@ def nibbles(p, torch, order: str):
     return torch.stack(pair, dim=-1).flatten(-2)
 
 
-def check_decode(torch, da, attn, bits: int, b: int):
-    """K3 at a mid-run decode step of a serving path: ``b`` rows, 16 q / 8
+def check_decode(torch, da, attn, bits: int, b: int,
+                 step: int = (MAX_NEW - 1) // 2, prompt=None,
+                 timed: bool = True):
+    """K3 at decode step ``step`` of a serving path: ``b`` rows, 16 q / 8
     kv heads of 128, an int8 (``bits`` 8) or packed int4 (4) cache of
-    1024 + 768 slots, the last row's prompt 900 tokens long."""
+    1024 + 768 slots, the rows' prompts ``prompt`` long (by default 1024,
+    the last row 900). Holds it to its plain version under TOL, shows that
+    the same limits reject prompt_len[-1] and end one key off (and, at
+    int4, nibbles read wrongly) and that a second call gives the same bits.
+    With ``timed`` it is timed (CUDA events and device time) on caches
+    cycled out of L2."""
     h, hkv, d = 16, 8, 128
-    s_total, step = PROMPT + MAX_NEW, (MAX_NEW - 1) // 2
+    s_total = PROMPT + MAX_NEW
     name = da.KERNELS[bits]
+    plen_l = list(prompt or [PROMPT] * (b - 1) + [RAGGED])
     g = torch.Generator(device="cuda").manual_seed(3)
     q = torch.randn(b, 1, h, d, generator=g, device="cuda",
                     dtype=torch.bfloat16)
     # distinct caches, cycled while timing, so that the 50 MB L2 holds none
     # (the serving loop reads 28 layers' caches in turn)
     cache_bytes = 2 * b * hkv * s_total * d * bits // 8
+    n_caches = max(2, min(16, math.ceil(8 * 50e6 / cache_bytes))) \
+        if timed else 1
     caches = []
-    for _ in range(max(2, min(16, math.ceil(8 * 50e6 / cache_bytes)))):
+    for _ in range(n_caches):
         kf, vf = (torch.randn(b, s_total, hkv, d, generator=g, device="cuda",
                               dtype=torch.bfloat16) for _ in range(2))
         (kq, ks), (vq, vs) = (attn.quantize_kv(x, dtype=f"int{bits}")
@@ -541,54 +628,98 @@ def check_decode(torch, da, attn, bits: int, b: int):
         caches.append(tuple(x.transpose(1, 2).contiguous() for x in
                             (kq, ks[..., 0], vq, vs[..., 0])))
         del kf, vf
-    plen_l = [PROMPT] * (b - 1) + [RAGGED]
     plen = torch.tensor(plen_l, dtype=torch.int32, device="cuda")
     end = torch.full((b,), PROMPT + step + 1, dtype=torch.int32,
                      device="cuda")
     kq, ks, vq, vs = caches[0]
     out = da.decode_attention_quantized(q, kq, ks, vq, vs, plen, end, PROMPT)
+    n_split = da.split_count(b, hkv, s_total, da.sm_count(q.device))
+    again = da.decode_attention_quantized(q, kq, ks, vq, vs, plen, end,
+                                          PROMPT)
     ref = da.decode_attention_reference(q, kq, ks, vq, vs, plen, end, PROMPT)
+    visible = da.visible_keys(plen, end, PROMPT, s_total)
     mutants = {}
-    for shift in (-1, 1):
+    for shift in (-1, 1):  # each that moves the mask by a key
         off = plen.clone()
         off[-1] += shift
-        mutants[f"prompt_len[-1]{shift:+d}"] = da.decode_attention_reference(
-            q, kq, ks, vq, vs, off, end, PROMPT)
-        mutants[f"end{shift:+d}"] = da.decode_attention_reference(
-            q, kq, ks, vq, vs, plen, end + shift, PROMPT)
+        if not torch.equal(da.visible_keys(off, end, PROMPT, s_total),
+                           visible):
+            mutants[f"prompt_len[-1]{shift:+d}"] = \
+                da.decode_attention_reference(q, kq, ks, vq, vs, off, end,
+                                              PROMPT)
+        if not torch.equal(da.visible_keys(plen, end + shift, PROMPT,
+                                           s_total), visible):
+            mutants[f"end{shift:+d}"] = da.decode_attention_reference(
+                q, kq, ks, vq, vs, plen, end + shift, PROMPT)
     if bits == 4:
         for order in ("swapped", "unsigned"):
             mutants[f"nibbles {order}"] = da.decode_attention_reference(
                 q, nibbles(kq, torch, order), ks, nibbles(vq, torch, order),
                 vs, plen, end, PROMPT)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
     check = compare(torch, out, ref, name, mutants)
-    del mutants
+    del mutants, again
 
-    it = iter(range(1 << 30))
+    ms = dev_ms = plain_ms = None
+    if timed:
+        it = iter(range(1 << 30))
 
-    def run():
-        kq, ks, vq, vs = caches[next(it) % len(caches)]
-        da.decode_attention_quantized(q, kq, ks, vq, vs, plen, end, PROMPT)
+        def run():
+            kq, ks, vq, vs = caches[next(it) % len(caches)]
+            da.decode_attention_quantized(q, kq, ks, vq, vs, plen, end,
+                                          PROMPT)
 
-    ms = time_ms(torch, run, inner=32)
-    plain_ms = time_ms(torch, lambda: da.decode_attention_reference(
-        q, kq, ks, vq, vs, plen, end, PROMPT), inner=4)
-    rows = sum(n + step + 1 for n in plen_l)  # visible cache rows
+        ms = time_ms(torch, run, inner=32)
+        dev_ms = device_ms(torch, run, "decode_attn_kernel", calls=32)
+        plain_ms = time_ms(torch, lambda: da.decode_attention_reference(
+            q, kq, ks, vq, vs, plen, end, PROMPT), inner=4)
+    rows = int(visible.sum())  # visible cache rows
     # per visible row and kv head: D*bits/8 bytes of K and of V, two bf16
-    # scales; q read and the output written once
+    # scales; q read and the output written once; one exponential per
+    # visible row and query head
     nbytes = hkv * rows * (2 * d * bits // 8 + 2 * 2) + 2 * (2 * b * h * d)
     flops = 4.0 * d * h * rows
-    bms, by = bound_ms(flops, nbytes)
+    bms, by = bound_ms(flops, nbytes, h * rows)
     return {"name": name, "route": "cuda",
             "source": "u2tokenizer_torch/csrc/decode_attention.cu",
             "replaces": "u2tokenizer_tpu/ops/decode_attention.py:32",
             "max_abs_err": check.pop("max_abs_err"), "ms": ms,
+            "device_ms": dev_ms, "n_split": n_split,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "check": check,
             "shape": {"q": list(q.shape), "k": list(kq.shape),
-                      "prompt_len": f"{PROMPT} x{b - 1}, {RAGGED}",
-                      "end": PROMPT + step + 1}}
+                      "prompt_len": plen_l if b <= 8 else
+                      f"{plen_l[0]} x{b - 1}, {plen_l[-1]}",
+                      "end": PROMPT + step + 1, "step": step}}
+
+
+def decode_summary(calls: dict) -> dict:
+    """Per timed call of K3: n_split, time, device time and their shares
+    of the bound."""
+    return {label: {"kernel": e["name"], "n_split": e["n_split"],
+                    "ms": e["ms"], "device_ms": e["device_ms"],
+                    "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+                    "share_of_bound": e["bound_ms"] / e["ms"],
+                    "device_share_of_bound": e["bound_ms"] / e["device_ms"],
+                    "shape": e["shape"]}
+            for label, e in calls.items()}
+
+
+# K3's untimed checks beside the three timed calls (step 383 at int8 and
+# int4 B=4 and int4 B=112): the first and last decode steps at each; a
+# batch with a 3-token prompt, whose (row, kv head)s are not split (fewer
+# visible rows than csrc/decode_attention.cu's EXACT_ROWS), so that the
+# other blocks of their grid columns find no rows, at steps 0 and 383;
+# and B=1. Each is (bits, batch, step, prompt).
+DECODE_EDGE_CALLS = (
+    [(bits, b, step, None) for bits, b in ((8, BATCH), (4, BATCH),
+                                            (4, QUANT_BATCH))
+     for step in (0, MAX_NEW - 1)]
+    + [(bits, BATCH, step, [PROMPT] * (BATCH - 1) + [3])
+       for bits in (8, 4) for step in (0, (MAX_NEW - 1) // 2)]
+    + [(bits, 1, (MAX_NEW - 1) // 2, [RAGGED]) for bits in (8, 4)])
 
 
 def reset_launches(*modules):
@@ -1194,7 +1325,8 @@ def main() -> int:
 
     card = gpu_line()
     print(json.dumps({"card": card, "torch": torch.__version__,
-                      "cuda": torch.version.cuda, "tf32": False}), flush=True)
+                      "cuda": torch.version.cuda, "tf32": False,
+                      "exp_bound": exp_peak(torch)}), flush=True)
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -1225,18 +1357,25 @@ def main() -> int:
         print(json.dumps({"kernel_check": k}), flush=True)
     print(json.dumps({"flash_fwd_calls": flash_fwd_summary(fwd_calls),
                       "card": card}), flush=True)
-    kernels = [k1, k2, check_decode(torch, da, attn, 8, BATCH)]
+    int8 = check_decode(torch, da, attn, 8, BATCH)
+    kernels = [k1, k2, int8]
     int4 = check_decode(torch, da, attn, 4, QUANT_BATCH)
     int4_b4 = check_decode(torch, da, attn, 4, BATCH)
+    edge_decode = [check_decode(torch, da, attn, bits, b, step, prompt,
+                                timed=False)
+                   for bits, b, step, prompt in DECODE_EDGE_CALLS]
     vit_bwd = check_flash_bwd(torch, F, fa, VIT_CALL, 4)
     dec_bwd = check_flash_bwd(torch, F, fa, PREFILL_CALL, 5)
     b1_bwd = check_flash_bwd(torch, F, fa, TRAIN_DECODER_CALL, 6)
     edge_bwd = [e for i, call in enumerate(EDGE_CALLS)
                 for e in check_flash_bwd(torch, F, fa, call, 7 + i,
                                          timed=False)]
-    for k in kernels[2:] + [int4, int4_b4] + vit_bwd + dec_bwd + b1_bwd \
-            + edge_bwd:
+    for k in [int8, int4, int4_b4] + edge_decode + vit_bwd + dec_bwd \
+            + b1_bwd + edge_bwd:
         print(json.dumps({"kernel_check": k}), flush=True)
+    print(json.dumps({"decode_calls": decode_summary(
+        {f"int8_b{BATCH}": int8, f"int4_b{QUANT_BATCH}": int4,
+         f"int4_b{BATCH}": int4_b4}), "card": card}), flush=True)
     print(json.dumps({"flash_bwd_calls": flash_bwd_summary(
         {"vit": vit_bwd, "decoder": dec_bwd, "decoder_b1": b1_bwd}),
         "card": card}), flush=True)
@@ -1247,8 +1386,8 @@ def main() -> int:
     # beside it; K4 at the ViT's call with the decoder's (B=4, and the
     # training path's B=1) beside it, its error the largest of all the K4
     # checks
-    beside = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms")
+    beside = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms")
     nested = {"vit": ("vit_quantized",),
               "prefill": ("prefill_quantized", "decoder_b1")}
     for top, labels in nested.items():
@@ -1259,8 +1398,12 @@ def main() -> int:
         entry["max_abs_err"] = max(
             e["max_abs_err"] for e in list(fwd_calls.values()) + edge_fwd
             if e["name"] == entry["name"])
-    int4["max_abs_err"] = max(int4["max_abs_err"], int4_b4["max_abs_err"])
-    int4[f"batch{BATCH}_call"] = {key: int4_b4[key] for key in beside}
+    for entry in (int8, int4):
+        entry["max_abs_err"] = max(e["max_abs_err"] for e in
+                                   [int4_b4] + edge_decode + [entry]
+                                   if e["name"] == entry["name"])
+    int4[f"batch{BATCH}_call"] = {key: int4_b4[key]
+                                  for key in beside + ("n_split",)}
     kernels.append(int4)
     for i, (vit, dec, b1) in enumerate(zip(vit_bwd, dec_bwd, b1_bwd)):
         vit["max_abs_err"] = max(e["max_abs_err"] for e in
@@ -1268,7 +1411,8 @@ def main() -> int:
         vit["decoder_call"] = {key: dec[key] for key in beside}
         vit["decoder_call_b1"] = {key: b1[key] for key in beside}
         kernels.append(vit)
-    del int4_b4, vit_bwd, dec_bwd, b1_bwd, edge_bwd, fwd_calls, edge_fwd
+    del int4_b4, vit_bwd, dec_bwd, b1_bwd, edge_bwd, fwd_calls, edge_fwd, \
+        edge_decode
     gc.collect()
     torch.cuda.empty_cache()
     if args.kernels_only:

@@ -25,7 +25,9 @@ from flax import traverse_util
 
 from u2tokenizer_torch.config import TrainConfig as TTrain
 from u2tokenizer_torch.config import U2ModelConfig as TCfg
+from u2tokenizer_torch.models.layers import Dense
 from u2tokenizer_torch.models.u2_model import U2CausalLM as TModel
+from u2tokenizer_torch.models.vit3d import PatchEmbed3D, _ConvProj
 from u2tokenizer_torch.train import sft as t_sft
 from u2tokenizer_torch.train.checkpoint import CheckpointManager
 from u2tokenizer_torch.train.loop import (MetricLogger, device_prefetch,
@@ -84,9 +86,35 @@ def _batch():
     }
 
 
+@torch.no_grad()
+def _draw_fixed_weights(tm, seed=0):
+    """This test's weights, as the port drew them before its initializers
+    became flax's (untruncated normals of std 1/sqrt(fan_in), position
+    embeddings clamped): the test's fixed data, whose gradient noise and
+    update deltas the limits above were measured on. The initializers
+    themselves are held to flax's in tests/test_torch_init.py."""
+    g = torch.Generator().manual_seed(seed)
+    for module in tm.modules():
+        if isinstance(module, Dense):
+            module.weight.normal_(0.0, module.weight.shape[1] ** -0.5,
+                                  generator=g)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, _ConvProj):
+            module.kernel.normal_(0.0, module.kernel.shape[0] ** -0.5,
+                                  generator=g)
+            module.bias.zero_()
+        elif isinstance(module, PatchEmbed3D):
+            module.position_embeddings.normal_(0.0, 0.02, generator=g)
+            module.position_embeddings.clamp_(-0.04, 0.04)
+        elif hasattr(module, "reset_parameters"):
+            module.reset_parameters(g)
+
+
 def _port_model(remat=True):
     tm = TModel(_cfg(TCfg), dtype=torch.float32, device="cpu", seed=0,
                 remat=remat)
+    _draw_fixed_weights(tm)
     rs = np.random.RandomState(1)
     with torch.no_grad():
         for name, p in tm.named_parameters():

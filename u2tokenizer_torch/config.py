@@ -137,8 +137,9 @@ class LLMConfig:
     mlp_type: str = "swiglu"  # swiglu | gelu
     mlp_bias: bool = False
     lm_head_bias: bool = False
-    # Weight-only quantization, LoRA and lm_head tiling are carried for
-    # config compatibility; this port serves float weights only.
+    # Weight-only quantization (int8, int4) and lm_head tiling are served
+    # (models/quantize.py); LoRA is carried for config compatibility and
+    # refused by the decoder (not ported yet).
     quantized_weights: "bool | str" = False
     lora_rank: int = 0
     lora_alpha: float = 32.0

@@ -13,12 +13,13 @@
 // stay views of the fused qkv projection; lse and dd are fp32 (B, H, Sq).
 //
 // Bound on the H100: operations. Per visible (query, key) pair and head,
-// K4a does 2*D FLOP (QK^T), K4b 6*D (QK^T, dO V^T, dS K) and K4c 8*D (the
-// same two score products again, P^T dO and dS^T Q), against O(S*D) bytes;
-// at the training shapes (ViT 2049 tokens, D = 64; decoder 1024 tokens,
-// D = 128) each is far above the card's ~295 FLOP/byte ridge. So K4b and
-// K4c keep the tensor cores on wgmma, every fp32 intermediate in registers,
-// and the copies off the threads that compute.
+// K4a does 2*D FLOP (QK^T) and one exponential, K4b 6*D (QK^T, dO V^T,
+// dS K) and K4c 8*D (the same two score products again, P^T dO and dS^T Q)
+// and one each, against O(S*D) bytes; at the training shapes (ViT 2049
+// tokens, D = 64; decoder 1024 tokens, D = 128) each is far above the
+// card's ~295 FLOP/byte ridge. So all three keep the tensor cores on
+// wgmma, every fp32 intermediate in registers, and the copies off the
+// threads that compute.
 //
 // K4b and K4c: one warpgroup (4 warps, 128 threads) a block, 64-row tiles.
 //   * K4c: a block owns 64 keys of one kv head (grid: key tiles, kv heads,
@@ -76,144 +77,149 @@
 // P and dS are rounded to bf16 before their products (the TPU kernel takes
 // them in fp32). Nothing is padded on the host.
 //
-// K4a is PR 2's simple design: one block per (64-row q tile, head, batch)
-// walks K in 64-key tiles up to lens[b] and the causal frontier with an
-// fp32 running max and sum, bf16 WMMA, scores staged in shared memory.
+// K4a: K1's loop with the P V product taken out, on the same building
+// blocks (hopper.cuh). One warpgroup a block owns 64 query rows of one head
+// (grid: q tiles, heads, batch; under the causal mask block_of_grid's
+// order, the last q tile, which meets every key tile, first). Q comes once
+// and the 64-key K tiles into two slots by TMA; S = Q K^T by wgmma
+// m64n64k16 from shared memory into registers (32 fp32 a thread: rows r0
+// and r0 + 8, 16 keys each). Per tile, only a tile on an edge (lens[b],
+// the sequence end, the diagonal) tests each pair; the row max is the
+// thread's 16 values and two quad shuffles; the exponential takes
+// s * scale * log2 e - m in one FFMA and MUFU.EX2; each thread keeps its
+// own running sum, reduced over the quad once, and lse = (m + log2 l) ln 2.
+// No score tile touches shared memory. At D=64 it does one exponential
+// for each 2 * D = 128 FLOPs of QK^T, so the special-function units (16
+// ex2 a clock an SM) and not the tensor cores bound it; a block takes
+// 25,624 B at D=64 and 50,200 B at D=128, so several blocks share an SM
+// and one's wgmma overlaps another's exponentials.
 //
 // Not yet done (later work): a producer warp with setmaxnreg and two
 // consumer warpgroups taking turns (so that one's exp overlaps the other's
-// wgmma), the B=1 split above, K4a's redesign and its removal by saving
-// lse in the forward.
+// wgmma), the B=1 split above, and K4a's removal by saving lse in the
+// forward.
 
 #include "hopper.cuh"  // TMA, mbarriers, wgmma and the tiles' layout, shared with K1/K2
-
-#include <mma.h>  // K4a's WMMA
-
-using namespace nvcuda;
 
 namespace {
 
 // ---------------------------------------------------------------- K4a ----
 
 template <int D>
-struct Dims {
-  static constexpr int LDH = D + 8;   // bf16 tile row stride (Q, K)
-  static constexpr int LDS = 64 + 4;  // fp32 score row stride
-  static constexpr size_t tile = size_t(64) * LDH * 2;
-  static constexpr size_t score = size_t(64) * LDS * 4;
-};
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-
-// Copy rows [row0, row0 + 64) of a (rows, D) bf16 matrix with the given row
-// stride into a shared tile; rows at or past `limit` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int limit) {
-  constexpr int VEC = 8;  // bf16 values per 16-byte load
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += NTHREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * Dims<D>::LDH + c) = val;
-  }
-}
-
-// c (16 x 64 fp32, row stride LDS) = a (16 x D) . b^T, b (64 x D); a and b
-// are bf16 tiles in shared memory with row stride LDH.
-template <int D>
-__device__ __forceinline__ void mm_abt(float* c, const bf16* a, const bf16* b) {
-  constexpr int LDH = Dims<D>::LDH;
-#pragma unroll
-  for (int nf = 0; nf < 4; ++nf) {
-    Acc acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kf = 0; kf < D / 16; ++kf) {
-      FragA fa;
-      FragBt fb;
-      wmma::load_matrix_sync(fa, a + kf * 16, LDH);
-      wmma::load_matrix_sync(fb, b + nf * 16 * LDH + kf * 16, LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + nf * 16, acc, Dims<D>::LDS, wmma::mem_row_major);
-  }
-}
-
-template <int D>
 struct LseLayout {
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + Dims<D>::tile;
-  static constexpr size_t s = k + Dims<D>::tile;
-  static constexpr size_t bytes = s + Dims<D>::score;
+  static constexpr int tile = Tile<D>::bytes;
+  static constexpr int q = 0;
+  static constexpr int k0 = q + tile;          // K tile t in slot t % 2
+  static constexpr int bars = k0 + 2 * tile;   // Q, then one a K slot
+  static constexpr int bytes = bars + 3 * 8 + 1024;
 };
 
+// q and k are read through TMA maps (tensor_map in hopper.cuh).
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS)
-lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const int* __restrict__ lens, float* __restrict__ lse, int sq,
-           int sk, int group, float scale, Strides qs, Strides ks) {
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 6 : 4)
+lse_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
+           const int* __restrict__ lens, float* __restrict__ lse, int sq, int sk,
+           int group, float scale) {
   using L = LseLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
+  const unsigned base = aligned_smem(smem);
+  const unsigned bar = base + L::bars;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const Block blk = block_of_grid<CAUSAL, true>();
+  const int q0 = blk.tile * BQ;
+  const int h = blk.head;
+  const int b = blk.b;
+  const int kvh = h / group;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int len = min(lens[b], sk);
-  const bf16* kb = k + b * ks.b + (h / group) * ks.h;
 
   int kv_end = len;
   if (CAUSAL) kv_end = min(kv_end, q0 + BQ);
   const int n_tiles = max((kv_end + BK - 1) / BK, 1);
 
-  load_tile<D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq);
-  // lanes 2r and 2r+1 share row `row` of this warp's 16 rows
-  const int row = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int q_idx = q0 + row;
-  float m_run = -INFINITY, l_run = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();
-    load_tile<D>(sK, kb, ks.s, k0, sk);
-    __syncthreads();
-    mm_abt<D>(sS + warp * 16 * Dims<D>::LDS, sQ + warp * 16 * Dims<D>::LDH, sK);
-    __syncwarp();
-    float sv[BK / 2];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) {
-      const int c = half * (BK / 2) + j;
-      const int key = k0 + c;
-      float x = sS[row * Dims<D>::LDS + c] * scale;
-      if (key >= sk) x = -INFINITY;  // past the sequence: not a key at all
-      else if (key >= len || (CAUSAL && key > q_idx)) x = MASKED;
-      sv[j] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m_run, tmax);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) psum += expf(sv[j] - m_new);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * expf(m_run - m_new) + psum;
-    m_run = m_new;
+  auto k_bar = [&](int t) { return bar + 8 * (1 + (t & 1)); };
+  auto issue_k = [&](int t) {  // by one thread
+    mbar_expect(k_bar(t), L::tile);
+    tma_tile<D>(base + L::k0 + (t & 1) * L::tile, k, t * BK, kvh, b, k_bar(t));
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (q_idx < sq && half == 0)
-    lse[((long long)b * gridDim.y + h) * sq + q_idx] = m_run + logf(fmaxf(l_run, 1e-30f));
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(bar, L::tile);
+    tma_tile<D>(base + L::q, q, q0, h, b, bar);
+    issue_k(0);
+  }
+
+  // this lane's rows of the block's tile: r0 and r0 + 8. Scores stay raw
+  // (q.k) until the exponential, which takes s * scale * log2 e - m in one
+  // FFMA; m is the running row max in log2 units. A masked key's raw score
+  // is set so that it reads MASKED (natural units) there, as in the TPU
+  // kernel; a key past the sequence reads -inf.
+  const int r0 = warp * 16 + lane / 4;
+  const float to_log2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  const float masked_raw = MASKED / scale;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's columns only
+  mbar_wait(bar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    if (threadIdx.x == 0 && t + 1 < n_tiles) issue_k(t + 1);
+    const int k0 = t * BK;
+    mbar_wait(k_bar(t), (t >> 1) & 1);
+    float s[8][4];
+    zero(s);  // before the fence: wgmma then reads what these wrote
+    wgmma_fence();
+    scores<D>(s, base + L::q, base + L::k0 + (t & 1) * L::tile);  // S = Q K^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    __syncthreads();  // every warp's wgmma has read this slot: it may refill
+    if (k0 + BK > len || (CAUSAL && k0 + BK - 1 > q0)) {  // an edge tile
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+          if (key >= sk) s[j][e] = -INFINITY;  // past the sequence: not a key at all
+          else if (key >= len || (CAUSAL && key > q0 + r0 + 8 * (e >> 1)))
+            s[j][e] = masked_raw;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float m_new[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // the quad's four threads hold a row
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_new[i] = fmaxf(m_run[i], mx[i] * to_log2);
+      l_run[i] *= exp2_approx(m_run[i] - m_new[i]);
+      m_run[i] = m_new[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        l_run[e >> 1] += exp2_approx(fmaf(s[j][e], to_log2, -m_new[e >> 1]));
+  }
+
+  // lse = (m + log2 l) ln 2, in natural-log units, as K4b and K4c read it
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int qi = q0 + r0 + 8 * i;
+    if (qi < sq && lane % 4 == 0)
+      lse[((long long)b * gridDim.y + h) * sq + qi] =
+          (m_run[i] + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
+  }
 }
 
 // ------------------------------------------------ K4c: cp.async helpers ----
@@ -538,12 +544,14 @@ int launch_lse(const void* q, const void* k, const int* lens, void* lse,
   auto kern = lse_kernel<D, CAUSAL>;
   const size_t smem = LseLayout<D>::bytes;
   int err = prepare(kern, smem);
+  CUtensorMap maps[2];
+  if (!err) err = tensor_map(&maps[0], q, b, sq, h, D, strides(st, 0));
+  if (!err) err = tensor_map(&maps[1], k, b, sk, hkv, D, strides(st, 1));
   if (err) return err;
   dim3 grid((sq + BQ - 1) / BQ, h, b);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), lens,
-      static_cast<float*>(lse), sq, sk, h / hkv, scale, strides(st, 0),
-      strides(st, 1));
+  kern<<<grid, NTHREADS, smem, stream>>>(maps[0], maps[1], lens,
+                                         static_cast<float*>(lse), sq, sk,
+                                         h / hkv, scale);
   return (int)cudaGetLastError();
 }
 

@@ -91,12 +91,6 @@ struct FwdLayout {
   static constexpr int bytes = bars + n_bars * 8 + 1024;
 };
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The online softmax of one 64-key tile's scores, in place: s (this
 // thread's part of S = Q K^T for keys k0.., rows q_row and q_row + 8)
 // becomes P = exp2(S * scale * log2 e - m) with m the running row max;

@@ -1,8 +1,8 @@
 // Building blocks of the Hopper (sm_90a) flash-attention kernels, shared by
-// flash_fwd.cu (K1, K2) and flash_bwd.cu (K4b, K4c): TMA copies of 64-row
-// tiles into 128-byte swizzled shared memory on mbarriers, wgmma products
-// of one warpgroup (4 warps, 128 threads) with fp32 accumulators in
-// registers, the conversion of an accumulator into a bf16 register operand,
+// flash_fwd.cu (K1, K2) and flash_bwd.cu (K4a, K4b, K4c): TMA copies of
+// 64-row tiles into 128-byte swizzled shared memory on mbarriers, wgmma
+// products of one warpgroup (4 warps, 128 threads) with fp32 accumulators
+// in registers, the MUFU exponential, the conversion of an accumulator into a bf16 register operand,
 // the grid order of the causal kernels, the bf16 store of an accumulator's
 // rows, and the host-side TMA map of a (batch, rows, heads, D) tensor.
 // Each source includes this header once; everything here has internal
@@ -83,6 +83,13 @@ __device__ __forceinline__ void tma_tile(unsigned dst, const CUtensorMap& map, i
         "l"(reinterpret_cast<uint64_t>(&map)), "r"(cb * 64), "r"(head), "r"(row0), "r"(b),
         "r"(bar)
         : "memory");
+}
+
+// 2^x on the special-function unit (MUFU.EX2)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // wgmma shared-memory descriptors (128-byte swizzle; the tile 1024-byte

@@ -9,9 +9,10 @@ S <= j <= S+i (the two-interval mask). Rows that emitted EOS keep emitting
 ``pad_token_id``.
 
 The model may hold float or weight-only quantized decoder weights
-(``models.quantize.quantize_llm_weights``); the cache is float, int8 or
-packed int4 (``cache_dtype``), and with int8 or int4 every decode step's
-attention runs through kernel K3 on the GPU.
+(``models.quantize.quantize_llm_weights``); the cache is float (bf16 by
+default, as in the JAX package), int8 or packed int4 (``cache_dtype``), and
+with int8 or int4 every decode step's attention runs through kernel K3 on
+the GPU.
 
 Not ported yet: chunked prefill and decode (``prefill_chunk``,
 ``decode_chunk``), shared-prefix prefill, sampled decoding, fan-out and
@@ -32,7 +33,8 @@ class Generate:
     """generate(inputs_embeds (B, S, E), prompt_len (B,)) -> (B, max_new)
     int64 tokens. The two stages are public so a caller can time them."""
 
-    def __init__(self, model, gen: GenerationConfig, cache_dtype="int8"):
+    def __init__(self, model, gen: GenerationConfig,
+                 cache_dtype=torch.bfloat16):
         self.model = model
         self.gen = gen
         self.cache_dtype = cache_dtype
@@ -107,11 +109,12 @@ class Generate:
 
 
 def make_generate_fn(model, gen: GenerationConfig,
-                     cache_dtype="int8") -> Generate:
+                     cache_dtype=torch.bfloat16) -> Generate:
     """generate(inputs_embeds, prompt_len) -> (B, max_new) int64 tokens.
-    ``cache_dtype`` is "int8" or "int4" (the quantized serving caches, each
-    decoded by its form of kernel K3 on the GPU; ``bench.py`` of the JAX
-    package serves int4) or a float torch dtype."""
+    ``cache_dtype`` is a float torch dtype (bf16 by default, as in the JAX
+    package; the decode then attends through plain PyTorch), or "int8" or
+    "int4" (the quantized serving caches, each decoded by its form of
+    kernel K3 on the GPU; ``bench.py`` of the JAX package serves int4)."""
     return Generate(model, gen, cache_dtype)
 
 
@@ -144,7 +147,7 @@ class MultimodalGenerate:
     ``prefill_stage`` and ``decode_steps`` are the stages, for timing."""
 
     def __init__(self, model: U2CausalLM, gen: GenerationConfig,
-                 cache_dtype="int8", vision_microbatch: int = 128):
+                 cache_dtype=torch.bfloat16, vision_microbatch: int = 128):
         self.model = model
         self.gen_fn = make_generate_fn(model, gen, cache_dtype)
         self.vision_microbatch = vision_microbatch
@@ -162,7 +165,7 @@ class MultimodalGenerate:
 
 
 def make_multimodal_generate_fn(model: U2CausalLM, gen: GenerationConfig,
-                                cache_dtype="int8",
+                                cache_dtype=torch.bfloat16,
                                 vision_microbatch: int = 128,
                                 ) -> MultimodalGenerate:
     """generate(input_ids, images, question_ids, prompt_len) -> (B, max_new)

@@ -5,7 +5,8 @@ argument), and LayerNorm's epsilon defaults to 1e-6 (torch's is 1e-5).
 
 Every module with parameters has ``reset_parameters(generator)``, which
 draws them from an explicit ``torch.Generator`` with the initializers the
-JAX package uses; ``init_weights`` walks a model and calls it.
+JAX package names (the same distributions; torch's generator gives other
+numbers than ``jax.random``); ``init_weights`` walks a model and calls it.
 """
 
 from __future__ import annotations
@@ -15,10 +16,25 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# std of a unit normal truncated to [-2, 2]: flax's variance_scaling divides
+# its std by it so that the truncated draw keeps the asked-for variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal``, ``variance_scaling(1, "fan_in",
+    "truncated_normal")``: a normal with std (1/fan_in)^(1/2) / 0.8796...
+    truncated to two of those stds, in place."""
+    std = fan_in ** -0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
 class Dense(nn.Module):
     """y = x W^T + b in ``dtype``. ``weight`` is (out, in), torch's layout;
     flax's kernel is (in, out) and ``weights.load_flax_params`` transposes
-    it. Init: lecun normal (std 1/sqrt(in)), zero bias."""
+    it. Init: flax's ``lecun_normal`` (``lecun_normal_``), zero bias."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.float32, device=None):
@@ -30,8 +46,7 @@ class Dense(nn.Module):
                      if bias else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        std = self.weight.shape[1] ** -0.5
-        self.weight.normal_(0.0, std, generator=generator)
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
         if self.bias is not None:
             self.bias.zero_()
 

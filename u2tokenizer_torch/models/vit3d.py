@@ -16,7 +16,7 @@ from torch import nn
 from ..config import VisionConfig
 from ..ops.attention import sdpa
 from ..ops.flash_attention import flash_attention
-from .layers import Dense, LayerNorm
+from .layers import Dense, LayerNorm, lecun_normal_
 
 
 class _ConvProj(nn.Module):
@@ -36,8 +36,7 @@ class _ConvProj(nn.Module):
         self.bias = nn.Parameter(torch.empty(features, device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.kernel.normal_(0.0, self.kernel.shape[0] ** -0.5,
-                            generator=generator)
+        lecun_normal_(self.kernel, self.kernel.shape[0], generator)
         self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -64,8 +63,10 @@ class PatchEmbed3D(nn.Module):
             torch.empty(1, cfg.num_patches, cfg.hidden_size, device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.position_embeddings.normal_(0.0, 0.02, generator=generator)
-        self.position_embeddings.clamp_(-0.04, 0.04)
+        # flax's truncated_normal(0.02, -2, 2): out-of-range draws are
+        # redrawn, not clamped
+        nn.init.trunc_normal_(self.position_embeddings, 0.0, 0.02, -0.04,
+                              0.04, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.proj(x)

@@ -8,7 +8,9 @@ element width and two entries, ``decode_attention_int8`` for the int8
 cache (B, Hkv, S, D) and ``decode_attention_int4`` for the packed int4
 cache (B, Hkv, S, D/2) (``attention.pack_nibbles``: low nibble = even d);
 its header says what bounds the kernel on the H100 (bytes) and what the
-design does about it.
+design does about it: each (row, kv head) is split over its visible cache
+rows into ``split_count`` blocks of one launch, which merge their partial
+softmaxes through a workspace (``_workspace``, allocated once per device).
 
 For a CUDA tensor ``decode_attention_quantized`` launches the entry that
 the cache's last dimension names, or raises; for a CPU tensor it computes
@@ -29,7 +31,24 @@ from .attention import _scalar, unpack_nibbles
 
 KERNELS = {8: "decode_attention_int8", 4: "decode_attention_int4"}
 launches = {name: 0 for name in KERNELS.values()}
-SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100
+# n_split: about TARGET_BLOCKS_PER_SM blocks of 128 threads an SM, at
+# least MIN_SPLIT_ROWS cache slots a split, and at most MAX_SPLIT (the
+# kernel's merge keeps a weight per split in shared memory). On the H100
+# (PERF.md, PR 6) the serving paths' calls read fastest near these: B=4
+# at 8 splits, B=1 at 12-16, B=112 unsplit.
+TARGET_BLOCKS_PER_SM, MIN_SPLIT_ROWS, MAX_SPLIT, H100_SMS = 2, 128, 64, 132
+# a (row, kv head) with fewer visible rows is taken by one block in the
+# plain version's order of rounding (csrc/decode_attention.cu's EXACT_ROWS)
+EXACT_ROWS = 512
+
+
+def split_count(b: int, hkv: int, sk: int, sms: int = H100_SMS) -> int:
+    """How many blocks split each (row, kv head) of a launch, from static
+    shapes only (no read of prompt_len or end): enough blocks for
+    ``TARGET_BLOCKS_PER_SM`` an SM, at most one per ``MIN_SPLIT_ROWS``
+    slots of the cache, and at most ``MAX_SPLIT``."""
+    want = -(-TARGET_BLOCKS_PER_SM * sms // (b * hkv))
+    return max(1, min(want, sk // MIN_SPLIT_ROWS, MAX_SPLIT))
 
 
 def visible_keys(prompt_len, end, s_prompt: int, sk: int) -> torch.Tensor:
@@ -69,8 +88,7 @@ def _entry(name: str):
     fn = getattr(_build.library("decode_attention"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -108,11 +126,34 @@ def check_operands(q, k_int, k_scale, v_int, v_scale, prompt_len,
     if d not in (64, 128) or h % hkv or group not in (1, 2, 4, 8):
         raise ValueError(f"decode attention: D={d}, H={h}, Hkv={hkv} not "
                          "supported (D in 64/128, group in 1/2/4/8)")
-    smem = (group * sk + 8 * group * d) * 4  # scores + 8 warps' partials
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"decode attention: cache length {sk} needs {smem} "
-                         "bytes of shared memory")
     return KERNELS[bits]
+
+
+_workspaces = {}
+
+
+def _workspace(device, n_floats: int, n_counters: int):
+    """The device's fp32 workspace of at least ``n_floats`` and its int32
+    split counters (zero, and left zero by every launch) of at least
+    ``n_counters``: allocated at first use and grown, never per call."""
+    ws, counters = _workspaces.get(device, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(max(n_floats, 1), dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _workspaces[device] = (ws, counters)
+    return ws, counters
+
+
+_sms = {}
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (``split_count``'s ``sms``)."""
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
 
 
 def _decode_cuda(q, k_int, k_scale, v_int, v_scale, prompt_len, end,
@@ -120,12 +161,15 @@ def _decode_cuda(q, k_int, k_scale, v_int, v_scale, prompt_len, end,
     name = check_operands(q, k_int, k_scale, v_int, v_scale, prompt_len, end)
     b, _, h, d = q.shape
     hkv, sk = k_int.shape[1], k_int.shape[2]
+    n_split = split_count(b, hkv, sk, sm_count(q.device))
+    ws, counters = _workspace(q.device, b * h * n_split * (d + 2), b * hkv)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry(name)(q.data_ptr(), k_int.data_ptr(), k_scale.data_ptr(),
                    v_int.data_ptr(), v_scale.data_ptr(), prompt_len.data_ptr(),
-                   end.data_ptr(), out.data_ptr(), b, h, hkv, sk, d,
-                   int(s_prompt), scale, stream)
+                   end.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                   counters.data_ptr(), b, h, hkv, sk, d, int(s_prompt),
+                   n_split, scale, stream)
     _build.check(err, name)
     launches[name] += 1
     return out

@@ -7,11 +7,12 @@ Replaces the Pallas kernels of ``u2tokenizer_tpu/ops/flash_attention.py``:
 ``u2tokenizer_torch/csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, which
 share their building blocks in ``csrc/hopper.cuh``; their headers say what
 bounds each kernel on the H100 (FLOPs) and what the design does about it.
-K1, K2, K4b and K4c are wgmma kernels of one warpgroup a block: score tiles
-and the O, dQ, dK and dV accumulators stay in registers (K1/K2 keep the
-online softmax's running max and sum there too), P and dS feed the next
-product as register operands, and the K/V (K1, K2, K4b) or Q/dO (K4c)
-tiles arrive by TMA while the previous one is used; the launcher builds the
+All five are wgmma kernels of one warpgroup a block: score tiles and the
+O, dQ, dK and dV accumulators stay in registers (K1/K2 keep the online
+softmax's running max and sum there too, K4a its running max and sum
+alone), P and dS feed the next product as register operands, and the K
+(K4a), K/V (K1, K2, K4b) or Q/dO (K4c) tiles arrive by TMA while the
+previous one is used; the launcher builds the
 TMA maps from the strides these wrappers pass, so q/k/v may stay strided
 views.
 
