@@ -24,7 +24,10 @@ Run from the root of a checkout. It
      small shapes on the edges of their 64-row tiles (untimed), with one
      line for K1/K2 and one for K4a-c that set the kernels beside their
      bound and SDPA at each call (the backward as K4b + K4c and as the
-     whole K4a + K4b + K4c against SDPA's whole backward);
+     whole K4a + K4b + K4c against SDPA's whole backward); K2 also at the
+     μ²Llama-3.2-1B prefill (D=64, GQA group 4, timed) and the Qwen3-8B
+     one (D=128, group 4), K3 at both presets' heads and K4a-c at the
+     μ²Llama SFT call (D=64, causal, group 4), these untimed;
   3. drives the serving path twice, each time full-width μ²Qwen3-1.7B with
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
@@ -35,21 +38,32 @@ Run from the root of a checkout. It
      output and that every kernel ran on its path the expected number of
      times, then profiles 8 decode steps (torch.profiler: the card's busy
      share, kernels per step);
-  4. checks a reduced-depth, full-width model on the card against the same
+  4. drives the report path of the released μ²Llama-3.2-1B configuration
+     (DiffTS, DMTP, D=64, GQA group 4) at full width and depth: a seeded
+     512x512x300 int16 CT written as .nii and ingested by
+     ``U2VolumeTransform`` on the card (held to the CPU's), random weights
+     from seed 0 written by ``save_hf_checkpoint`` and loaded back by
+     ``U2InferenceModel``, one greedy report of 768 tokens through
+     ``inference`` (K1 12 and K2 16 launches), its tokens bit for bit
+     those of ``make_multimodal_generate_fn`` on the exported in-memory
+     model (timed by stage), two sampled reports (top-p 0.9) of one seed
+     from two instances, and ``nucleus_sample`` over the 128,256-entry
+     vocabulary against the exact nucleus by chi-square;
+  5. checks a reduced-depth, full-width model on the card against the same
      weights run in fp32 on the CPU through the plain versions: bf16
-     weights with the int8 cache, and int8 or int4 weights (quantized once
-     on the CPU) with the int4 cache;
-  5. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
+     weights with the int8 cache, int8 or int4 weights (quantized once on
+     the CPU) with the int4 cache, and μ²Llama-3.2-1B with the bf16 cache;
+  6. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
      parameters and bf16 compute, AdamW at the ``TrainConfig`` defaults,
      decoder layers rematerialised, 6 steps of ``run_training`` on one
      seeded (1, 8, 32, 256, 256) volume and a 1024-token row (900 valid),
      a checkpoint at the end; asserts finite, falling loss, moving
      parameters and the kernel launches of every step; profiles one step;
-  6. runs one train step of the reduced-depth model on the card and on the
+  7. runs one train step of the reduced-depth model on the card and on the
      CPU from the same weights and compares the loss and each parameter's
      gradient; shows that the same limits reject planted faults of the
      flash backward's wiring;
-  7. prints one JSON line per kernel table, the card line, and last
+  8. prints one JSON line per kernel table, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full fp32 (TF32 off for matmuls and cuDNN).
@@ -303,6 +317,23 @@ EDGE_CALLS = [dict(causal=False, b=3, s=193, h=2, hkv=2, d=64,
                    lens=[65, 63, 128], fused=True),
               dict(causal=True, b=3, s=193, h=4, hkv=2, d=128,
                    lens=[65, 63, 128], fused=False)]
+
+
+# The μ²Llama-3.2-1B report (``drive_report``): 256 <im_patch> tokens and
+# this question make the prompt, padded to 1024; K2 at its prefill is
+# (1, 1024, 32, 64) queries over 8 kv heads, GQA group 4, D=64.
+REPORT_QUESTION = "Describe the findings of this chest CT ."
+REPORT_PROMPT_LEN = 256 + len(REPORT_QUESTION.split())
+LLAMA_PREFILL_CALL = dict(causal=True, b=1, s=PROMPT, h=32, hkv=8, d=64,
+                          lens=[REPORT_PROMPT_LEN], fused=False)
+# Kernel forms that the presets reach and no path of this script drives,
+# held untimed: K2 at the Qwen3-8B prefill (D=128, group 4), K4a-c at the
+# μ²Llama-3.2-1B SFT call (D=64, causal, group 4), and K3 at both presets'
+# heads (``DECODE_PRESET_HEADS``).
+QWEN8B_PREFILL_CALL = dict(causal=True, b=2, s=PROMPT, h=32, hkv=8, d=128,
+                           lens=[PROMPT, RAGGED], fused=False)
+LLAMA_TRAIN_CALL = dict(LLAMA_PREFILL_CALL, lens=[TRAIN_VALID])
+DECODE_PRESET_HEADS = {"qwen3_8b": (32, 8, 128), "llama_3_2_1b": (32, 8, 64)}
 
 
 def attention_inputs(torch, call: dict, seed: int):
@@ -596,16 +627,17 @@ def nibbles(p, torch, order: str):
 
 def check_decode(torch, da, attn, bits: int, b: int,
                  step: int = (MAX_NEW - 1) // 2, prompt=None,
-                 timed: bool = True):
-    """K3 at decode step ``step`` of a serving path: ``b`` rows, 16 q / 8
-    kv heads of 128, an int8 (``bits`` 8) or packed int4 (4) cache of
-    1024 + 768 slots, the rows' prompts ``prompt`` long (by default 1024,
-    the last row 900). Holds it to its plain version under TOL, shows that
-    the same limits reject prompt_len[-1] and end one key off (and, at
-    int4, nibbles read wrongly) and that a second call gives the same bits.
-    With ``timed`` it is timed (CUDA events and device time) on caches
-    cycled out of L2."""
-    h, hkv, d = 16, 8, 128
+                 timed: bool = True, heads=(16, 8, 128)):
+    """K3 at decode step ``step`` of a serving path: ``b`` rows, ``heads``
+    (q heads, kv heads, head dim; μ²Qwen3-1.7B's 16 / 8 of 128 by
+    default), an int8 (``bits`` 8) or packed int4 (4) cache of 1024 + 768
+    slots, the rows' prompts ``prompt`` long (by default 1024, the last row
+    900). Holds it to its plain version under TOL, shows that the same
+    limits reject prompt_len[-1] and end one key off (and, at int4,
+    nibbles read wrongly) and that a second call gives the same bits. With
+    ``timed`` it is timed (CUDA events and device time) on caches cycled
+    out of L2."""
+    h, hkv, d = heads
     s_total = PROMPT + MAX_NEW
     name = da.KERNELS[bits]
     plen_l = list(prompt or [PROMPT] * (b - 1) + [RAGGED])
@@ -884,12 +916,12 @@ def profile_decode(torch, generate, embeds, prompt_len, steps: int = 8):
                                        for n, t in top}}
 
 
-def reduced_config(num_chunks: int):
-    """μ²Qwen3-1.7B at full width, cut to 2 ViT, 1 μ²tokenizer and 2
-    decoder layers and ``num_chunks`` depth chunks."""
+def reduced_config(num_chunks: int, base=None):
+    """``base`` (μ²Qwen3-1.7B by default) at full width, cut to 2 ViT, 1
+    μ²tokenizer and 2 decoder layers and ``num_chunks`` depth chunks."""
     from u2tokenizer_torch.config import U2ModelConfig
 
-    base = U2ModelConfig()
+    base = base or U2ModelConfig()
     return dataclasses.replace(
         base, num_chunks=num_chunks,
         vision=dataclasses.replace(base.vision, num_layers=2),
@@ -897,21 +929,21 @@ def reduced_config(num_chunks: int):
         llm=dataclasses.replace(base.llm, num_layers=2))
 
 
-def check_reference(torch, weights: str = "bf16", cache: str = "int8"):
-    """Full-width model cut to 2 ViT, 1 μ²tokenizer and 2 decoder layers
-    and 4 chunks: the card (bf16, kernels) against the CPU (fp32, plain
-    versions) on the same weights, with a ``cache`` KV cache. With
-    ``weights`` "int8" or "int4" the decoder's weights are quantized once,
-    on the CPU, and the card loads the same integers and scales. Compares
-    the prefill's last-position logits and reports greedy token agreement
-    over 4 decode steps."""
+def check_reference(torch, weights: str = "bf16", cache="int8", base=None):
+    """Full-width model (``base``, μ²Qwen3-1.7B by default) cut to 2 ViT,
+    1 μ²tokenizer and 2 decoder layers and 4 chunks: the card (bf16,
+    kernels) against the CPU (fp32, plain versions) on the same weights,
+    with a ``cache`` KV cache. With ``weights`` "int8" or "int4" the
+    decoder's weights are quantized once, on the CPU, and the card loads
+    the same integers and scales. Compares the prefill's last-position
+    logits and reports greedy token agreement over 4 decode steps."""
     from u2tokenizer_torch.config import GenerationConfig
     from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
     from u2tokenizer_torch.models.quantize import (cast_for_inference,
                                                    quantize_llm_weights)
     from u2tokenizer_torch.models.u2_model import U2CausalLM
 
-    cfg = reduced_config(num_chunks=4)
+    cfg = reduced_config(num_chunks=4, base=base)
     b, s = 2, 384
     cpu = U2CausalLM(cfg, dtype=torch.float32, device="cpu", seed=1)
     gpu = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
@@ -946,9 +978,367 @@ def check_reference(torch, weights: str = "bf16", cache: str = "int8"):
         raise AssertionError(f"reduced model, {weights} weights, {cache} "
                              f"cache: card vs CPU logits relative error "
                              f"{rel:.4g} over 5e-2")
-    return {"weights": weights, "cache": cache, "logits_rel_err": rel,
+    return {"model": "mu2Llama-3.2-1B" if base else "mu2Qwen3-1.7B",
+            "weights": weights, "cache": str(cache), "logits_rel_err": rel,
             "logits_tol": 5e-2, "token_agreement": agree,
             "tokens_cpu": tok_ref.tolist(), "tokens_gpu": tok_out.tolist()}
+
+
+# μ²Llama-3.2-1B report phase: a NIfTI CT through the ingest, a checkpoint
+# directory through U2InferenceModel, report text out.
+CT_SHAPE = (512, 512, 300)  # (X, Y, Z) voxels, int16
+# The card's fp32 ingest against the CPU's: the same fp32 arithmetic in
+# other orders of summation (percentile lerp, Gaussian taps, interpolation
+# weights); outputs lie in [0, 1], so 1e-4 absolute leaves ~1000 ulps.
+INGEST_TOL = 1e-4
+SAMPLE_TOP_P, SAMPLE_ROWS, SAMPLE_BATCHES = 0.9, 2048, 8
+
+
+def released_config():
+    """μ²Llama-3.2-1B as the released checkpoint's config.json declares it
+    (tests/test_parity_trained_layout.py reads those fields): the Llama
+    preset, the ViT declared depth-first (32, 256, 256) with (4, 16, 16)
+    patches, the μ²tokenizer in 'rma' with DiffTS and DMTP, top-k 1024,
+    256 query tokens."""
+    from u2tokenizer_torch.config import (LLMConfig, U2ModelConfig,
+                                          U2TokenizerConfig, VisionConfig)
+
+    return U2ModelConfig(
+        vision=VisionConfig(image_size=(32, 256, 256),
+                            patch_size=(4, 16, 16), depth_axis=0),
+        u2t=U2TokenizerConfig(attn_type="rma", enable_diffts=True,
+                              enable_dmtp=True, top_k=1024,
+                              num_query_tokens=256),
+        llm=LLMConfig.llama_3_2_1b())
+
+
+def synthetic_ct(shape=CT_SHAPE, seed: int = 0):
+    """A CT in Hounsfield-like int16 values: air (-1000) outside an
+    elliptical body, soft tissue about 40 with seeded noise inside, and
+    four bone blobs about 700."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = shape
+    x = (np.arange(nx) - nx / 2)[:, None, None] / (0.42 * nx)
+    y = (np.arange(ny) - ny / 2)[None, :, None] / (0.33 * ny)
+    body = (x * x + y * y) <= 1.0
+    vol = np.where(body, rng.normal(40.0, 15.0, shape).astype(np.float32),
+                   np.float32(-1000.0))
+    z = np.arange(nz)[None, None, :]
+    for _ in range(4):
+        cx, cy = rng.uniform(-0.2, 0.2, 2) * (nx, ny) + (nx / 2, ny / 2)
+        cz, r = rng.uniform(0.2, 0.8) * nz, rng.uniform(15, 30)
+        blob = ((np.arange(nx)[:, None, None] - cx) ** 2
+                + (np.arange(ny)[None, :, None] - cy) ** 2
+                + (z - cz) ** 2) <= r * r
+        vol[blob] = 700.0 + rng.normal(0.0, 30.0, int(blob.sum()))
+    return vol.astype(np.int16)
+
+
+def check_ingest(torch, tmp: str):
+    """The synthetic CT written as an uncompressed .nii with the port's
+    writer, through ``U2VolumeTransform()`` on the card (timed, host clock
+    around a synchronize, after one untimed call), held to the same
+    transform on the CPU within INGEST_TOL. Returns the result line and the
+    card's (8, 32, 256, 256) volume."""
+    from u2tokenizer_torch.data.nifti import read_nifti_raw, write_nifti
+    from u2tokenizer_torch.data.transforms import (U2VolumeTransform,
+                                                   percentiles)
+
+    vol = synthetic_ct()
+    path = os.path.join(tmp, "ct.nii")
+    t0 = time.perf_counter()
+    write_nifti(path, vol)
+    write_s = time.perf_counter() - t0
+    transform = U2VolumeTransform()
+    times = []
+    for _ in range(2):  # the first call also loads the kernels it uses
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = transform(path)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    # where the second call's time goes: the file read on the host, the
+    # upload, the percentiles (one sort), the rest
+    t0 = time.perf_counter()
+    raw, _, _ = read_nifti_raw(path)
+    t1 = time.perf_counter()
+    x = torch.from_numpy(raw.astype(raw.dtype.newbyteorder("="))).cuda()
+    x = x.float()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    percentiles(x, (0.5, 99.5))
+    torch.cuda.synchronize()
+    parts = {"read_s": t1 - t0, "upload_s": t2 - t1,
+             "percentiles_s": time.perf_counter() - t2}
+    del x, raw
+    t0 = time.perf_counter()
+    ref = U2VolumeTransform(device="cpu")(path)
+    cpu_s = time.perf_counter() - t0
+    if tuple(out.shape) != (8, 32, 256, 256) or out.dtype != torch.float32:
+        raise AssertionError(f"ingest: {tuple(out.shape)} {out.dtype}")
+    if not (torch.isfinite(out).all() and out.min() >= 0 and out.max() <= 1):
+        raise AssertionError("ingest: values outside [0, 1]")
+    err = (out.cpu() - ref).abs().max().item()
+    if not err <= INGEST_TOL:
+        raise AssertionError(f"ingest: card vs CPU max abs error {err:.3g} "
+                             f"over {INGEST_TOL}")
+    return {"volume": list(CT_SHAPE), "dtype": "int16",
+            "file_mb": os.path.getsize(path) / 1e6, "write_s": write_s,
+            "ingest_first_s": times[0], "ingest_s": times[1],
+            "ingest_parts": parts,
+            "cpu_ingest_s": cpu_s, "max_abs_err_vs_cpu": err,
+            "tol": INGEST_TOL, "shape": list(out.shape),
+            "nonzero_share": (out > 0).float().mean().item()}, out
+
+
+@contextlib.contextmanager
+def host_memory(sample_s: float = 0.01):
+    """Peaks of this process's resident memory (GB) over the block, sampled
+    by a thread, and their values before it: VmRSS, RssAnon and RssFile of
+    /proc/self/status where the kernel gives them, and /proc/self/statm's
+    resident pages less its shared (file-backed) ones; ``readings`` is
+    filled when the block ends. VmRSS counts the pages of mapped files that
+    were read as well as the process's own memory."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def read():
+        fields = {}
+        with open("/proc/self/status") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key in ("VmRSS", "RssAnon", "RssFile"):
+                    fields[key] = int(value.split()[0]) / 1e6  # kB -> GB
+        with open("/proc/self/statm") as f:
+            _, resident, shared = (int(v) for v in f.read().split()[:3])
+        fields["statm_shared"] = shared * page / 1e9
+        fields["statm_resident_less_shared"] = (resident - shared) * page / 1e9
+        return fields
+
+    readings = {"before": read()}
+    peak = dict(readings["before"])
+    done = threading.Event()
+
+    def watch():
+        while not done.wait(sample_s):
+            for key, value in read().items():
+                peak[key] = max(peak[key], value)
+
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    try:
+        yield readings
+    finally:
+        done.set()
+        thread.join()
+        readings["peak"] = peak
+
+
+def full_vocab_tokenizer(vocab: int):
+    """A MockTokenizer that knows a word for every id of the vocabulary
+    (the question's words first), so that report text shows every token."""
+    from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
+
+    tok = MockTokenizer()
+    tok(REPORT_QUESTION)
+    tok(" ".join(f"w{i}" for i in range(vocab - len(tok.vocab))))
+    return tok
+
+
+def drive_report(torch, fa, da, volume, tmp: str):
+    """The μ²Llama-3.2-1B report path at full width and depth: random
+    weights from seed 0 written by ``save_hf_checkpoint`` (fp32), loaded
+    back by ``U2InferenceModel`` (bf16, bf16 cache), one greedy report of up
+    to 768 tokens through ``inference`` with the kernel launches of that
+    call; its tokens (``generate_tokens``) against
+    ``make_multimodal_generate_fn`` on the in-memory model that was
+    exported, cast the same way, stage by stage (timed); then two sampled
+    reports (top-p 0.9) from two instances of one seed."""
+    from u2tokenizer_torch.eval.inference import U2InferenceModel
+    from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
+    from u2tokenizer_torch.models.hf_export import save_hf_checkpoint
+    from u2tokenizer_torch.models.quantize import cast_for_inference
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.weights import flax_params
+
+    cfg = released_config()
+    t0 = time.perf_counter()
+    model = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ckpt = os.path.join(tmp, "mu2llama")
+    t0 = time.perf_counter()
+    save_hf_checkpoint(ckpt, flax_params(model), cfg)
+    export_s = time.perf_counter() - t0
+    ckpt_gb = sum(e.stat().st_size for e in os.scandir(ckpt)) / 1e9
+    cast_for_inference(model)  # the in-memory model, served as the loaded
+    tok = full_vocab_tokenizer(cfg.llm.vocab_size)
+
+    gc.collect()
+    with host_memory() as host:
+        t0 = time.perf_counter()
+        im = U2InferenceModel(ckpt, tokenizer=tok, do_sample=False,
+                              speculative=False)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa, da)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = im.inference(volume, REPORT_QUESTION)
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    peak = torch.cuda.max_memory_allocated()
+    expected = {name: 0 for name in launches}
+    expected.update({"flash_fwd_noncausal": cfg.vision.num_layers,
+                     "flash_fwd_causal": cfg.llm.num_layers})
+    if launches != expected:
+        raise AssertionError(f"report launches {launches} != {expected}")
+
+    tokens = im.generate_tokens(volume, REPORT_QUESTION)
+    ids, qids, plen = im._encode_prompt(REPORT_QUESTION)
+    if plen != REPORT_PROMPT_LEN:
+        raise AssertionError(f"prompt of {plen} tokens, not "
+                             f"{REPORT_PROMPT_LEN}")
+    ref_fn = make_multimodal_generate_fn(model, im.gen_cfg)
+    dev = volume.device
+    ids_t, qids_t = (torch.from_numpy(x[None]).to(dev) for x in (ids, qids))
+    plen_t = torch.tensor([plen], dtype=torch.int32, device=dev)
+    images = volume.float()[None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embeds = ref_fn.embeds(ids_t, images, qids_t)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kv, tok0, done0, _ = ref_fn.prefill_stage(embeds, plen_t)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    max_new = im.gen_cfg.max_new_tokens
+    _, _, rest = ref_fn.decode_steps(kv, tok0, done0, plen_t,
+                                     range(max_new - 1))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    stages = {"vision_s": t1 - t0, "prefill_s": t2 - t1, "decode_s": t3 - t2,
+              "decode_ms_per_step": 1e3 * (t3 - t2) / max(max_new - 1, 1)}
+    ref = torch.cat([tok0[:, None], rest], dim=1)[0]
+    if not torch.equal(tokens, ref):
+        diff = (tokens != ref).nonzero()[:, 0].tolist()
+        raise AssertionError(f"loaded model's tokens differ from the "
+                             f"exported model's at steps {diff[:8]}")
+    vocab = cfg.llm.vocab_size
+    if not (tokens.shape == (max_new,) and ((tokens >= 0)
+                                            & (tokens < vocab)).all()):
+        raise AssertionError(f"report tokens {tokens.shape} out of range")
+    del kv, embeds, ref_fn, model, im
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sampled = []
+    for _ in range(2):
+        sim = U2InferenceModel(ckpt, tokenizer=tok, do_sample=True,
+                               top_p=SAMPLE_TOP_P, speculative=False, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampled.append(sim.inference(volume, REPORT_QUESTION))
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        del sim
+        gc.collect()
+    if sampled[0] != sampled[1]:
+        raise AssertionError("two sampled reports of one seed differ")
+    if sampled[0] == text:
+        raise AssertionError("the sampled report is the greedy one")
+    return {"model": "mu2Llama-3.2-1B", "n_params": n_params,
+            "weights": "bf16", "cache": "bf16", "question": REPORT_QUESTION,
+            "prompt_len": plen, "max_new_tokens": max_new,
+            "model_build_s": build_s, "export_s": export_s,
+            "checkpoint_gb": ckpt_gb, "load_s": load_s,
+            "load_host_gb": host,
+            "report_s": report_s, **stages,
+            "peak_mem_gb": peak / 1e9, "launches": launches,
+            "tokens_equal_exported_model": True,
+            "report_words": len(text.split()), "report_head": text[:80],
+            "sampled": {"top_p": SAMPLE_TOP_P, "seed": 1,
+                        "same_text_two_instances": True,
+                        "report_s": sample_s,
+                        "words": len(sampled[0].split()),
+                        "head": sampled[0][:80]}}
+
+
+def nucleus_readings(torch, row, draws: int, generator):
+    """``draws`` draws of ``nucleus_sample`` from one fixed row on its
+    device, SAMPLE_ROWS at a time, against the exact renormalised nucleus
+    (float64 on the host): Pearson's chi-square and its bound df + 6
+    sqrt(2 df); raises on a draw outside the nucleus or past the bound."""
+    import numpy as np
+
+    from u2tokenizer_torch.ops.sampling import nucleus_sample
+
+    host = row.cpu().numpy()
+    p = np.exp(host.astype(np.float64) - host.max())
+    p /= p.sum()
+    order = np.argsort(-host, kind="stable")
+    cum = np.cumsum(p[order])
+    thr = host[order][int(((cum - p[order]) < SAMPLE_TOP_P).sum()) - 1]
+    exact = np.where(host >= thr, p, 0.0)
+    exact /= exact.sum()
+    batch = row[None].expand(SAMPLE_ROWS, -1).contiguous()
+    counts = torch.zeros(row.numel(), dtype=torch.int64, device=row.device)
+    for _ in range(draws // SAMPLE_ROWS):
+        counts += torch.bincount(nucleus_sample(batch, SAMPLE_TOP_P,
+                                                generator),
+                                 minlength=row.numel())
+    counts = counts.cpu().numpy()
+    outside = int(counts[exact == 0].sum())
+    if outside:
+        raise AssertionError(f"nucleus_sample: {outside} draws outside the "
+                             f"nucleus")
+    keep = exact > 0
+    n = counts.sum()
+    stat = float(((counts[keep] - n * exact[keep]) ** 2
+                  / (n * exact[keep])).sum())
+    df = int(keep.sum()) - 1
+    bound = df + 6 * math.sqrt(2 * df)
+    if not stat <= bound:
+        raise AssertionError(f"nucleus_sample: chi-square {stat:.4g} over "
+                             f"{bound:.4g} ({df} df)")
+    return {"nucleus": int(keep.sum()), "draws": int(n),
+            "min_expected": float(n * exact[keep].min()),
+            "chi_square": stat, "df": df, "bound": bound}
+
+
+def check_nucleus_sampler(torch, device="cuda"):
+    """``nucleus_sample`` on the card over μ²Llama's 128,256-entry
+    vocabulary, on two fixed rows of seeded noise (std 0.3): one with 12
+    graded logits 14..12 (a nucleus of about 10 tokens) and one with 700 at
+    9..8 (about 650), ``nucleus_readings`` of SAMPLE_ROWS x SAMPLE_BATCHES
+    draws each; and the sampler's time at B=1 beside greedy's argmax
+    (CUDA events)."""
+    import numpy as np
+
+    from u2tokenizer_torch.ops.sampling import greedy, nucleus_sample
+
+    v = 128256
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=device).manual_seed(0)
+    out = {"vocab": v, "top_p": SAMPLE_TOP_P}
+    for label, width, top in (("narrow", 12, (14.0, 12.0)),
+                              ("wide", 700, (9.0, 8.0))):
+        row = (rng.standard_normal(v) * 0.3).astype(np.float32)
+        row[rng.choice(v, width, replace=False)] = np.linspace(*top, width)
+        out[label] = nucleus_readings(torch, torch.from_numpy(row).to(device),
+                                      SAMPLE_ROWS * SAMPLE_BATCHES, g)
+    one = torch.from_numpy(row[None]).to(device)
+    out["sample_ms_b1"] = time_ms(torch, lambda: nucleus_sample(
+        one, SAMPLE_TOP_P, g), inner=32)
+    out["greedy_ms_b1"] = time_ms(torch, lambda: greedy(one), inner=32)
+    return out
 
 
 def training_batch(torch, cfg, seq: int, valid, prompt: int, seed: int = 0):
@@ -1347,12 +1737,17 @@ def main() -> int:
         "prefill": k2,
         "prefill_quantized": check_flash(torch, F, fa, QUANT_PREFILL_CALL,
                                          10, held=HELD_ROWS),
-        "decoder_b1": check_flash(torch, F, fa, TRAIN_DECODER_CALL, 9)}
-    # K1 and K2 each at both tile-edge shapes, untimed
+        "decoder_b1": check_flash(torch, F, fa, TRAIN_DECODER_CALL, 9),
+        "prefill_mu2llama": check_flash(torch, F, fa, LLAMA_PREFILL_CALL,
+                                        16)}
+    # K1 and K2 each at both tile-edge shapes, and K2 at the Qwen3-8B
+    # prefill, untimed
     edge_fwd = [check_flash(torch, F, fa, dict(call, causal=causal),
                             12 + 2 * i + causal, timed=False)
                 for i, call in enumerate(EDGE_CALLS)
                 for causal in (False, True)]
+    edge_fwd.append(check_flash(torch, F, fa, QWEN8B_PREFILL_CALL, 17,
+                                timed=False))
     for k in list(fwd_calls.values()) + edge_fwd:
         print(json.dumps({"kernel_check": k}), flush=True)
     print(json.dumps({"flash_fwd_calls": flash_fwd_summary(fwd_calls),
@@ -1364,10 +1759,14 @@ def main() -> int:
     edge_decode = [check_decode(torch, da, attn, bits, b, step, prompt,
                                 timed=False)
                    for bits, b, step, prompt in DECODE_EDGE_CALLS]
+    edge_decode += [check_decode(torch, da, attn, bits, 2, timed=False,
+                                 heads=heads)
+                    for heads in DECODE_PRESET_HEADS.values()
+                    for bits in (8, 4)]
     vit_bwd = check_flash_bwd(torch, F, fa, VIT_CALL, 4)
     dec_bwd = check_flash_bwd(torch, F, fa, PREFILL_CALL, 5)
     b1_bwd = check_flash_bwd(torch, F, fa, TRAIN_DECODER_CALL, 6)
-    edge_bwd = [e for i, call in enumerate(EDGE_CALLS)
+    edge_bwd = [e for i, call in enumerate(EDGE_CALLS + [LLAMA_TRAIN_CALL])
                 for e in check_flash_bwd(torch, F, fa, call, 7 + i,
                                          timed=False)]
     for k in [int8, int4, int4_b4] + edge_decode + vit_bwd + dec_bwd \
@@ -1380,16 +1779,18 @@ def main() -> int:
         {"vit": vit_bwd, "decoder": dec_bwd, "decoder_b1": b1_bwd}),
         "card": card}), flush=True)
     # one entry per kernel: K1 at the ViT's call with the quantized path's
-    # beside it, K2 at the B=4 prefill with the quantized path's and the
-    # training path's beside it, each with the largest error of all its
-    # checks; K3-int4 at the quantized path's batch with the B=4 call
+    # beside it, K2 at the B=4 prefill with the quantized path's, the
+    # training path's and the μ²Llama report's beside it, each with the
+    # largest error of all its checks; K3-int4 at the quantized path's
+    # batch with the B=4 call
     # beside it; K4 at the ViT's call with the decoder's (B=4, and the
     # training path's B=1) beside it, its error the largest of all the K4
     # checks
     beside = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
               "bound_by", "library_ms")
     nested = {"vit": ("vit_quantized",),
-              "prefill": ("prefill_quantized", "decoder_b1")}
+              "prefill": ("prefill_quantized", "decoder_b1",
+                          "prefill_mu2llama")}
     for top, labels in nested.items():
         entry = fwd_calls[top]
         for label in labels:
@@ -1428,10 +1829,25 @@ def main() -> int:
         QUANT_MICROBATCH, card)["launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    for weights, cache in (("bf16", "int8"), ("int8", "int4"),
-                           ("int4", "int4")):
+    with tempfile.TemporaryDirectory() as tmp:
+        ingest, volume = check_ingest(torch, tmp)
+        ingest["card"] = card
+        print(json.dumps({"ingest": ingest}), flush=True)
+        report = drive_report(torch, fa, da, volume, tmp)
+    report["card"] = card
+    print(json.dumps({"report_mu2llama": report}), flush=True)
+    counts["report_mu2llama"] = report["launches"]
+    del volume
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"nucleus_sampler": check_nucleus_sampler(torch),
+                      "card": card}), flush=True)
+    for weights, cache, base in (("bf16", "int8", None),
+                                 ("int8", "int4", None),
+                                 ("int4", "int4", None),
+                                 ("bf16", torch.bfloat16, released_config())):
         print(json.dumps({"reference_check": check_reference(
-            torch, weights, cache)}), flush=True)
+            torch, weights, cache, base)}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -24,6 +24,7 @@ from u2tokenizer_torch.config import LLMConfig, VisionConfig
 from u2tokenizer_torch.models import generate as t_generate
 from u2tokenizer_torch.models.llm.decoder import CausalLM
 from u2tokenizer_torch.models.layers import Dense
+from u2tokenizer_torch.models.u2tok.svr import DynamicMultiScalePooling
 from u2tokenizer_torch.models.vit3d import PatchEmbed3D, _ConvProj
 from u2tokenizer_tpu.models import generate as j_generate
 
@@ -54,8 +55,18 @@ def _position_embeddings():
                                              upper=2.0), 0.04)
 
 
-@pytest.mark.parametrize("make", [_dense, _conv_proj, _position_embeddings],
-                         ids=["Dense", "_ConvProj", "position_embeddings"])
+def _dmtp_gate():
+    # DMTP's (E, 1) gate kernel: E = 2^20 inputs, so one draw holds 1 M
+    # values (fan-in 2^20)
+    m = DynamicMultiScalePooling(1 << 20)
+    return (m, m.gate_kernel, (1 << 20, 1), nn.initializers.lecun_normal(),
+            2 * 2.0 ** -10 / 0.87962566103423978)
+
+
+@pytest.mark.parametrize("make", [_dense, _conv_proj, _position_embeddings,
+                                  _dmtp_gate],
+                         ids=["Dense", "_ConvProj", "position_embeddings",
+                              "DMTP gate_kernel"])
 def test_init_matches_flax(make):
     module, param, jax_shape, init, bound = make()
     with torch.no_grad():

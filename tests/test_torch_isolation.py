@@ -47,23 +47,44 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# beside torch and numpy the port needs the standard library only; the one
+# exception, imported inside U2InferenceModel when no tokenizer is passed
+OTHERS = ("scipy", "safetensors", "transformers")
+LAZY = {("u2tokenizer_torch/eval/inference.py", "transformers")}
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_other_third_party_imports(path):
+    rel = str(path.relative_to(ROOT))
+    bad = [m for m in _imports(path) if m.split(".")[0] in OTHERS
+           and (rel, m.split(".")[0]) not in LAZY]
+    assert not bad, f"{rel} imports {bad}"
+
+
 def test_port_imports_without_jax():
     code = ("import sys, u2tokenizer_torch.models.generate, "
-            "u2tokenizer_torch.weights, u2tokenizer_torch.train.loop; "
+            "u2tokenizer_torch.weights, u2tokenizer_torch.train.loop, "
+            "u2tokenizer_torch.eval.inference, "
+            "u2tokenizer_torch.models.hf_export, "
+            "u2tokenizer_torch.models.vocab, "
+            "u2tokenizer_torch.data.transforms, "
+            "u2tokenizer_torch.utils.mock_tokenizer; "
             "sys.exit(any(m.split('.')[0] in %r for m in sys.modules))"
-            % (FORBIDDEN,))
+            % (FORBIDDEN + OTHERS,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
 
 @pytest.mark.parametrize("name,variant", [
     ("U2ModelConfig", "default"), ("U2ModelConfig", "tiny"),
-    ("LLMConfig", "tiny"), ("GenerationConfig", "default"),
+    ("LLMConfig", "tiny"), ("LLMConfig", "qwen3_8b"),
+    ("LLMConfig", "llama_3_2_1b"), ("GenerationConfig", "default"),
     ("TrainConfig", "default")])
 def test_config_copies_match(name, variant):
     jcls, tcls = getattr(j_config, name), getattr(t_config, name)
-    jcfg = jcls.tiny() if variant == "tiny" else jcls()
-    tcfg = tcls.tiny() if variant == "tiny" else tcls()
+    jcfg = jcls() if variant == "default" else getattr(jcls, variant)()
+    tcfg = tcls() if variant == "default" else getattr(tcls, variant)()
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     if name == "U2ModelConfig":
         assert tcfg.proj_out_num == jcfg.proj_out_num

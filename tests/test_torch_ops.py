@@ -176,5 +176,8 @@ def test_greedy_and_sample():
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(
         t_samp.sample(_t(logits), do_sample=False).numpy(), ref)
-    with pytest.raises(NotImplementedError):
-        t_samp.sample(_t(logits), do_sample=True)
+    with pytest.raises(ValueError, match="Generator"):
+        t_samp.sample(_t(logits), do_sample=True)  # draws need a generator
+    drawn = t_samp.sample(_t(logits), do_sample=True, top_p=0.5,
+                          generator=torch.Generator().manual_seed(0))
+    assert drawn.shape == (3,) and drawn.dtype == torch.int64

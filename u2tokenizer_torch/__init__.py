@@ -1,7 +1,8 @@
 """μ²-TPU's PyTorch/CUDA port for NVIDIA Hopper.
 
-The serving path (one CT volume in, one report out) and the SFT training
-path of the JAX package (``u2tokenizer_tpu``) rebuilt on PyTorch, with the
+The report path (a NIfTI file and a trained checkpoint in, report text
+out), the serving path and the SFT training path of the JAX package
+(``u2tokenizer_tpu``) rebuilt on PyTorch, with the
 attention hot spots, forward and backward, in hand-written CUDA kernels
 (``csrc/``). The module layout mirrors the JAX
 package. Entry points run on the GPU unless the caller passes

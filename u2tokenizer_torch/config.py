@@ -150,6 +150,29 @@ class LLMConfig:
         return cls(vocab_size=vocab_size)
 
     @classmethod
+    def qwen3_8b(cls, vocab_size: int = 151936) -> "LLMConfig":
+        return cls(
+            vocab_size=vocab_size, hidden_size=4096, intermediate_size=12288,
+            num_layers=36, num_heads=32, num_kv_heads=8,
+            tie_word_embeddings=False,
+        )
+
+    @classmethod
+    def llama_3_2_1b(cls, vocab_size: int = 128260) -> "LLMConfig":
+        """μ²Llama-3.2-1B's decoder; its rope_scaling is the released
+        checkpoint's (Llama-3.2-1B-Instruct config.json)."""
+        return cls(
+            model_type="llama", vocab_size=vocab_size, hidden_size=2048,
+            intermediate_size=8192, num_layers=16, num_heads=32, num_kv_heads=8,
+            head_dim=64, rope_theta=500_000.0, rms_norm_eps=1e-5,
+            tie_word_embeddings=True, qk_norm=False,
+            max_position_embeddings=131072,
+            rope_scaling_type="llama3", rope_scaling_factor=32.0,
+            rope_low_freq_factor=1.0, rope_high_freq_factor=4.0,
+            rope_original_max_position=8192,
+        )
+
+    @classmethod
     def tiny(cls, vocab_size: int = 512) -> "LLMConfig":
         """A tiny config for tests."""
         return cls(
@@ -229,7 +252,8 @@ class U2ModelConfig:
 
 @dataclass(frozen=True)
 class GenerationConfig:
-    """Decode parameters. The port decodes greedily (``do_sample=False``)."""
+    """Decode parameters: greedy, or with ``do_sample`` top-p sampling at
+    ``temperature`` (``ops.sampling``)."""
 
     max_new_tokens: int = 768
     do_sample: bool = False

@@ -1,6 +1,8 @@
 """Autoregressive generation (counterpart of
 ``u2tokenizer_tpu/models/generate.py``): one-shot prefill of the
-right-padded prompt, then a greedy decode loop over the KV cache.
+right-padded prompt, then a decode loop over the KV cache, greedy or, with
+``GenerationConfig.do_sample``, top-p sampling from a ``torch.Generator``
+(``ops.sampling``).
 
 Per-row prompt lengths are handled with masks: decode token i lives at
 cache slot S+i for every row, its RoPE position is the row's true
@@ -15,8 +17,8 @@ with int8 or int4 every decode step's attention runs through kernel K3 on
 the GPU.
 
 Not ported yet: chunked prefill and decode (``prefill_chunk``,
-``decode_chunk``), shared-prefix prefill, sampled decoding, fan-out and
-speculative decoding.
+``decode_chunk``), shared-prefix prefill, fan-out and speculative
+decoding.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ from .u2_model import U2CausalLM, causal_padding_mask
 
 
 class Generate:
-    """generate(inputs_embeds (B, S, E), prompt_len (B,)) -> (B, max_new)
-    int64 tokens. The two stages are public so a caller can time them."""
+    """generate(inputs_embeds (B, S, E), prompt_len (B,), generator=None)
+    -> (B, max_new) int64 tokens; sampled decoding draws from
+    ``generator``, which it needs. The two stages are public so a caller
+    can time them."""
 
     def __init__(self, model, gen: GenerationConfig,
                  cache_dtype=torch.bfloat16):
@@ -40,14 +44,15 @@ class Generate:
         self.cache_dtype = cache_dtype
         self.llm_cfg = model.cfg.llm if hasattr(model.cfg, "llm") else model.cfg
 
-    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+    def _sample(self, logits: torch.Tensor, generator) -> torch.Tensor:
         g = self.gen
         return sample(logits, do_sample=g.do_sample,
-                      temperature=g.temperature, top_p=g.top_p)
+                      temperature=g.temperature, top_p=g.top_p,
+                      generator=generator)
 
     @torch.inference_mode()
     def prefill_stage(self, inputs_embeds: torch.Tensor,
-                      prompt_len: torch.Tensor):
+                      prompt_len: torch.Tensor, generator=None):
         """Prompt prefill through the first token. Returns (cache, tok0,
         done0, hidden), ``hidden`` the (B, S, E) final hidden states."""
         b, s, _ = inputs_embeds.shape
@@ -64,12 +69,12 @@ class Generate:
         idx = (prompt_len.long() - 1)[:, None, None].expand(-1, 1,
                                                             hidden.shape[-1])
         last = self.model.lm_logits(hidden.gather(1, idx))[:, 0]
-        tok0 = self._sample(last)
+        tok0 = self._sample(last, generator)
         return cache, tok0, tok0 == self.gen.eos_token_id, hidden
 
     @torch.inference_mode()
     def decode_steps(self, cache: KVCache, tok0, done0, prompt_len,
-                     steps: range):
+                     steps: range, generator=None):
         """Run decode steps ``steps`` (a contiguous range of step indices)
         from the given state; returns (tok, done, (B, len(steps)) tokens).
         Step i embeds the previous token, writes its KV at slot S+i and
@@ -91,7 +96,7 @@ class Generate:
             logits, _, cache = self.model.decode_step(
                 emb, pos, key_ok[:, None, None, :], cache, s + i,
                 decode_bounds=(prompt_len, end, s))
-            nxt = self._sample(logits[:, 0])
+            nxt = self._sample(logits[:, 0], generator)
             nxt = torch.where(done, torch.full_like(nxt, g.pad_token_id), nxt)
             done = done | (nxt == g.eos_token_id)
             tok = nxt
@@ -100,11 +105,13 @@ class Generate:
                   else torch.empty(b, 0, dtype=torch.int64, device=dev))
         return tok, done, tokens
 
-    def __call__(self, inputs_embeds: torch.Tensor,
-                 prompt_len: torch.Tensor) -> torch.Tensor:
-        cache, tok0, done0, _ = self.prefill_stage(inputs_embeds, prompt_len)
+    def __call__(self, inputs_embeds: torch.Tensor, prompt_len: torch.Tensor,
+                 generator=None) -> torch.Tensor:
+        cache, tok0, done0, _ = self.prefill_stage(inputs_embeds, prompt_len,
+                                                   generator)
         _, _, rest = self.decode_steps(cache, tok0, done0, prompt_len,
-                                       range(self.gen.max_new_tokens - 1))
+                                       range(self.gen.max_new_tokens - 1),
+                                       generator)
         return torch.cat([tok0[:, None], rest], dim=1)
 
 
@@ -142,8 +149,9 @@ def _microbatched_embeds(model: U2CausalLM, input_ids, images, question_ids,
 
 class MultimodalGenerate:
     """generate(input_ids (B, S), images (B, T, D, H, W), question_ids
-    (B, Sq), prompt_len (B,)) -> (B, max_new) int64 tokens: vision encode,
-    μ²tokenizer fuse, splice, prefill, greedy decode. ``embeds``,
+    (B, Sq), prompt_len (B,), generator=None) -> (B, max_new) int64
+    tokens: vision encode, μ²tokenizer fuse, splice, prefill, decode
+    (sampled decoding draws from ``generator``). ``embeds``,
     ``prefill_stage`` and ``decode_steps`` are the stages, for timing."""
 
     def __init__(self, model: U2CausalLM, gen: GenerationConfig,
@@ -158,19 +166,17 @@ class MultimodalGenerate:
         return _microbatched_embeds(self.model, input_ids, images,
                                     question_ids, self.vision_microbatch)
 
-    def __call__(self, input_ids, images, question_ids,
-                 prompt_len) -> torch.Tensor:
+    def __call__(self, input_ids, images, question_ids, prompt_len,
+                 generator=None) -> torch.Tensor:
         return self.gen_fn(self.embeds(input_ids, images, question_ids),
-                           prompt_len)
+                           prompt_len, generator)
 
 
 def make_multimodal_generate_fn(model: U2CausalLM, gen: GenerationConfig,
                                 cache_dtype=torch.bfloat16,
                                 vision_microbatch: int = 128,
                                 ) -> MultimodalGenerate:
-    """generate(input_ids, images, question_ids, prompt_len) -> (B, max_new)
-    int64 tokens, on the model's device; ``cache_dtype`` as for
-    ``make_generate_fn``."""
-    if gen.do_sample:
-        raise NotImplementedError("sampled decoding is not ported yet")
+    """generate(input_ids, images, question_ids, prompt_len,
+    generator=None) -> (B, max_new) int64 tokens, on the model's device;
+    ``cache_dtype`` as for ``make_generate_fn``."""
     return MultimodalGenerate(model, gen, cache_dtype, vision_microbatch)

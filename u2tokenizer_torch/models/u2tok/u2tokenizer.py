@@ -26,8 +26,8 @@ class U2Tokenizer(nn.Module):
             num_layers=cfg.num_layers, top_k=cfg.top_k,
             use_multi_scale=cfg.use_multi_scale, attn_type=cfg.attn_type,
             enable_diffts=cfg.enable_diffts, enable_dmtp=cfg.enable_dmtp,
-            max_seq_len=cfg.max_seq_len, scales=cfg.scales, dtype=dtype,
-            device=device)
+            max_seq_len=cfg.max_seq_len, scales=cfg.scales,
+            diffts_tau=cfg.diffts_tau, dtype=dtype, device=device)
         self.tta_module = TextConditionTokenAggregator(
             d_model=embed_size, num_layers=cfg.num_layers,
             num_heads=cfg.num_heads, attn_type=cfg.attn_type,

@@ -1,4 +1,5 @@
-"""Pooling ops: multi-scale token pooling and the SPP 3D average pool."""
+"""Pooling ops: multi-scale token pooling (fixed, or gated as DMTP) and the
+SPP 3D average pool."""
 
 from __future__ import annotations
 
@@ -23,6 +24,20 @@ def multi_scale_pool(x: torch.Tensor,
     1024 + 512 + 256 = 1792 tokens."""
     return torch.cat([avg_pool_tokens(x, s) for s in scales
                       if x.shape[1] >= s], dim=1)
+
+
+def dynamic_multi_scale_pool(
+        x: torch.Tensor, gate_kernel: torch.Tensor, gate_bias: torch.Tensor,
+        scales: Sequence[int] = (1, 2, 4)) -> torch.Tensor:
+    """DMTP: the pools of ``multi_scale_pool``, each scaled by a softmax
+    over scales of one gate a scale, the gate ``mean(pool) @ gate_kernel +
+    gate_bias`` with gate_kernel (E, 1) and gate_bias (1,)."""
+    pooled = [avg_pool_tokens(x, s) for s in scales if x.shape[1] >= s]
+    gates = torch.cat([p.mean(dim=1) @ gate_kernel + gate_bias
+                       for p in pooled], dim=1)  # (B, num_scales)
+    weights = torch.softmax(gates, dim=1)
+    return torch.cat([p * weights[:, i, None, None]
+                      for i, p in enumerate(pooled)], dim=1)
 
 
 def spatial_pool_3d(x: torch.Tensor, grid: Tuple[int, int, int],

@@ -23,13 +23,16 @@ left unfilled raises.
 ``flax_path`` maps the other way, so that a trainable filter written for
 the JAX package's gradient paths (``fn("params/vision_tower/...") ->
 bool``, as ``train/sft.py`` and ``cli train`` use it) selects the same
-parameters of the port (``trainable_names``).
+parameters of the port (``trainable_names``), and ``flax_params`` gives a
+model's parameters as the JAX package's nested tree (what
+``models.hf_export`` exports). ``flatten`` turns such a tree, as
+``models.hf_weights`` converts it, into the flat dict this module loads.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, List, Mapping
+from typing import Callable, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -60,8 +63,25 @@ def torch_name(flax_path: str, modules: Mapping[str, nn.Module]):
     return ".".join(parts + [leaf]), transpose
 
 
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    """A nested parameter tree -> ``{"a/b/c": leaf}``, as flax's
+    ``flatten_dict(tree, sep="/")``; a tree with a top-level ``"params"``
+    is flattened below it."""
+    if not prefix and set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, Mapping):
+            flat.update(flatten(value, path))
+        else:
+            flat[path] = value
+    return flat
+
+
 @torch.no_grad()
 def load_flax_params(model: nn.Module, flat: Mapping[str, object]) -> None:
+    """Copy every entry of ``flat`` into its parameter, one at a time."""
     modules = dict(model.named_modules())
     params = dict(model.named_parameters())
     filled = set()
@@ -71,8 +91,8 @@ def load_flax_params(model: nn.Module, flat: Mapping[str, object]) -> None:
             raise KeyError(f"{path}: the port has no parameter {name!r}")
         arr = np.asarray(value)
         if arr.dtype.kind not in "biu":  # float leaves, bf16 included
-            arr = arr.astype(np.float32)
-        src = torch.from_numpy(np.array(arr))
+            arr = arr.astype(np.float32, copy=False)
+        src = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
         if transpose:
             src = src.t()
         dst = params[name]
@@ -107,6 +127,27 @@ def flax_path(name: str, modules: Mapping[str, nn.Module]) -> str:
     elif leaf == "weight" and isinstance(owner, LayerNorm):
         leaf = "scale"
     return "/".join(["params", *parts, leaf])
+
+
+@torch.no_grad()
+def flax_params(model: nn.Module) -> dict:
+    """The model's parameters as the JAX package's ``{"params": ...}`` tree
+    of host numpy arrays: float leaves in fp32, quantized ones as they are,
+    ``Dense`` kernels as (in, out) views of the (out, in) weights."""
+    modules = dict(model.named_modules())
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        *parents, leaf = flax_path(name, modules).split("/")[1:]
+        arr = p.detach().cpu()
+        arr = (arr.float() if arr.is_floating_point() else arr).numpy()
+        owner = modules.get(name.rsplit(".", 1)[0])
+        if isinstance(owner, Dense) and leaf == "kernel" and arr.ndim == 2:
+            arr = arr.T
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return {"params": tree}
 
 
 def trainable_names(model: nn.Module,
