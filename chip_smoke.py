@@ -31,8 +31,9 @@ Run from the root of a checkout. It
   3. drives the serving path twice, each time full-width μ²Qwen3-1.7B with
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
-     tokens and a greedy decode of 768 tokens: first bf16 weights, the int8
-     KV cache and 4 volumes; then the configuration of the JAX package's
+     tokens and a greedy decode: first bf16 weights, the int8 KV cache, 4
+     volumes and 256 tokens (``--max-new``); then, 768 tokens, the
+     configuration of the JAX package's
      ``bench.py``: decoder weights quantized to int8, the int4 KV cache,
      112 volumes, the ViT over groups of 128 chunks. Each asserts the
      output and that every kernel ran on its path the expected number of
@@ -49,21 +50,37 @@ Run from the root of a checkout. It
      model (timed by stage), two sampled reports (top-p 0.9) of one seed
      from two instances, and ``nucleus_sample`` over the 128,256-entry
      vocabulary against the exact nucleus by chi-square;
-  5. checks a reduced-depth, full-width model on the card against the same
+  5. drives speculative decoding (``drive_speculative``): the default
+     sampled report of ``U2InferenceModel`` (no ``do_sample`` or
+     ``speculative``: top-p 0.9 through the speculative loop) on the same
+     checkpoint with its launches (K1 12, K2 16), a second instance of the
+     seed by stage (the same text, ms a verify step) and the
+     ``speculative=False`` report beside it; greedy speculative against
+     the report phase's plain greedy tokens under a near-tie rule
+     (``TIE_ULPS``) that must reject a planted fault of the verify block;
+     fan-out, one case x 8 sampled samples of 256 tokens, speculative and
+     plain, with every K2 call at the case batch; and ``bench.py``'s forced-content
+     speculative configuration (μ²Qwen3-1.7B, int8 weights, int4 cache,
+     B=112, scripts of ``report_token_scripts(112, 776, vocab, seed=7)``):
+     the script emitted exactly, the verify steps equal to the host replay
+     of the loop's drafting, reports/min beside the plain quantized run's;
+  6. checks a reduced-depth, full-width model on the card against the same
      weights run in fp32 on the CPU through the plain versions: bf16
      weights with the int8 cache, int8 or int4 weights (quantized once on
      the CPU) with the int4 cache, and μ²Llama-3.2-1B with the bf16 cache;
-  6. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
+     and (μ²Qwen3) with the chunked prefill, the shared-prefix prefill
+     and a verify block written per row;
+  7. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
      parameters and bf16 compute, AdamW at the ``TrainConfig`` defaults,
      decoder layers rematerialised, 6 steps of ``run_training`` on one
      seeded (1, 8, 32, 256, 256) volume and a 1024-token row (900 valid),
      a checkpoint at the end; asserts finite, falling loss, moving
      parameters and the kernel launches of every step; profiles one step;
-  7. runs one train step of the reduced-depth model on the card and on the
+  8. runs one train step of the reduced-depth model on the card and on the
      CPU from the same weights and compares the loss and each parameter's
      gradient; shows that the same limits reject planted faults of the
      flash backward's wiring;
-  8. prints one JSON line per kernel table, the card line, and last
+  9. prints one JSON line per kernel table, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full fp32 (TF32 off for matmuls and cuDNN).
@@ -132,6 +149,9 @@ TOL = {"flash_fwd_noncausal": (4e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_dq": (1e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_dkv": (1e-3, 1e-2, 2.0 ** -8)}
 PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 768, 4, 8
+# the B=4 bf16 path decodes 256 tokens, the B=112 path 768, so that the
+# script stays near half its time limit on a slow host
+B4_MAX_NEW = 256
 RAGGED = 900               # the last row's prompt length
 QUESTION = 64              # question tokens, the μ²tokenizer's text condition
 # The serving configuration of the JAX package's bench.py: int8 decoder
@@ -929,14 +949,24 @@ def reduced_config(num_chunks: int, base=None):
         llm=dataclasses.replace(base.llm, num_layers=2))
 
 
-def check_reference(torch, weights: str = "bf16", cache="int8", base=None):
+SHARED_SPLIT, PREFILL_CHUNK, VERIFY_BLOCK = 280, 128, 4
+
+
+def check_reference(torch, weights: str = "bf16", cache="int8", base=None,
+                    variant=None):
     """Full-width model (``base``, μ²Qwen3-1.7B by default) cut to 2 ViT,
     1 μ²tokenizer and 2 decoder layers and 4 chunks: the card (bf16,
     kernels) against the CPU (fp32, plain versions) on the same weights,
     with a ``cache`` KV cache. With ``weights`` "int8" or "int4" the
     decoder's weights are quantized once, on the CPU, and the card loads
     the same integers and scales. Compares the prefill's last-position
-    logits and reports greedy token agreement over 4 decode steps."""
+    logits and reports greedy token agreement over 4 decode steps.
+    ``variant`` "prefill_chunk" prefills in chunks of 128 tokens;
+    "shared_prefix" gives both rows one volume, question and first 280
+    prompt tokens and prefills them in two phases (the prefix once);
+    "verify_block" also compares the logits of a speculative verify block
+    of 4 tokens (the CPU's greedy tokens) written per row after the
+    prefill, row 0 at slot S and row 1 at S + 1."""
     from u2tokenizer_torch.config import GenerationConfig
     from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
     from u2tokenizer_torch.models.quantize import (cast_for_inference,
@@ -959,29 +989,75 @@ def check_reference(torch, weights: str = "bf16", cache="int8", base=None):
     ids = torch.randint(0, cfg.llm.vocab_size, (b, s), generator=g)
     qids = torch.randint(0, cfg.llm.vocab_size, (b, 32), generator=g)
     plen = torch.tensor([s, 300], dtype=torch.int32)
+    option = {}
+    if variant == "prefill_chunk":
+        option = {"prefill_chunk": PREFILL_CHUNK}
+    elif variant == "shared_prefix":
+        images[1], qids[1] = images[0], qids[0]
+        ids[1, :SHARED_SPLIT] = ids[0, :SHARED_SPLIT]
+        option = {"shared_prefix": (2, SHARED_SPLIT)}
     gen = GenerationConfig(max_new_tokens=5, eos_token_id=-2)
 
     results = {}
     for name, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
-        fn = make_multimodal_generate_fn(model, gen, cache)
+        fn = make_multimodal_generate_fn(
+            model, gen, cache, prefill_chunk=option.get("prefill_chunk"))
+        # the multimodal entry takes no shared_prefix (as the JAX
+        # package's): its Generate does
+        fn.gen_fn.shared_prefix = option.get("shared_prefix")
         args = [x.to(dev) for x in (ids, images, qids, plen)]
         embeds = fn.embeds(*args[:3])
-        kv, tok0, done0, hidden = fn.prefill_stage(embeds, args[3])
-        last = hidden[torch.arange(b, device=dev), (args[3] - 1).long()]
-        logits = model.lm_logits(last[:, None])[:, 0].float().cpu()
+        kv, tok0, done0, last = fn.prefill_stage(embeds, args[3])
+        with torch.inference_mode():
+            logits = model.lm_logits(last)[:, 0].float().cpu()
         _, _, rest = fn.decode_steps(kv, tok0, done0, args[3], range(4))
-        results[name] = (logits, torch.cat([tok0[:, None], rest], 1).cpu())
-    (ref, tok_ref), (out, tok_out) = results["cpu"], results["gpu"]
+        tokens = torch.cat([tok0[:, None], rest], 1).cpu()
+        block = None
+        if variant == "verify_block":  # over the decode's slots, masked
+            src = tokens if name == "cpu" else results["cpu"][1]
+            block = verify_block_logits(torch, model, kv, args[3], s,
+                                        src[:, :VERIFY_BLOCK])
+        results[name] = (logits, tokens, block)
+    (ref, tok_ref, block_ref), (out, tok_out, block_out) = \
+        results["cpu"], results["gpu"]
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
     agree = (tok_ref == tok_out).float().mean().item()
-    if not rel <= 5e-2:
-        raise AssertionError(f"reduced model, {weights} weights, {cache} "
-                             f"cache: card vs CPU logits relative error "
-                             f"{rel:.4g} over 5e-2")
-    return {"model": "mu2Llama-3.2-1B" if base else "mu2Qwen3-1.7B",
-            "weights": weights, "cache": str(cache), "logits_rel_err": rel,
+    line = {"model": "mu2Llama-3.2-1B" if base else "mu2Qwen3-1.7B",
+            "weights": weights, "cache": str(cache),
+            "variant": variant or "one_shot", "logits_rel_err": rel,
             "logits_tol": 5e-2, "token_agreement": agree,
             "tokens_cpu": tok_ref.tolist(), "tokens_gpu": tok_out.tolist()}
+    if block_ref is not None:
+        line["verify_block_rel_err"] = ((block_out - block_ref).abs().max()
+                                        / block_ref.abs().max()).item()
+        rel = max(rel, line["verify_block_rel_err"])
+    if not rel <= 5e-2:
+        raise AssertionError(f"reduced model, {weights} weights, {cache} "
+                             f"cache, {line['variant']}: card vs CPU logits "
+                             f"relative error {rel:.4g} over 5e-2")
+    return line
+
+
+def verify_block_logits(torch, model, cache, plen, s: int, tokens):
+    """fp32 logits (B, k, V), on the host, of a verify block of the k
+    tokens ``tokens`` (B, k) written per row into ``cache`` after the
+    prefill, row b at slot s + b (a (B,) write index), with RoPE positions
+    plen + j and each query seeing the row's prompt and the block's slots
+    up to its own."""
+    b, k = tokens.shape
+    dev = plen.device
+    widx = s + torch.arange(b, dtype=torch.int32, device=dev)
+    kv = torch.arange(cache.max_len, device=dev)
+    slots = widx[:, None, None] + torch.arange(k, device=dev)[None, :, None]
+    key_ok = (kv[None, None, :] < plen[:, None, None]) | (
+        (kv[None, None, :] >= widx[:, None, None])
+        & (kv[None, None, :] <= slots))
+    pos = (plen[:, None] + torch.arange(k, device=dev)[None, :]).int()
+    with torch.inference_mode():
+        logits, _, _ = model.decode_step(
+            model.embed_tokens(tokens.to(dev)), pos, key_ok[:, None], cache,
+            widx)
+    return logits.float().cpu()
 
 
 # μ²Llama-3.2-1B report phase: a NIfTI CT through the ingest, a checkpoint
@@ -1156,7 +1232,8 @@ def drive_report(torch, fa, da, volume, tmp: str):
     call; its tokens (``generate_tokens``) against
     ``make_multimodal_generate_fn`` on the in-memory model that was
     exported, cast the same way, stage by stage (timed); then two sampled
-    reports (top-p 0.9) from two instances of one seed."""
+    reports (top-p 0.9) from two instances of one seed. Returns the greedy
+    report's tokens and the result line."""
     from u2tokenizer_torch.eval.inference import U2InferenceModel
     from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
     from u2tokenizer_torch.models.hf_export import save_hf_checkpoint
@@ -1254,7 +1331,7 @@ def drive_report(torch, fa, da, volume, tmp: str):
         raise AssertionError("two sampled reports of one seed differ")
     if sampled[0] == text:
         raise AssertionError("the sampled report is the greedy one")
-    return {"model": "mu2Llama-3.2-1B", "n_params": n_params,
+    return tokens, {"model": "mu2Llama-3.2-1B", "n_params": n_params,
             "weights": "bf16", "cache": "bf16", "question": REPORT_QUESTION,
             "prompt_len": plen, "max_new_tokens": max_new,
             "model_build_s": build_s, "export_s": export_s,
@@ -1269,6 +1346,458 @@ def drive_report(torch, fa, da, volume, tmp: str):
                         "report_s": sample_s,
                         "words": len(sampled[0].split()),
                         "head": sampled[0][:80]}}
+
+
+# Speculative decoding phase (``drive_speculative``).
+SPEC_BLOCK = 8             # the verify block, as make_spec_generate_fn's
+FANOUT = 8                 # samples a case, pred_then_green's protocol
+FANOUT_TOKENS = 256        # the fan-out phase's depth (the report's 768 cut)
+SCRIPT_SEED = 7            # bench.py's report scripts
+# Greedy speculative decoding against plain greedy on the card. A verify
+# block's logits come from other GEMM shapes than a single step's, so the
+# two bf16 computations of one position may order a near tie differently.
+# Tokens must agree up to the first position where they differ; there
+# the plain path's top-two gap must lie within TIE_ULPS bf16 ulps (2^-8
+# relative) of its top logit, and the speculative token must be the plain
+# path's second choice. The rule must reject a planted fault of the
+# verify block that changes tokens; three are planted and each is read:
+# its logits read one position late (so that acceptance compares draft
+# f[j] with g[j] in place of g[j-1]), its RoPE positions shifted by one,
+# and its attention cut off from the cache (only the block's own slots).
+# A random-weight model's greedy tokens settle on one repeated token,
+# which the first two leave as it is until the plain path's first near
+# tie, where no rule on tokens can tell them from rounding.
+TIE_ULPS = 8
+
+
+def report_text(tok, tokens, pad: int) -> str:
+    """Report text as ``U2InferenceModel.inference`` makes it."""
+    skip = (pad, tok.eos_token_id)
+    return tok.decode([t for t in tokens.tolist() if t not in skip],
+                      skip_special_tokens=True).strip()
+
+
+@contextlib.contextmanager
+def capture_decode_logits(model):
+    """Keeps the logits of the latest ``model.decode_step`` call in the
+    list it yields."""
+    step, seen = model.decode_step, []
+
+    def capture(*args, **kw):
+        out = step(*args, **kw)
+        seen[:] = [out[0]]
+        return out
+
+    model.decode_step = capture
+    try:
+        yield seen
+    finally:
+        del model.decode_step
+
+
+VERIFY_FAULTS = ("late_logits", "rope_plus_one", "no_cache")
+FAULT_TOKENS = 192
+
+
+@contextlib.contextmanager
+def planted_verify_fault(torch, model, fault: str):
+    """A planted fault of verify blocks (``model.decode_step`` calls of
+    more than one token): "late_logits", position j's logits replaced by
+    position j + 1's (the last kept); "rope_plus_one", the block's RoPE
+    positions shifted by one; "no_cache", the block attending only its own
+    slots."""
+    step = model.decode_step
+
+    def faulty(embeds, positions, mask, cache, write_index, *args, **kw):
+        if positions.shape[1] == 1:
+            return step(embeds, positions, mask, cache, write_index, *args,
+                        **kw)
+        if fault == "rope_plus_one":
+            positions = positions + 1
+        if fault == "no_cache":
+            kv = torch.arange(mask.shape[-1], device=mask.device)
+            mask = mask & (kv >= write_index[:, None, None, None])
+        logits, hidden, cache = step(embeds, positions, mask, cache,
+                                     write_index, *args, **kw)
+        if fault == "late_logits":
+            logits = logits[:, list(range(1, logits.shape[1])) + [-1]]
+        return logits, hidden, cache
+
+    model.decode_step = faulty
+    try:
+        yield
+    finally:
+        del model.decode_step
+
+
+def near_tie(torch, plain_fn, embeds, plen, plain, other,
+             seen_logits: dict) -> dict:
+    """The near-tie rule (TIE_ULPS) for a B=1 greedy decode ``other``
+    against the plain tokens ``plain`` of ``plain_fn`` on the same inputs
+    (compared over ``other``'s length): the first index where they
+    differ, and there the plain path's logits' top two, their gap and the
+    limit. ``seen_logits`` keeps the plain logits by index across
+    calls."""
+    diff = (plain[:len(other)] != other).nonzero()
+    if len(diff) == 0:
+        return {"first_diff": None, "holds": True}
+    i = int(diff[0, 0])
+    if i == 0:  # both take token 0 from one prefill
+        return {"first_diff": 0, "holds": False}
+    if i not in seen_logits:
+        with capture_decode_logits(plain_fn.model) as seen:
+            kv, tok0, done0, _ = plain_fn.prefill_stage(embeds, plen)
+            plain_fn.decode_steps(kv, tok0, done0, plen, range(i))
+        seen_logits[i] = seen[0][0, 0].float()
+    top = seen_logits[i].topk(2)
+    gap = (top.values[0] - top.values[1]).item()
+    limit = TIE_ULPS * 2.0 ** -8 * abs(top.values[0].item())
+    second = int(other[i]) == int(top.indices[1])
+    return {"first_diff": i, "top2": top.indices.tolist(),
+            "gap": gap, "limit": limit,
+            "other_token_is_second": second,
+            "holds": gap <= limit and second
+            and int(plain[i]) == int(top.indices[0])}
+
+
+def staged_spec(torch, spec_fn, ids, images, qids, plen, generator,
+                script=None):
+    """A ``SpecMultimodalGenerate`` call by stage, timed (host clock
+    around a synchronize): (tokens, verify steps, seconds by stage)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embeds = spec_fn.embeds(ids, images, qids)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state = spec_fn.gen_fn.prefill_stage(embeds, ids, plen, generator)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tokens, steps = spec_fn.gen_fn.decode_loop(**state, generator=generator,
+                                               script=script)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return tokens, steps, {"vision_s": t1 - t0, "prefill_s": t2 - t1,
+                           "decode_s": t3 - t2, "total_s": t3 - t0,
+                           "ms_per_verify_step": 1e3 * (t3 - t2)
+                           / max(steps, 1)}
+
+
+def staged_plain(torch, fn, ids, images, qids, plen, generator=None):
+    """A ``MultimodalGenerate`` call by stage, timed: (tokens, seconds by
+    stage)."""
+    max_new = fn.gen_fn.gen.max_new_tokens
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embeds = fn.embeds(ids, images, qids)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kv, tok0, done0, _ = fn.prefill_stage(embeds, plen, generator)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _, _, rest = fn.decode_steps(kv, tok0, done0, plen, range(max_new - 1),
+                                 generator)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return torch.cat([tok0[:, None], rest], 1), embeds, {
+        "vision_s": t1 - t0, "prefill_s": t2 - t1, "decode_s": t3 - t2,
+        "total_s": t3 - t0,
+        "ms_per_step": 1e3 * (t3 - t2) / max(max_new - 1, 1)}
+
+
+def spec_report_phase(torch, fa, da, volume, ckpt: str, cfg,
+                      plain_greedy) -> dict:
+    """μ²Llama-3.2-1B from the exported checkpoint: the default sampled
+    report (``U2InferenceModel`` with no ``do_sample`` or ``speculative``:
+    top-p 0.9, speculative) with its launches, again from a second
+    instance of the seed by stage, the ``speculative=False`` sampled
+    report by stage, and greedy speculative against ``plain_greedy`` (the
+    report phase's greedy tokens of the same checkpoint) under the
+    near-tie rule, which must reject a planted fault (each fault over its
+    first FAULT_TOKENS tokens)."""
+    from u2tokenizer_torch.eval.inference import U2InferenceModel
+    from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
+    from u2tokenizer_torch.models.speculative import (
+        make_spec_multimodal_generate_fn)
+
+    tok = full_vocab_tokenizer(cfg.llm.vocab_size)
+    im = U2InferenceModel(ckpt, tokenizer=tok, device="cuda")
+    gen = im.gen_cfg
+    reset_launches(fa, da)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = im.inference(volume, REPORT_QUESTION)
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    expected = {name: 0 for name in launches}
+    expected.update({"flash_fwd_noncausal": cfg.vision.num_layers,
+                     "flash_fwd_causal": cfg.llm.num_layers})
+    if launches != expected:
+        raise AssertionError(f"default report launches {launches} != "
+                             f"{expected}")
+    stats = dict(im.spec_stats)
+    if not (gen.do_sample and im._speculative and stats["verify_steps"]):
+        raise AssertionError(f"the default report did not sample "
+                             f"speculatively: {stats}")
+    ids, qids, plen = im._encode_prompt(REPORT_QUESTION)
+    dev = volume.device
+    ids_t, qids_t = (torch.from_numpy(x[None]).to(dev) for x in (ids, qids))
+    plen_t = torch.tensor([plen], dtype=torch.int32, device=dev)
+    images = volume.float()[None]
+    del im
+    gc.collect()
+
+    again = U2InferenceModel(ckpt, tokenizer=tok, device="cuda")
+    tokens, steps, stages = staged_spec(torch, again._gen_fn, ids_t, images,
+                                        qids_t, plen_t, again._generator)
+    if report_text(tok, tokens[0], gen.pad_token_id) != text \
+            or steps != stats["verify_steps"]:
+        raise AssertionError("two default reports of one seed differ")
+    del again
+    gc.collect()
+
+    plain_im = U2InferenceModel(ckpt, tokenizer=tok, speculative=False,
+                                device="cuda")
+    _, _, plain_stages = staged_plain(torch, plain_im._gen_fn, ids_t, images,
+                                      qids_t, plen_t, plain_im._generator)
+    del plain_im
+    gc.collect()
+
+    greedy = U2InferenceModel(ckpt, tokenizer=tok, do_sample=False,
+                              speculative=True, device="cuda")
+    spec_tokens, spec_steps, spec_greedy = staged_spec(
+        torch, greedy._gen_fn, ids_t, images, qids_t, plen_t, None)
+    plain_fn = make_multimodal_generate_fn(greedy.model, greedy.gen_cfg)
+    embeds = plain_fn.embeds(ids_t, images, qids_t)
+    seen_logits = {}
+    rule = near_tie(torch, plain_fn, embeds, plen_t, plain_greedy,
+                    spec_tokens[0], seen_logits)
+    if not rule["holds"]:
+        raise AssertionError(f"greedy speculative tokens against plain "
+                             f"greedy: {rule}")
+    faults = {}
+    fault_fn = make_spec_multimodal_generate_fn(
+        greedy.model, dataclasses.replace(greedy.gen_cfg,
+                                          max_new_tokens=FAULT_TOKENS),
+        block_len=SPEC_BLOCK)
+    for fault in VERIFY_FAULTS:
+        with planted_verify_fault(torch, greedy.model, fault):
+            fault_tokens = fault_fn(ids_t, images, qids_t, plen_t)[0]
+        faults[fault] = near_tie(torch, plain_fn, embeds, plen_t,
+                                 plain_greedy, fault_tokens, seen_logits)
+        faults[fault]["changes_tokens"] = not torch.equal(
+            fault_tokens, spec_tokens[0, :FAULT_TOKENS])
+    rejected = [f for f, r in faults.items()
+                if r["changes_tokens"] and not r["holds"]]
+    if not rejected:
+        raise AssertionError(f"the near-tie rule rejects no planted fault "
+                             f"of the verify block: {faults}")
+    del greedy, plain_fn, fault_fn, embeds, seen_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    emitted = stats["emitted_tokens"]
+    return {"model": "mu2Llama-3.2-1B", "block_len": SPEC_BLOCK,
+            "max_new_tokens": gen.max_new_tokens,
+            "default_report": {
+                "do_sample": gen.do_sample, "top_p": gen.top_p,
+                "speculative": True, "report_s": report_s,
+                "verify_steps": stats["verify_steps"],
+                "emitted_tokens": emitted,
+                "mean_acceptance": emitted / stats["verify_steps"],
+                "by_stage": stages, "words": len(text.split()),
+                "same_text_two_instances": True, "launches": launches},
+            "plain_sampled_report": plain_stages,
+            "greedy": {"speculative": spec_greedy, "verify_steps": spec_steps,
+                       "first_diff": rule["first_diff"] if rule[
+                           "first_diff"] is not None else "none",
+                       "near_tie": rule, "tie_ulps": TIE_ULPS,
+                       "fault_tokens": FAULT_TOKENS,
+                       "planted_faults": faults,
+                       "faults_rejected": rejected}}
+
+
+def spec_forced_content_phase(torch, fa, da, plain_run: dict) -> dict:
+    """``bench.py``'s forced-content speculative configuration on the
+    card: μ²Qwen3-1.7B, int8 decoder weights, int4 cache, 112 volumes, the
+    ViT over groups of 128 chunks, 768 tokens scripted by
+    ``report_token_scripts(112, 776, vocab, seed=7)``; the inputs of the
+    plain quantized run (``drive_main_path``), whose reports/min are set
+    beside. Emitted tokens must equal the script and the verify steps the
+    host replay of the loop's drafting (the largest row's)."""
+    import numpy as np
+
+    from u2tokenizer_torch.config import GenerationConfig, U2ModelConfig
+    from u2tokenizer_torch.data.synthetic_reports import (
+        forced_content_replay, ngram_acceptance_estimate,
+        report_token_scripts)
+    from u2tokenizer_torch.models.quantize import (cast_for_inference,
+                                                   quantize_llm_weights)
+    from u2tokenizer_torch.models.speculative import (
+        make_spec_multimodal_generate_fn)
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+
+    cfg = U2ModelConfig()
+    batch, max_new = QUANT_BATCH, MAX_NEW
+    model = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
+                                          device="cuda", seed=0))
+    quantize_llm_weights(model, QUANT_WEIGHTS)
+    g = torch.Generator(device="cuda").manual_seed(0)  # drive_main_path's
+    d, h, w = cfg.vision.input_spatial
+    images = torch.randn(batch, cfg.num_chunks, d, h, w, generator=g,
+                         device="cuda", dtype=torch.bfloat16)
+    vocab = cfg.llm.vocab_size
+    input_ids = torch.randint(0, vocab, (batch, PROMPT), generator=g,
+                              device="cuda")
+    question_ids = torch.randint(0, vocab, (batch, QUESTION), generator=g,
+                                 device="cuda")
+    prompt_len = torch.tensor([PROMPT] * (batch - 1) + [RAGGED],
+                              dtype=torch.int32, device="cuda")
+    script = report_token_scripts(batch, max_new + SPEC_BLOCK, vocab,
+                                  seed=SCRIPT_SEED)
+    gen = GenerationConfig(max_new_tokens=max_new, do_sample=False,
+                           eos_token_id=-2, pad_token_id=0)
+    fn = make_spec_multimodal_generate_fn(
+        model, gen, cache_dtype=QUANT_CACHE, block_len=SPEC_BLOCK,
+        vision_microbatch=QUANT_MICROBATCH, return_stats=True,
+        forced_content=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa, da)
+    tokens, steps, stages = staged_spec(
+        torch, fn, input_ids, images, question_ids, prompt_len, None,
+        torch.from_numpy(script).cuda())
+    launches = read_launches(fa, da)
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(tokens.cpu(), torch.from_numpy(script[:, :max_new])
+                       .long()):
+        raise AssertionError("forced content: emitted tokens differ from "
+                             "the script")
+    prompt = input_ids.cpu().numpy()
+    plen = prompt_len.cpu().numpy()
+    replay = forced_content_replay(script[:, :max_new], prompt, plen,
+                                   SPEC_BLOCK)
+    if steps != int(replay.max()):
+        raise AssertionError(f"forced content: {steps} verify steps, the "
+                             f"drafter's replay {int(replay.max())}")
+    expected = {name: 0 for name in launches}
+    expected.update({"flash_fwd_noncausal": 12 * batch * cfg.num_chunks
+                     // QUANT_MICROBATCH, "flash_fwd_causal": 28})
+    if launches != expected:
+        raise AssertionError(f"forced content launches {launches} != "
+                             f"{expected}")
+    total = stages["total_s"]
+    del model, fn, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": "mu2Qwen3-1.7B", "batch": batch, "weights":
+            QUANT_WEIGHTS, "cache": QUANT_CACHE, "block_len": SPEC_BLOCK,
+            "max_new_tokens": max_new, "script_seed": SCRIPT_SEED,
+            "verify_steps": steps, "replay_steps_max": int(replay.max()),
+            "replay_steps_mean": float(replay.mean()),
+            "mean_acceptance": (max_new - 1) / steps,
+            "ngram_acceptance_estimate": ngram_acceptance_estimate(
+                script[:, :max_new], SPEC_BLOCK, prompt=prompt),
+            **stages, "reports_per_min": 60.0 * batch / total,
+            "plain_reports_per_min": plain_run["reports_per_min"],
+            "plain_decode_ms_per_step": plain_run["decode_ms_per_step"],
+            "peak_mem_gb": peak / 1e9, "launches": launches,
+            "tokens_equal_script": True}
+
+
+def spec_fanout_phase(torch, fa, da, volume, ckpt: str, cfg) -> dict:
+    """One case x FANOUT sampled samples of μ²Llama (the pred_then_green
+    protocol), FANOUT_TOKENS tokens each:
+    ``make_spec_multimodal_generate_fn(fanout=8)`` and plain
+    ``make_fanout_multimodal_generate_fn``, timed; each causal K2 call
+    must run at the case batch, 1."""
+    from u2tokenizer_torch.eval.inference import U2InferenceModel
+    from u2tokenizer_torch.models.generate import (
+        make_fanout_multimodal_generate_fn)
+    from u2tokenizer_torch.models.speculative import (
+        make_spec_multimodal_generate_fn)
+
+    tok = full_vocab_tokenizer(cfg.llm.vocab_size)
+    im = U2InferenceModel(ckpt, tokenizer=tok, device="cuda")
+    gen = dataclasses.replace(im.gen_cfg, max_new_tokens=FANOUT_TOKENS)
+    ids, qids, plen = im._encode_prompt(REPORT_QUESTION)
+    dev = volume.device
+    ids_t, qids_t = (torch.from_numpy(x[None]).to(dev) for x in (ids, qids))
+    plen_t = torch.tensor([plen], dtype=torch.int32, device=dev)
+    images = volume.float()[None]
+    k2_batches = []
+    launch = fa._flash_cuda
+
+    def spy(q, k, v, lens, causal, scale):
+        if causal:
+            k2_batches.append(q.shape[0])
+        return launch(q, k, v, lens, causal, scale)
+
+    spec_fn = make_spec_multimodal_generate_fn(
+        im.model, gen, block_len=SPEC_BLOCK, return_stats=True,
+        fanout=FANOUT)
+    plain_fn = make_fanout_multimodal_generate_fn(im.model, gen, FANOUT)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    reset_launches(fa, da)
+    fa._flash_cuda = spy
+    try:
+        tokens, steps, stages = staged_spec(torch, spec_fn, ids_t, images,
+                                            qids_t, plen_t, g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = plain_fn(ids_t, images, qids_t, plen_t, g)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        fa._flash_cuda = launch
+    launches = read_launches(fa, da)
+    if k2_batches != [1] * (2 * cfg.llm.num_layers):
+        raise AssertionError(f"fan-out prefill K2 batches {k2_batches}")
+    expected = {name: 0 for name in launches}
+    expected.update({"flash_fwd_noncausal": 2 * cfg.vision.num_layers,
+                     "flash_fwd_causal": 2 * cfg.llm.num_layers})
+    if launches != expected:
+        raise AssertionError(f"fan-out launches {launches} != {expected}")
+    for t in (tokens, plain):
+        if t.shape != (FANOUT, gen.max_new_tokens) or not (
+                (t >= 0) & (t < cfg.llm.vocab_size)).all():
+            raise AssertionError(f"fan-out tokens {tuple(t.shape)}")
+    max_new = gen.max_new_tokens
+    del im, spec_fn, plain_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": "mu2Llama-3.2-1B", "cases": 1, "samples": FANOUT,
+            "top_p": gen.top_p, "max_new_tokens": max_new,
+            "speculative": {**stages, "verify_steps": steps},
+            "plain": {"total_s": plain_s,
+                      "ms_per_step": 1e3 * plain_s / max(max_new - 1, 1)},
+            "k2_batches": sorted(set(k2_batches)), "launches": launches,
+            "distinct_samples": len({tuple(r) for r in plain.tolist()})}
+
+
+def drive_speculative(torch, fa, da, volume, tmp: str, plain_greedy,
+                      plain_run: dict, card: str) -> dict:
+    """The speculative phase: the default sampled report, greedy
+    speculative against the report phase's plain greedy tokens
+    ``plain_greedy`` (μ²Llama-3.2-1B from the report phase's checkpoint
+    in ``tmp``), fan-out 1 x 8, and ``bench.py``'s forced-content
+    speculative configuration at B=112 beside ``plain_run`` (the plain
+    quantized serving run); one printed line each. Returns the launches
+    of each path."""
+    cfg = released_config()
+    ckpt = os.path.join(tmp, "mu2llama")
+    out = {}
+    for name, run in (
+            ("spec_report", lambda: spec_report_phase(
+                torch, fa, da, volume, ckpt, cfg, plain_greedy)),
+            ("spec_fanout", lambda: spec_fanout_phase(torch, fa, da, volume,
+                                                      ckpt, cfg)),
+            ("spec_forced_content", lambda: spec_forced_content_phase(
+                torch, fa, da, plain_run))):
+        line = run()
+        line["card"] = card
+        print(json.dumps({name: line}), flush=True)
+        out[name] = (line["default_report"]["launches"]
+                     if name == "spec_report" else line["launches"])
+    return out
 
 
 def nucleus_readings(torch, row, draws: int, generator):
@@ -1690,7 +2219,7 @@ def check_train_reference(torch, fa):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--max-new", type=int, default=MAX_NEW)
+    parser.add_argument("--max-new", type=int, default=B4_MAX_NEW)
     parser.add_argument("--kernels-only", action="store_true",
                         help="build and check the kernels, then stop "
                         "(no result line)")
@@ -1824,30 +2353,39 @@ def main() -> int:
         card)["launches"]}
     gc.collect()
     torch.cuda.empty_cache()
-    counts["serve_quantized"] = serve_and_check(
+    quant_run = serve_and_check(
         torch, da, MAX_NEW, QUANT_BATCH, QUANT_WEIGHTS, QUANT_CACHE,
-        QUANT_MICROBATCH, card)["launches"]
+        QUANT_MICROBATCH, card)
+    counts["serve_quantized"] = quant_run["launches"]
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         ingest, volume = check_ingest(torch, tmp)
         ingest["card"] = card
         print(json.dumps({"ingest": ingest}), flush=True)
-        report = drive_report(torch, fa, da, volume, tmp)
-    report["card"] = card
-    print(json.dumps({"report_mu2llama": report}), flush=True)
-    counts["report_mu2llama"] = report["launches"]
+        greedy_tokens, report = drive_report(torch, fa, da, volume, tmp)
+        report["card"] = card
+        print(json.dumps({"report_mu2llama": report}), flush=True)
+        counts["report_mu2llama"] = report["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts.update(drive_speculative(torch, fa, da, volume, tmp,
+                                        greedy_tokens, quant_run, card))
     del volume
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"nucleus_sampler": check_nucleus_sampler(torch),
                       "card": card}), flush=True)
-    for weights, cache, base in (("bf16", "int8", None),
-                                 ("int8", "int4", None),
-                                 ("int4", "int4", None),
-                                 ("bf16", torch.bfloat16, released_config())):
+    llama = released_config()
+    for weights, cache, base, variant in (
+            ("bf16", "int8", None, None), ("int8", "int4", None, None),
+            ("int4", "int4", None, None),
+            ("bf16", torch.bfloat16, llama, None),
+            ("bf16", "int8", None, "prefill_chunk"),
+            ("bf16", "int8", None, "shared_prefix"),
+            ("int8", "int4", None, "verify_block")):
         print(json.dumps({"reference_check": check_reference(
-            torch, weights, cache, base)}), flush=True)
+            torch, weights, cache, base, variant)}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -25,6 +25,7 @@ from u2tokenizer_torch.data.nifti import write_nifti
 from u2tokenizer_torch.data.transforms import U2VolumeTransform as TTransform
 from u2tokenizer_torch.eval import inference as t_inf
 from u2tokenizer_torch.models import hf_export as t_export
+from u2tokenizer_torch.models import speculative as t_spec
 from u2tokenizer_torch.models.u2_model import U2CausalLM as TModel
 from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer as TTok
 from u2tokenizer_torch.weights import flatten, flax_params
@@ -155,10 +156,23 @@ def test_int8_weights_match_jax(case):
 
 
 def test_refusals_and_options(case, monkeypatch):
-    root, _ = case
+    """The JAX defaults build the speculative path (``speculative=None``
+    follows ``do_sample``); greedy speculative decoding gives the tokens
+    of the plain loop; LoRA, unknown weights and a missing tokenizer are
+    refused."""
+    root, jcfg = case
     path = str(root / "port_ckpt")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        t_inf.U2InferenceModel(path, tokenizer=TTok(), device="cpu")
+    vocab = jcfg.llm.vocab_size
+    default = t_inf.U2InferenceModel(path, tokenizer=TTok(), device="cpu")
+    assert isinstance(default._gen_fn, t_spec.SpecMultimodalGenerate)
+    assert default.gen_cfg.do_sample and default.spec_stats == {
+        "emitted_tokens": 0, "verify_steps": 0}
+    _, tvol = _volumes(root, jcfg)
+    tokens = [t_inf.U2InferenceModel(
+        path, tokenizer=_tokenizer(TTok, vocab), dtype=torch.float32,
+        device="cpu", speculative=spec, **KW).generate_tokens(tvol, QUESTION)
+        for spec in (True, False)]
+    torch.testing.assert_close(tokens[0], tokens[1], rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="LoRA"):
         t_inf.U2InferenceModel(path, tokenizer=TTok(), do_sample=False,
                                lora_path=path, device="cpu")
@@ -183,6 +197,43 @@ def test_sampled_reports_repeat_with_the_seed(case):
         **dict(KW, do_sample=True)).inference(tvol, QUESTION)
         for seed in (5, 5, 6)]
     assert texts[0] == texts[1] and texts[0] != texts[2]
+
+
+def test_default_sampled_report_and_spec_stats(case):
+    """``U2InferenceModel`` with the JAX defaults (sampled, speculative)
+    returns a report on the CPU, and its ``spec_stats`` count as the JAX
+    package's do: emitted tokens after the first, up to the first EOS,
+    and verify steps. The JAX package's own sampled draws differ (other
+    generators), so its counts are held on greedy speculative decoding,
+    where both packages emit the same tokens in the same steps."""
+    root, jcfg = case
+    vocab = jcfg.llm.vocab_size
+    path = str(root / "port_ckpt")
+    jvol, tvol = _volumes(root, jcfg)
+    kw = dict(KW, max_new_tokens=24)
+    kw.pop("do_sample")
+    tm = t_inf.U2InferenceModel(path, tokenizer=_tokenizer(TTok, vocab),
+                                dtype=torch.float32, device="cpu", seed=2,
+                                **kw)
+    text = tm.inference(tvol, QUESTION)
+    assert text and tm._speculative
+    stats = dict(tm.spec_stats)
+    tokens = t_inf.U2InferenceModel(
+        path, tokenizer=_tokenizer(TTok, vocab), dtype=torch.float32,
+        device="cpu", seed=2, **kw).generate_tokens(tvol, QUESTION)
+    eos = (tokens == 1).nonzero()
+    emitted = int(eos[0, 0]) + 1 if len(eos) else len(tokens)
+    assert stats["emitted_tokens"] == emitted - 1
+    assert (emitted - 1) / 8 <= stats["verify_steps"] <= emitted - 1
+
+    greedy = dict(kw, do_sample=False, speculative=True)
+    jm = JInference(path, tokenizer=_tokenizer(JTok, vocab),
+                    dtype=jnp.float32, **greedy)
+    tg = t_inf.U2InferenceModel(path, tokenizer=_tokenizer(TTok, vocab),
+                                dtype=torch.float32, device="cpu", **greedy)
+    assert tg.inference(tvol, QUESTION) == jm.inference(jvol, QUESTION)
+    assert tg.spec_stats == jm.spec_stats
+    assert tg.spec_stats["verify_steps"] > 0
 
 
 def test_validity_filter_and_chat_format():

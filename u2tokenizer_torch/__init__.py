@@ -1,8 +1,9 @@
 """μ²-TPU's PyTorch/CUDA port for NVIDIA Hopper.
 
 The report path (a NIfTI file and a trained checkpoint in, report text
-out), the serving path and the SFT training path of the JAX package
-(``u2tokenizer_tpu``) rebuilt on PyTorch, with the
+out, sampled through speculative decoding by default), the serving path
+(with chunked, shared-prefix and fan-out decoding) and the SFT training
+path of the JAX package (``u2tokenizer_tpu``) rebuilt on PyTorch, with the
 attention hot spots, forward and backward, in hand-written CUDA kernels
 (``csrc/``). The module layout mirrors the JAX
 package. Entry points run on the GPU unless the caller passes

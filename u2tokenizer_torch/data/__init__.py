@@ -1,1 +1,2 @@
-"""Data ingest of the port: NIfTI reading and the u2 volume transform."""
+"""Data of the port: NIfTI reading, the u2 volume transform and the
+synthetic report scripts of the speculative benchmark."""

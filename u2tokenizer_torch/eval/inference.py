@@ -5,7 +5,7 @@ validity filter, ``AnswerValidator`` and the GREEN chat format.
     from u2tokenizer_torch.data.transforms import U2VolumeTransform
     from u2tokenizer_torch.eval.inference import U2InferenceModel
 
-    model = U2InferenceModel("ckpt/", tokenizer=tok, speculative=False)
+    model = U2InferenceModel("ckpt/", tokenizer=tok)
     volume = U2VolumeTransform()("ct.nii.gz")     # (8, 32, 256, 256)
     print(model.inference(volume, "Describe the findings."))
 
@@ -33,6 +33,7 @@ from ..models.hf_weights import (convert_u2_checkpoint, load_safetensors_dir,
                                  load_torch_bin, u2_config_from_hf)
 from ..models.quantize import (cast_for_inference, quantize_llm_weights,
                                quantized_llm_config)
+from ..models.speculative import make_spec_multimodal_generate_fn
 from ..models.u2_model import U2CausalLM, resolve_device
 from ..weights import flatten, load_flax_params
 
@@ -78,8 +79,11 @@ class U2InferenceModel:
     loaded with ``transformers``, which must then be installed. Sampling
     (``do_sample``, ``top_p``) draws from a generator seeded with ``seed``.
     ``speculative`` (None: as ``do_sample``, the JAX package's default)
-    and ``lora_path`` are refused until speculative decoding and LoRA are
-    ported; ``speculative=False`` samples the same distribution."""
+    decodes with n-gram drafts (``models.speculative``): the same tokens
+    when greedy, the same distribution when sampling; ``spec_stats``
+    counts its emitted tokens (after the first, which the prefill gives)
+    and verify steps, so that their ratio is the mean acceptance.
+    ``lora_path`` is refused until LoRA is ported."""
 
     def __init__(self, checkpoint_path: str, tokenizer=None,
                  model_config: Optional[U2ModelConfig] = None,
@@ -90,10 +94,6 @@ class U2InferenceModel:
                  weights: str = "bf16", device="cuda"):
         if speculative is None:
             speculative = bool(do_sample)
-        if speculative:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md queue 1, "
-                "item 6); pass speculative=False to sample without it")
         if lora_path is not None:
             raise NotImplementedError("LoRA adapters are not ported yet")
         if weights not in WEIGHTS:
@@ -129,8 +129,14 @@ class U2InferenceModel:
             max_new_tokens=max_new_tokens, do_sample=do_sample, top_p=top_p,
             eos_token_id=tokenizer.eos_token_id,
             pad_token_id=tokenizer.pad_token_id or 0)
-        self._gen_fn = make_multimodal_generate_fn(model, self.gen_cfg)
+        self._speculative = speculative
+        if speculative:
+            self._gen_fn = make_spec_multimodal_generate_fn(
+                model, self.gen_cfg, return_stats=True)
+        else:
+            self._gen_fn = make_multimodal_generate_fn(model, self.gen_cfg)
         self._generator = torch.Generator(self.device).manual_seed(seed)
+        self.spec_stats = {"emitted_tokens": 0, "verify_steps": 0}
 
     def _encode_prompt(self, question: str, with_image: bool = True):
         """(ids padded to ``max_length``, question ids padded to 64, the
@@ -164,11 +170,18 @@ class U2InferenceModel:
             images = images[None]
         ids, qids, plen = self._encode_prompt(question, image is not None)
         dev = self.device
-        return self._gen_fn(torch.from_numpy(ids[None]).to(dev), images,
-                            torch.from_numpy(qids[None]).to(dev),
-                            torch.tensor([plen], dtype=torch.int32,
-                                         device=dev),
-                            self._generator)[0]
+        tokens = self._gen_fn(torch.from_numpy(ids[None]).to(dev), images,
+                              torch.from_numpy(qids[None]).to(dev),
+                              torch.tensor([plen], dtype=torch.int32,
+                                           device=dev),
+                              self._generator)
+        if self._speculative:
+            tokens, steps = tokens
+            eos = (tokens[0] == self.tokenizer.eos_token_id).nonzero()
+            emitted = int(eos[0, 0]) + 1 if len(eos) else tokens.shape[1]
+            self.spec_stats["emitted_tokens"] += max(emitted - 1, 0)
+            self.spec_stats["verify_steps"] += steps
+        return tokens[0]
 
     def inference(self, image, question: str) -> str:
         """Preprocessed (T, D, H, W) volume (or None) + question -> report

@@ -12,10 +12,20 @@ Attention routing mirrors the JAX package's:
     ``decode_bounds`` goes to ``decode_attention_quantized``, kernel K3 on
     the GPU (the JAX package takes its kernel for the int4 cache only
     behind a switch, and otherwise the same function in XLA);
+  * with a case-shared prefix cache (``prefix_kv``, fan-out decoding) a
+    cached step or block attends [prefix ; own cache] through
+    ``gqa_sdpa_fanout``;
   * anything else runs the plain masked attention of ``ops.attention``.
 
 The KV cache is updated in place (the JAX package returns a new one); the
 functions still return it so the call sites read like their counterparts.
+``write_index`` is a Python int (every row writes at that slot) or a (B,)
+int32 tensor on the cache's device: row b's S tokens go to slots
+``write_index[b] + [0, S)`` by an indexed copy that reads no offset on the
+host, and such a per-row block (a speculative verify block, a chunk of a
+chunked prefill) attends the whole cache under ``mask``, not its fresh
+K/V. On CUDA an index past the buffer is a device assert, so callers size
+the cache with the slack their blocks need.
 
 ``remat`` (True or "nothing") checkpoints each decoder layer while
 gradients are recorded, the counterpart of the JAX package's
@@ -34,9 +44,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...config import LLMConfig
-from ...ops.attention import (gqa_sdpa, gqa_sdpa_headmajor,
-                              gqa_sdpa_quantized, pack_nibbles, quantize_kv,
-                              unpack_nibbles)
+from ...ops.attention import (gqa_sdpa, gqa_sdpa_fanout,
+                              gqa_sdpa_headmajor, gqa_sdpa_quantized,
+                              pack_nibbles, quantize_kv, unpack_nibbles)
 from ...ops.decode_attention import decode_attention_quantized
 from ...ops.flash_attention import flash_attention
 from ...ops.rotary import apply_rope, rope_cos_sin
@@ -253,14 +263,18 @@ class Attention(nn.Module):
             self.q_norm = RMSNorm(hd, cfg.rms_norm_eps, dtype, device)
             self.k_norm = RMSNorm(hd, cfg.rms_norm_eps, dtype, device)
 
-    def forward(self, x, rope, mask, cache_kv=None,
-                write_index: Optional[int] = None, lens=None,
-                decode_bounds=None):
+    def forward(self, x, rope, mask, cache_kv=None, write_index=None,
+                lens=None, decode_bounds=None, prefix_kv=None,
+                prefix_mask=None):
         """x (B, S, E); rope the (cos, sin) tables of the positions, each
         (B, S, D); mask bool (B, 1, S, Sk); cache_kv
         (k, v, k_scale, v_scale) head-major buffers written in place at
-        ``write_index``; lens (B,) right-pad valid lengths; decode_bounds
-        (prompt_len (B,), end (B,), s_prompt int)."""
+        ``write_index`` (an int, or a (B,) int32 tensor: per row); lens
+        (B,) right-pad valid lengths; decode_bounds (prompt_len (B,),
+        end (B,), s_prompt int); prefix_kv (k, v, k_scale, v_scale) a
+        prefix cache of C = B / n rows shared by each group of n rows
+        (row c*n + j reads case c) with prefix_mask (C, Sp) its valid
+        keys."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
@@ -278,32 +292,40 @@ class Attention(nn.Module):
         k_att, v_att = k, v
         if cache_kv is not None:
             ck, cv, ks, vs = cache_kv
-            w = write_index
+            per_row = torch.is_tensor(write_index) and write_index.dim() == 1
+            write = _row_writer(write_index, b, s) if per_row else \
+                _slice_writer(write_index, s)
             if ks is not None:  # int8/int4 cache: quantize on write
                 kind = "int4" if ck.shape[-1] != hd else "int8"  # int4: D/2
                 k_q, k_s = quantize_kv(k, dtype=kind)
                 v_q, v_s = quantize_kv(v, dtype=kind)
                 if kind == "int4":
                     k_q, v_q = pack_nibbles(k_q), pack_nibbles(v_q)
-                ck[:, :, w:w + s] = k_q.transpose(1, 2)
-                cv[:, :, w:w + s] = v_q.transpose(1, 2)
-                ks[:, :, w:w + s] = k_s[..., 0].transpose(1, 2)
-                vs[:, :, w:w + s] = v_s[..., 0].transpose(1, 2)
-                quantized_decode = s == 1
+                write(ck, k_q)
+                write(cv, v_q)
+                write(ks, k_s[..., 0])
+                write(vs, v_s[..., 0])
+                quantized_decode = s == 1 or per_row
             else:
-                ck[:, :, w:w + s] = k.transpose(1, 2).to(ck.dtype)
-                cv[:, :, w:w + s] = v.transpose(1, 2).to(cv.dtype)
-            if s == 1:
-                # single-token decode: attend the whole cache under the mask.
-                # A prefill (written at offset 0) attends its fresh k/v,
-                # exact even with a quantized cache.
+                write(ck, k)
+                write(cv, v)
+            if s == 1 or per_row:
+                # a single-token step or a per-row block attends the whole
+                # cache under the mask. A prefill (written at offset 0)
+                # attends its fresh k/v, exact even with a quantized cache.
                 k_att, v_att = ck, cv
                 cached_decode = True
 
         use_flash = (cfg.use_flash_attention and lens is not None and s > 1
-                     and k_att.shape[1] == s)
-        if quantized_decode:
-            if decode_bounds is not None and cfg.use_flash_attention:
+                     and not cached_decode)
+        if prefix_kv is not None and cached_decode:
+            pk, pv, pks, pvs = prefix_kv
+            out = gqa_sdpa_fanout(q, pk, pv, ck, cv, pk_scale=pks,
+                                  pv_scale=pvs, sk_scale=ks, sv_scale=vs,
+                                  prefix_mask=prefix_mask, suffix_mask=mask)
+        elif quantized_decode:
+            if (s == 1 and decode_bounds is not None
+                    and cfg.use_flash_attention):
                 plen, end, s_prompt = decode_bounds
                 out = decode_attention_quantized(q, ck, ks, cv, vs, plen, end,
                                                  s_prompt)
@@ -318,6 +340,29 @@ class Attention(nn.Module):
             out = gqa_sdpa(q, k_att.to(self.dtype), v_att.to(self.dtype),
                            mask=mask)
         return self.o_proj(out.reshape(b, s, cfg.num_heads * hd)), cache_kv
+
+
+def _slice_writer(w: int, s: int):
+    """Writes (B, S, Hkv, ...) values into head-major (B, Hkv, L, ...)
+    buffers at slots [w, w + S) of every row."""
+    def write(buf, val):
+        buf[:, :, w:w + s] = val.transpose(1, 2).to(buf.dtype)
+    return write
+
+
+def _row_writer(write_index: torch.Tensor, b: int, s: int):
+    """Writes (B, S, Hkv, ...) values into head-major (B, Hkv, L, ...)
+    buffers at slots write_index[b] + [0, S) of row b: one indexed copy
+    (``index_put_``) on the buffer's device, with no host read."""
+    rows = torch.arange(b, device=write_index.device)[:, None]
+    slots = write_index.long()[:, None] + torch.arange(
+        s, device=write_index.device)[None, :]
+
+    def write(buf, val):
+        # indices (B, 1) and (B, S) around a full slice: buf[r, :, p]
+        # addresses (B, S, Hkv, ...) elements, val's own layout
+        buf[rows, :, slots] = val.to(buf.dtype)
+    return write
 
 
 class MLP(nn.Module):
@@ -346,10 +391,11 @@ class DecoderLayer(nn.Module):
         self.mlp = MLP(cfg, dtype, device)
 
     def forward(self, x, rope, mask, cache_kv=None, write_index=None,
-                lens=None, decode_bounds=None):
+                lens=None, decode_bounds=None, prefix_kv=None,
+                prefix_mask=None):
         attn_out, cache_kv = self.self_attn(
             self.input_layernorm(x), rope, mask, cache_kv, write_index,
-            lens, decode_bounds)
+            lens, decode_bounds, prefix_kv, prefix_mask)
         x = x + attn_out
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, cache_kv
@@ -419,7 +465,8 @@ class DecoderModel(nn.Module):
         return F.embedding(input_ids, self.embed_tokens).to(self.dtype)
 
     def forward(self, inputs_embeds, positions, mask, cache=None,
-                write_index=None, lens=None, decode_bounds=None):
+                write_index=None, lens=None, decode_bounds=None,
+                prefix_cache=None, prefix_mask=None):
         cfg = self.cfg
         x = inputs_embeds.to(self.dtype)
         # one rotary table for all layers
@@ -429,17 +476,22 @@ class DecoderModel(nn.Module):
         rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             scaling=scaling)
         for i, layer in enumerate(self.layers):
-            cache_kv = None
-            if cache is not None:
-                cache_kv = (cache.k[i], cache.v[i],
-                            cache.k_scale[i] if cache.quantized else None,
-                            cache.v_scale[i] if cache.quantized else None)
-            args = (x, rope, mask, cache_kv, write_index, lens, decode_bounds)
+            args = (x, rope, mask, _layer_kv(cache, i), write_index, lens,
+                    decode_bounds, _layer_kv(prefix_cache, i), prefix_mask)
             if self.remat and torch.is_grad_enabled():
                 x, _ = checkpoint(layer, *args, use_reentrant=False)
             else:
                 x, _ = layer(*args)
         return self.norm(x), cache
+
+
+def _layer_kv(cache: Optional[KVCache], i: int):
+    """Layer i's (k, v, k_scale, v_scale) of ``cache``, or None."""
+    if cache is None:
+        return None
+    return (cache.k[i], cache.v[i],
+            cache.k_scale[i] if cache.quantized else None,
+            cache.v_scale[i] if cache.quantized else None)
 
 
 class CausalLM(nn.Module):
@@ -473,8 +525,40 @@ class CausalLM(nn.Module):
 
     def forward(self, inputs_embeds, positions, mask, cache=None,
                 write_index=None, lens=None, compute_logits: bool = True,
-                decode_bounds=None):
+                decode_bounds=None, prefix_cache=None, prefix_mask=None):
         hidden, cache = self.model(inputs_embeds, positions, mask, cache,
-                                   write_index, lens, decode_bounds)
+                                   write_index, lens, decode_bounds,
+                                   prefix_cache, prefix_mask)
         logits = self.lm_logits(hidden) if compute_logits else None
         return logits, hidden, cache
+
+    def forward_embeds(self, inputs_embeds, attention_mask=None, cache=None,
+                       write_index=None, positions=None, mask=None, lens=None,
+                       compute_logits: bool = True):
+        """The generation entry of ``U2CausalLM.forward_embeds`` for a
+        text-only model (a GREEN judge, say): a causal mask, and with
+        ``attention_mask`` its padded keys masked and ``lens`` taken from
+        it, when ``mask`` and ``lens`` are not given."""
+        b, s, _ = inputs_embeds.shape
+        dev = inputs_embeds.device
+        if mask is None:
+            mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril()[
+                None, None]
+            if attention_mask is not None:
+                mask = mask & attention_mask[:, None, None, :].bool()
+                if lens is None:
+                    lens = attention_mask.sum(-1).to(torch.int32)
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=dev).expand(b, s)
+        return self(inputs_embeds, positions, mask, cache, write_index, lens,
+                    compute_logits)
+
+    def decode_step(self, token_embeds, positions, mask, cache, write_index,
+                    decode_bounds=None, prefix_cache=None, prefix_mask=None,
+                    compute_logits: bool = True):
+        """One decode step or verify block against the cache (and a
+        case-shared ``prefix_cache``, fan-out decoding)."""
+        return self(token_embeds, positions, mask, cache, write_index,
+                    decode_bounds=decode_bounds, prefix_cache=prefix_cache,
+                    prefix_mask=prefix_mask, compute_logits=compute_logits)

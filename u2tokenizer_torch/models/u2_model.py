@@ -133,11 +133,15 @@ class U2CausalLM(nn.Module):
         return self.llm.embed_tokens(input_ids)
 
     def decode_step(self, token_embeds, positions, mask, cache, write_index,
-                    decode_bounds=None, compute_logits: bool = True):
-        """One decode step: (B, 1, E) embeds against the whole cache."""
-        return self.llm(token_embeds, positions, mask, cache, write_index,
-                        decode_bounds=decode_bounds,
-                        compute_logits=compute_logits)
+                    decode_bounds=None, prefix_cache=None, prefix_mask=None,
+                    compute_logits: bool = True):
+        """One decode step: (B, 1, E) embeds against the whole cache, or a
+        (B, S, E) block written per row; with ``prefix_cache`` against a
+        case-shared prompt prefix plus the per-row suffix cache (fan-out
+        decoding, ``generate.make_fanout_generate_fn``)."""
+        return self.llm.decode_step(token_embeds, positions, mask, cache,
+                                    write_index, decode_bounds, prefix_cache,
+                                    prefix_mask, compute_logits)
 
     def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return self.llm.lm_logits(hidden)

@@ -147,3 +147,60 @@ def gqa_sdpa_quantized(q, k_int, k_scale, v_int, v_scale, *, mask=None,
     probs = probs * v_scale.to(q.dtype)[:, :, None, None, :]
     out = torch.einsum("bhgqk,bhkd->bqhgd", probs, v_int.to(q.dtype))
     return out.reshape(b, sq, h, d)
+
+
+def gqa_sdpa_fanout(q, pk, pv, sk, sv, *, pk_scale=None, pv_scale=None,
+                    sk_scale=None, sv_scale=None, prefix_mask=None,
+                    suffix_mask=None, scale: Optional[float] = None):
+    """GQA attention over a prefix cache shared by groups of rows plus a
+    per-row suffix cache, with one softmax over both: q (B, Sq, H, D) with
+    B = C * n, row c*n + j of case c; pk/pv (C, Hkv, Sp, D) the prefix,
+    sk/sv (B, Hkv, St, D) the suffix, head-major. Either cache may be
+    int8, or packed int4 (``pack_nibbles``), with (C or B, Hkv, S) scales
+    that fold into the scores and probabilities as in
+    ``gqa_sdpa_quantized``. prefix_mask (C, Sp) marks valid prefix keys;
+    suffix_mask broadcasts to (B, H, Sq, St). Equal to attending the
+    concatenated [prefix ; suffix] cache, with the prefix read once a
+    case (the JAX package's ``gqa_sdpa_fanout``)."""
+    b, sq, h, d = q.shape
+    if pk.shape[-1] != d:
+        pk, pv = unpack_nibbles(pk), unpack_nibbles(pv)
+    if sk.shape[-1] != d:
+        sk, sv = unpack_nibbles(sk), unpack_nibbles(sv)
+    c, hkv, sp = pk.shape[0], pk.shape[1], pk.shape[2]
+    st = sk.shape[2]
+    n = b // c
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    group = h // hkv
+    neg = _neg(torch.float32)
+    sc = _scalar(scale, q.dtype)
+
+    qg = q.reshape(c, n, sq, hkv, group, d)
+    ps = torch.einsum("cnqhgd,chkd->cnhgqk", qg, pk.to(q.dtype)) * sc
+    if pk_scale is not None:
+        ps = ps * pk_scale.to(q.dtype)[:, None, :, None, None, :]
+    ps = ps.float()
+    if prefix_mask is not None:
+        ps = ps.masked_fill(~prefix_mask[:, None, None, None, None, :], neg)
+    ps = ps.reshape(b, hkv, group, sq, sp)
+
+    qs = q.reshape(b, sq, hkv, group, d)
+    ss = torch.einsum("bqhgd,bhkd->bhgqk", qs, sk.to(q.dtype)) * sc
+    if sk_scale is not None:
+        ss = ss * sk_scale.to(q.dtype)[:, :, None, None, :]
+    ss = ss.float()
+    if suffix_mask is not None:
+        m = suffix_mask.expand(b, h, sq, st).reshape(b, hkv, group, sq, st)
+        ss = ss.masked_fill(~m, neg)
+
+    probs = torch.softmax(torch.cat([ps, ss], dim=-1), dim=-1).to(q.dtype)
+    pp, sp_probs = probs[..., :sp], probs[..., sp:]
+    ppg = pp.reshape(c, n, hkv, group, sq, sp)
+    if pv_scale is not None:
+        ppg = ppg * pv_scale.to(q.dtype)[:, None, :, None, None, :]
+    out_p = torch.einsum("cnhgqk,chkd->cnqhgd", ppg, pv.to(q.dtype))
+    if sv_scale is not None:
+        sp_probs = sp_probs * sv_scale.to(q.dtype)[:, :, None, None, :]
+    out_s = torch.einsum("bhgqk,bhkd->bqhgd", sp_probs, sv.to(q.dtype))
+    return out_p.reshape(b, sq, h, d) + out_s.reshape(b, sq, h, d)
