@@ -44,7 +44,7 @@ Run from the root of a checkout. It
      512x512x300 int16 CT written as .nii and ingested by
      ``U2VolumeTransform`` on the card (held to the CPU's), random weights
      from seed 0 written by ``save_hf_checkpoint`` and loaded back by
-     ``U2InferenceModel``, one greedy report of 768 tokens through
+     ``U2InferenceModel``, one greedy report of 256 tokens through
      ``inference`` (K1 12 and K2 16 launches), its tokens bit for bit
      those of ``make_multimodal_generate_fn`` on the exported in-memory
      model (timed by stage), two sampled reports (top-p 0.9) of one seed
@@ -64,23 +64,39 @@ Run from the root of a checkout. It
      B=112, scripts of ``report_token_scripts(112, 776, vocab, seed=7)``):
      the script emitted exactly, the verify steps equal to the host replay
      of the loop's drafting, reports/min beside the plain quantized run's;
-  6. checks a reduced-depth, full-width model on the card against the same
+  6. drives serving (``drive_serving``) on the same checkpoint and CT:
+     ``python -m u2tokenizer_torch.cli serve --slots 8`` as a process that
+     must answer /health and one report; twelve questions one at a time
+     through the single-request model ``cli serve`` builds (the reference
+     tokens, and the sequential reports/min); the server ``cli serve
+     --slots 8 --max-new-tokens 256`` builds, started by
+     ``serve_background``: the CT uploaded (ingest on the card), the
+     twelve questions from twelve client threads at once and one streamed
+     (K1 12 and K2 16 launches a request, K3 none), each report's tokens
+     under the near-tie rule against its B=1 tokens; the slot decode's
+     first 8 steps' logits against B=1 (5e-2) for two requests, one
+     admitted mid-flight, with planted faults of the slot path, of which
+     one at least must be rejected; a profile of 8 dispatches with every
+     slot busy; ``--speculative auto`` on the twelve; and ``serve-llm``
+     on the Llama-3.2-1B preset (greedy chat under the near-tie rule, a
+     completion, a sampled n=8 fan-out);
+  7. checks a reduced-depth, full-width model on the card against the same
      weights run in fp32 on the CPU through the plain versions: bf16
      weights with the int8 cache, int8 or int4 weights (quantized once on
      the CPU) with the int4 cache, and μ²Llama-3.2-1B with the bf16 cache;
      and (μ²Qwen3) with the chunked prefill, the shared-prefix prefill
      and a verify block written per row;
-  7. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
+  8. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
      parameters and bf16 compute, AdamW at the ``TrainConfig`` defaults,
      decoder layers rematerialised, 6 steps of ``run_training`` on one
      seeded (1, 8, 32, 256, 256) volume and a 1024-token row (900 valid),
      a checkpoint at the end; asserts finite, falling loss, moving
      parameters and the kernel launches of every step; profiles one step;
-  8. runs one train step of the reduced-depth model on the card and on the
+  9. runs one train step of the reduced-depth model on the card and on the
      CPU from the same weights and compares the loss and each parameter's
      gradient; shows that the same limits reject planted faults of the
      flash backward's wiring;
-  9. prints one JSON line per kernel table, the card line, and last
+ 10. prints one JSON line per kernel table, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full fp32 (TF32 off for matmuls and cuDNN).
@@ -149,6 +165,9 @@ TOL = {"flash_fwd_noncausal": (4e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_dq": (1e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_dkv": (1e-3, 1e-2, 2.0 ** -8)}
 PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 768, 4, 8
+# the μ²Llama report and speculative phases decode 256 tokens (the users'
+# 768 cut when the serving phase came, for the script's time)
+REPORT_TOKENS = 256
 # the B=4 bf16 path decodes 256 tokens, the B=112 path 768, so that the
 # script stays near half its time limit on a slow host
 B4_MAX_NEW = 256
@@ -1228,8 +1247,8 @@ def drive_report(torch, fa, da, volume, tmp: str):
     """The μ²Llama-3.2-1B report path at full width and depth: random
     weights from seed 0 written by ``save_hf_checkpoint`` (fp32), loaded
     back by ``U2InferenceModel`` (bf16, bf16 cache), one greedy report of up
-    to 768 tokens through ``inference`` with the kernel launches of that
-    call; its tokens (``generate_tokens``) against
+    to REPORT_TOKENS tokens through ``inference`` with the kernel launches
+    of that call; its tokens (``generate_tokens``) against
     ``make_multimodal_generate_fn`` on the in-memory model that was
     exported, cast the same way, stage by stage (timed); then two sampled
     reports (top-p 0.9) from two instances of one seed. Returns the greedy
@@ -1259,7 +1278,8 @@ def drive_report(torch, fa, da, volume, tmp: str):
     with host_memory() as host:
         t0 = time.perf_counter()
         im = U2InferenceModel(ckpt, tokenizer=tok, do_sample=False,
-                              speculative=False)
+                              speculative=False,
+                              max_new_tokens=REPORT_TOKENS)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
 
@@ -1319,7 +1339,8 @@ def drive_report(torch, fa, da, volume, tmp: str):
     sampled = []
     for _ in range(2):
         sim = U2InferenceModel(ckpt, tokenizer=tok, do_sample=True,
-                               top_p=SAMPLE_TOP_P, speculative=False, seed=1)
+                               top_p=SAMPLE_TOP_P, speculative=False, seed=1,
+                               max_new_tokens=REPORT_TOKENS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sampled.append(sim.inference(volume, REPORT_QUESTION))
@@ -1351,7 +1372,7 @@ def drive_report(torch, fa, da, volume, tmp: str):
 # Speculative decoding phase (``drive_speculative``).
 SPEC_BLOCK = 8             # the verify block, as make_spec_generate_fn's
 FANOUT = 8                 # samples a case, pred_then_green's protocol
-FANOUT_TOKENS = 256        # the fan-out phase's depth (the report's 768 cut)
+FANOUT_TOKENS = 256        # the fan-out phase's depth (the users' 768 cut)
 SCRIPT_SEED = 7            # bench.py's report scripts
 # Greedy speculative decoding against plain greedy on the card. A verify
 # block's logits come from other GEMM shapes than a single step's, so the
@@ -1520,7 +1541,8 @@ def spec_report_phase(torch, fa, da, volume, ckpt: str, cfg,
         make_spec_multimodal_generate_fn)
 
     tok = full_vocab_tokenizer(cfg.llm.vocab_size)
-    im = U2InferenceModel(ckpt, tokenizer=tok, device="cuda")
+    im = U2InferenceModel(ckpt, tokenizer=tok, device="cuda",
+                          max_new_tokens=REPORT_TOKENS)
     gen = im.gen_cfg
     reset_launches(fa, da)
     torch.cuda.synchronize()
@@ -1547,7 +1569,8 @@ def spec_report_phase(torch, fa, da, volume, ckpt: str, cfg,
     del im
     gc.collect()
 
-    again = U2InferenceModel(ckpt, tokenizer=tok, device="cuda")
+    again = U2InferenceModel(ckpt, tokenizer=tok, device="cuda",
+                             max_new_tokens=REPORT_TOKENS)
     tokens, steps, stages = staged_spec(torch, again._gen_fn, ids_t, images,
                                         qids_t, plen_t, again._generator)
     if report_text(tok, tokens[0], gen.pad_token_id) != text \
@@ -1557,14 +1580,15 @@ def spec_report_phase(torch, fa, da, volume, ckpt: str, cfg,
     gc.collect()
 
     plain_im = U2InferenceModel(ckpt, tokenizer=tok, speculative=False,
-                                device="cuda")
+                                device="cuda", max_new_tokens=REPORT_TOKENS)
     _, _, plain_stages = staged_plain(torch, plain_im._gen_fn, ids_t, images,
                                       qids_t, plen_t, plain_im._generator)
     del plain_im
     gc.collect()
 
     greedy = U2InferenceModel(ckpt, tokenizer=tok, do_sample=False,
-                              speculative=True, device="cuda")
+                              speculative=True, device="cuda",
+                              max_new_tokens=REPORT_TOKENS)
     spec_tokens, spec_steps, spec_greedy = staged_spec(
         torch, greedy._gen_fn, ids_t, images, qids_t, plen_t, None)
     plain_fn = make_multimodal_generate_fn(greedy.model, greedy.gen_cfg)
@@ -1798,6 +1822,804 @@ def drive_speculative(torch, fa, da, volume, tmp: str, plain_greedy,
         out[name] = (line["default_report"]["launches"]
                      if name == "spec_report" else line["launches"])
     return out
+
+
+# Serving phase (``drive_serving``): the slot engine and the HTTP server
+# at the released μ²Llama-3.2-1B configuration, as ``cli serve --slots 8``
+# builds them, with concurrent requests.
+SERVING_SLOTS = 8
+SERVING_TOKENS = 256       # cli serve --max-new-tokens
+SUBPROCESS_TOKENS = 16     # the subprocess server's one report
+LLM_TOKENS = 128           # serve-llm's requests
+LOGIT_STEPS = 8            # decode steps whose logits are held to B=1's
+LOGIT_TOL = 5e-2           # the reduced-depth check's relative limit
+# twelve questions, so that twelve requests over eight slots force
+# admissions while other slots decode; the first is also streamed
+SERVING_QUESTIONS = (
+    REPORT_QUESTION, "Is there a pleural effusion ?",
+    "Describe the liver and the spleen .",
+    "Are there any pulmonary nodules ?",
+    "What is the impression of this scan ?",
+    "Describe the mediastinum and the heart .",
+    "Is there evidence of consolidation in the lungs ?",
+    "Describe the bones of the thorax .", "Are the kidneys normal ?",
+    "Summarize the abnormal findings .", "Is there lymphadenopathy ?",
+    "Describe the airways and the trachea .")
+LLM_PROMPTS = ("Rewrite the report : the lungs are clear .",
+               "Summarize : no acute findings in the chest .")
+# planted faults of the slot path (``planted_slot_fault``), one at least of
+# which the logits limit or the near-tie rule must reject. On random
+# weights a decode step attends nearly evenly over its ~265 visible keys,
+# so a write one slot late (the step misses its own key and sees a zeroed
+# one) or RoPE shifted by one moves the logits by about one key's share,
+# under LOGIT_TOL, and leaves the first tokens as they are; a prefill
+# written into another slot's row is seen at once.
+SLOT_FAULTS = ("write_index_late", "rope_plus_one", "prefill_wrong_slot")
+
+
+def serving_tokenizer(vocab: int):
+    """A MockTokenizer with every word the serving phase sends first, then
+    a word for every other id of the vocabulary."""
+    from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
+
+    tok = MockTokenizer()
+    tok(" ".join(SERVING_QUESTIONS + LLM_PROMPTS))
+    tok(" ".join(f"w{i}" for i in range(vocab - len(tok.vocab))))
+    return tok
+
+
+@contextlib.contextmanager
+def top_two(torch, model):
+    """The top two logits (values, ids) of the last position of every
+    ``model.decode_step`` call in the block, kept on the device until the
+    block ends; yields a dict filled then with "values" and "ids" (steps,
+    2) of row 0."""
+    step, seen, out = model.decode_step, [], {}
+
+    def capture(*args, **kw):
+        res = step(*args, **kw)
+        seen.append(res[0][0, -1].float().topk(2))
+        return res
+
+    model.decode_step = capture
+    try:
+        yield out
+    finally:
+        del model.decode_step
+        out["values"] = torch.stack([t.values for t in seen]).cpu()
+        out["ids"] = torch.stack([t.indices for t in seen]).cpu()
+
+
+def tie_verdict(ref, other, top: dict, eos: int) -> dict:
+    """The near-tie rule (TIE_ULPS, as ``near_tie``) for a token list
+    ``other`` (a request's emitted tokens, EOS included) against the B=1
+    greedy tokens ``ref`` of the same prompt, with ``top`` the top two
+    logits of each of ``ref``'s decode steps (step i - 1 gives token i).
+    ``other`` must also end where ``ref`` does: at EOS or the budget."""
+    n = min(len(ref), len(other))
+    i = next((j for j in range(n) if ref[j] != other[j]), None)
+    if i is None:
+        ended = len(other) == len(ref) or (other and other[-1] == eos)
+        return {"first_diff": None, "holds": bool(ended)}
+    if i == 0:  # both take token 0 from one prefill
+        return {"first_diff": 0, "holds": False}
+    v0, v1 = top["values"][i - 1].tolist()
+    i0, i1 = top["ids"][i - 1].tolist()
+    gap, limit = v0 - v1, TIE_ULPS * 2.0 ** -8 * abs(v0)
+    return {"first_diff": i, "top2": [i0, i1], "gap": gap, "limit": limit,
+            "other_token_is_second": other[i] == i1,
+            "holds": gap <= limit and other[i] == i1 and ref[i] == i0}
+
+
+def serve_args(ckpt: str, *extra):
+    """``cli serve``'s arguments for the report checkpoint."""
+    from u2tokenizer_torch import cli
+
+    return cli.build_parser().parse_args(
+        ["serve", "--checkpoint", ckpt, "--max-new-tokens",
+         str(SERVING_TOKENS), "--host", "127.0.0.1", "--port", "0", *extra])
+
+
+def http(url: str, payload=None, data=None, headers=None, timeout=300):
+    """(status, body bytes) of a GET, or a POST of ``payload`` as JSON or
+    of raw ``data``; an HTTP error's status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    if payload is not None:
+        data = json.dumps(payload).encode()
+        headers = {"Content-Type": "application/json"}
+    req = urllib.request.Request(url, data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_ok(url: str, payload=None, **kw) -> dict:
+    """The JSON reply of a request that must answer 200."""
+    status, body = http(url, payload, **kw)
+    if status != 200:
+        raise AssertionError(f"{url}: HTTP {status} {body[:300]!r}")
+    return json.loads(body)
+
+
+def sse_deltas(url: str, payload: dict, key):
+    """The deltas of a streamed reply (``key(event)`` each): 200, every
+    event a ``data:`` line, no error event, ``[DONE]`` last."""
+    status, body = http(url, dict(payload, stream=True))
+    lines = [ln for ln in body.decode().splitlines() if ln]
+    if status != 200 or not lines or lines[-1] != "data: [DONE]" or not all(
+            ln.startswith("data: ") for ln in lines):
+        raise AssertionError(f"{url}: stream HTTP {status} {body[:300]!r}")
+    events = [json.loads(ln[len("data: "):]) for ln in lines[:-1]]
+    errors = [e for e in events if "error" in e]
+    if errors:
+        raise AssertionError(f"{url}: error event {errors[0]}")
+    return [key(e) for e in events]
+
+
+def instrument(inf):
+    """Records, for an ``EngineInference``: each caller's question and the
+    tokens its request emitted (``rec["tokens"]()``: question -> tokens),
+    each engine tick's kind ("admit" or "decode"), seconds and block
+    size, and each submit's seconds (ids, ViT and splice, as
+    launched)."""
+    import threading
+
+    rec = {"raw": {}, "question": {}, "ticks": [], "submit_s": []}
+    rec["tokens"] = lambda: {rec["question"][local]: toks
+                             for local, toks in rec["raw"].items()}
+    lock = threading.Lock()
+    submit_local, engine = inf._submit_local, inf.engine
+    step, submit = engine.step, engine.submit
+
+    def local_spy(image, q, stream):
+        local = submit_local(image, q, stream)
+        with lock:
+            rec["question"][local] = q
+        return local
+
+    class Results(dict):
+        def __setitem__(self, local, toks):
+            rec["raw"][local] = list(toks)
+            super().__setitem__(local, toks)
+
+    def step_spy():
+        admit = bool(engine._queue) and len(engine._by_slot) < \
+            engine.num_slots
+        kb = engine.spec_block_len
+        t0 = time.perf_counter()
+        out = step()
+        rec["ticks"].append(("admit" if admit else "decode",
+                             time.perf_counter() - t0, kb))
+        return out
+
+    def submit_spy(*args):
+        t0 = time.perf_counter()
+        out = submit(*args)
+        rec["submit_s"].append(time.perf_counter() - t0)
+        return out
+
+    inf._submit_local, inf._results = local_spy, Results()
+    engine.step, engine.submit = step_spy, submit_spy
+    return rec
+
+
+def tick_readings(rec: dict) -> dict:
+    """Median ms of decode dispatches and of admissions, their counts."""
+    by = {kind: [1e3 * dt for k, dt, _ in rec["ticks"] if k == kind]
+          for kind in ("admit", "decode")}
+    return {"ms_per_dispatch": statistics.median(by["decode"]),
+            "dispatches": len(by["decode"]),
+            "ms_per_admission": statistics.median(by["admit"]),
+            "admissions": len(by["admit"]),
+            "ms_per_submit": 1e3 * statistics.median(rec["submit_s"])}
+
+
+def fire(calls) -> tuple:
+    """Run the callables at once, one thread each; returns their results
+    (an exception is raised here) and each one's (start, end) on the host
+    clock."""
+    import threading
+
+    n = len(calls)
+    results, spans, errors = [None] * n, [None] * n, []
+    gate = threading.Barrier(n)
+
+    def run(i):
+        gate.wait()
+        t0 = time.perf_counter()
+        try:
+            results[i] = calls[i]()
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+        spans[i] = (t0, time.perf_counter())
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results, spans
+
+
+def span_readings(spans) -> dict:
+    """Wall clock from the first start to the last end, reports/min over
+    it, and the latency of each request (median, max)."""
+    wall = max(e for _, e in spans) - min(s for s, _ in spans)
+    latency = [e - s for s, e in spans]
+    return {"wall_s": wall, "reports_per_min": 60.0 * len(spans) / wall,
+            "latency_s_median": statistics.median(latency),
+            "latency_s_max": max(latency)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_subprocess_check(ckpt: str, ct_path: str, log_path: str) -> dict:
+    """``python -m u2tokenizer_torch.cli serve --slots 8`` as a process of
+    its own (the mock tokenizer): it must answer /health and one
+    /v1/report of SUBPROCESS_TOKENS tokens on the CT file; then it is
+    stopped."""
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "u2tokenizer_torch.cli", "serve",
+           "--checkpoint", ckpt, "--slots", str(SERVING_SLOTS),
+           "--max-new-tokens", str(SUBPROCESS_TOKENS), "--host",
+           "127.0.0.1", "--port", str(port)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, stdout=log_file,
+                                stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)))
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"cli serve exited with "
+                                         f"{proc.returncode}")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("cli serve: no /health in 300 s")
+                try:
+                    if http(url + "/health", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+            up_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            out = http_ok(url + "/v1/report", {"image_path": ct_path,
+                                               "question": REPORT_QUESTION},
+                          timeout=120)
+            report_s = time.perf_counter() - t1
+        except Exception:
+            proc.kill()
+            proc.wait()
+            with open(log_path) as f:
+                log(f.read()[-3000:])
+            raise
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    words = len(out["report"].split())
+    if not 0 < words <= SUBPROCESS_TOKENS:
+        raise AssertionError(f"cli serve: a report of {words} words")
+    return {"command": " ".join(["python", "-m"] + cmd[2:]),
+            "start_to_health_s": up_s, "report_s": report_s,
+            "report_words": words, "latency_s": out["latency_s"]}
+
+
+@contextlib.contextmanager
+def planted_slot_fault(torch, model, fault: str):
+    """A planted fault of the slot path: "write_index_late", the slot
+    decode's per-row write one slot late; "rope_plus_one", its RoPE
+    positions shifted by one; "prefill_wrong_slot", each admission's
+    prefill written into the next slot's row."""
+    from u2tokenizer_torch.models import slot_serving
+
+    step, row_view = model.decode_step, slot_serving._row_view
+
+    def faulty(embeds, positions, mask, cache, write_index, *args, **kw):
+        slot_step = (torch.is_tensor(write_index) and write_index.dim() == 1
+                     and positions.shape[1] == 1)
+        if slot_step and fault == "write_index_late":  # kept in bounds
+            write_index = (write_index + 1).clamp_max(cache.max_len - 1)
+        if slot_step and fault == "rope_plus_one":
+            positions = positions + 1
+        return step(embeds, positions, mask, cache, write_index, *args,
+                    **kw)
+
+    if fault == "prefill_wrong_slot":
+        slot_serving._row_view = lambda cache, slot: row_view(
+            cache, (slot + 1) % cache.k[0].shape[0])
+    else:
+        model.decode_step = faulty
+    try:
+        yield
+    finally:
+        slot_serving._row_view = row_view
+        model.__dict__.pop("decode_step", None)
+
+
+def request_inputs(torch, im, question: str, volume):
+    """A request's (ids (1, prompt_len), images, question ids) as the slot
+    engine takes them, and the padded (ids, images, question ids,
+    prompt_len) of ``im``'s B=1 path."""
+    ids, qids, plen = im._encode_prompt(question)
+    dev = volume.device
+    qids_t = torch.from_numpy(qids[None]).to(dev)
+    images = volume.float()[None]
+    return (ids[None, :plen], images, qids_t), (
+        torch.from_numpy(ids[None]).to(dev), images, qids_t,
+        torch.tensor([plen], dtype=torch.int32, device=dev))
+
+
+def plain_logits(torch, im, question: str, volume) -> tuple:
+    """The B=1 plain greedy decode of ``question`` through ``im``: the
+    fp32 logits of its first LOGIT_STEPS decode steps (steps, V) and its
+    first 1 + LOGIT_STEPS tokens."""
+    model, fn = im.model, im._gen_fn
+    args = request_inputs(torch, im, question, volume)[1]
+    step, seen = model.decode_step, []
+
+    def keep(*a, **kw):
+        res = step(*a, **kw)
+        seen.append(res[0][0, 0].float())
+        return res
+
+    embeds = fn.embeds(*args[:3])
+    model.decode_step = keep
+    try:
+        kv, tok0, done0, _ = fn.prefill_stage(embeds, args[3])
+        _, _, rest = fn.decode_steps(kv, tok0, done0, args[3],
+                                     range(LOGIT_STEPS))
+    finally:
+        del model.decode_step
+    return torch.stack(seen), torch.cat([tok0, rest[0]]).tolist()
+
+
+def slot_logits_check(torch, im, volume, plain: list, fault=None) -> dict:
+    """Two requests on an 8-slot engine over ``im``'s model, the second
+    admitted after the first's third decode step: the logits of each
+    one's first LOGIT_STEPS decode steps against ``plain`` (``plain_logits``
+    of the same questions; relative to its largest), as far as their
+    tokens agree, and their first tokens under the near-tie rule. With
+    ``fault`` the slot path carries a planted fault
+    (``planted_slot_fault``)."""
+    from u2tokenizer_torch.models.slot_serving import Engine
+
+    model, gen = im.model, im.gen_cfg
+    eng = Engine(model, gen, num_slots=SERVING_SLOTS,
+                 prompt_buf=im.max_length)
+    reqs = [request_inputs(torch, im, q, volume)[0]
+            for q in SERVING_QUESTIONS[:2]]
+    rows = []
+    with (planted_slot_fault(torch, model, fault) if fault
+          else contextlib.nullcontext()):
+        step = model.decode_step
+
+        def capture(embeds, positions, mask, cache, write_index, *a, **kw):
+            res = step(embeds, positions, mask, cache, write_index, *a,
+                       **kw)
+            if torch.is_tensor(write_index) and positions.shape[1] == 1:
+                rows.append(res[0][:2, 0].float())
+            return res
+
+        model.decode_step = capture
+        live = []
+        try:
+            for req, ticks in ((reqs[0], 4), (reqs[1], 1 + LOGIT_STEPS)):
+                eng.submit(*req)
+                live.append(eng._queue[-1])
+                for _ in range(ticks):  # its admission, then decode steps
+                    eng.step()
+        finally:
+            model.__dict__.pop("decode_step", None)
+    got = [torch.stack([r[0] for r in rows[:LOGIT_STEPS]]),
+           torch.stack([r[1] for r in rows[3:3 + LOGIT_STEPS]])]
+    tokens = [req.tokens[:1 + LOGIT_STEPS] for req in live]
+    del eng
+    err, steps, verdicts = 0.0, 0, []
+    for (ref, ref_toks), g, toks in zip(plain, got, tokens):
+        # the steps whose inputs agree (step k reads token k) while the
+        # request is live
+        n = next((k for k in range(len(toks) - 1)
+                  if toks[k] != ref_toks[k]), len(toks) - 1)
+        if n:
+            err = max(err, ((g[:n] - ref[:n]).abs().max()
+                            / ref[:n].abs().max()).item())
+        steps += n
+        top = ref.topk(2)
+        verdicts.append(tie_verdict(
+            ref_toks[:len(toks)], toks, {"values": top.values.cpu(),
+                             "ids": top.indices.cpu()}, gen.eos_token_id))
+    holds = err <= LOGIT_TOL and all(v["holds"] for v in verdicts)
+    return {"fault": fault, "logits_rel_err": err, "steps_compared": steps,
+            "tol": LOGIT_TOL, "tokens": verdicts, "holds": holds}
+
+
+def profile_slots(torch, im, volume) -> dict:
+    """torch.profiler over 8 decode dispatches of an 8-slot engine with
+    every slot busy (after 8 admissions and 2 unprofiled dispatches): the
+    card's busy share, kernels a dispatch, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from u2tokenizer_torch.models.slot_serving import Engine
+
+    eng = Engine(im.model, im.gen_cfg, num_slots=SERVING_SLOTS,
+                 prompt_buf=im.max_length)
+    for q in SERVING_QUESTIONS[:SERVING_SLOTS]:
+        eng.submit(*request_inputs(torch, im, q, volume)[0])
+    while eng._queue:
+        eng.step()
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    if len(eng._by_slot) != SERVING_SLOTS:
+        raise AssertionError("profiled dispatches with idle slots")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels, by_name = device_time(torch, prof)
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"dispatches": 8, "wall_ms_per_dispatch": wall_us / 8e3,
+            "device_ms_per_dispatch": busy_us / 8e3,
+            "device_busy_share": busy_us / wall_us,
+            "kernels_per_dispatch": len(kernels) / 8,
+            "top_device_ms_per_dispatch": {n: t / 8e3 for n, t in top}}
+
+
+def sequential_references(torch, im, volume) -> tuple:
+    """The twelve questions one at a time through ``im`` (``cli serve``'s
+    single-request ``U2InferenceModel``, greedy), timed: each one's
+    tokens and the top two logits of each decode step."""
+    refs = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for q in SERVING_QUESTIONS:
+        with top_two(torch, im.model) as top:
+            tokens = im.generate_tokens(volume, q).tolist()
+        refs[q] = (tokens, top)
+    torch.cuda.synchronize()
+    return refs, time.perf_counter() - t0
+
+
+def verdicts_against(refs: dict, tokens: dict, eos: int) -> dict:
+    """The near-tie rule for each question's emitted tokens; raises when
+    one fails or a question has no tokens."""
+    out = {}
+    for q, (ref, top) in refs.items():
+        if q not in tokens:
+            raise AssertionError(f"no tokens recorded for {q!r}")
+        out[q] = tie_verdict(ref, tokens[q], top, eos)
+        if not out[q]["holds"]:
+            raise AssertionError(f"{q!r}: slot tokens fail the near-tie "
+                                 f"rule against B=1: {out[q]}")
+    return out
+
+
+def concurrent_http_phase(torch, fa, da, single, ckpt, ct_path, volume, tok,
+                          refs) -> tuple:
+    """``cli serve --slots 8`` built by ``cli.build_served_model`` and
+    started by ``serve_background``: the CT uploaded (ingest on the
+    card), then the twelve questions from twelve client threads at once
+    with the first also streamed, telemetry polled meanwhile. Returns the
+    result line and the launches of the traffic."""
+    import threading
+
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.serve import encode_gray_png, serve_background
+
+    served = cli.build_served_model(
+        serve_args(ckpt, "--slots", str(SERVING_SLOTS)), tokenizer=tok)
+    rec = instrument(served)
+    httpd = serve_background(served, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        if http_ok(url + "/health") != {"status": "ok"}:
+            raise AssertionError("/health")
+        with open(ct_path, "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        info = http_ok(url + "/v1/upload", data=data, headers={
+            "Content-Type": "application/octet-stream",
+            "X-Filename": os.path.basename(ct_path)})
+        upload_s = time.perf_counter() - t0
+        if [info[k] for k in ("chunks", "depth", "height", "width")] != \
+                list(volume.shape):
+            raise AssertionError(f"upload: {info}")
+        chunk = volume.shape[0] // 2
+        status, png = http(f"{url}/v1/volume/{info['volume_id']}/slice/"
+                           f"{chunk * volume.shape[1]}")
+        if status != 200 or png[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"slice: HTTP {status}")
+        same_slice = png == encode_gray_png(volume[chunk, 0])
+
+        polls, stop = [], threading.Event()
+
+        def poll():
+            while not stop.wait(0.25):
+                polls.append(http_ok(url + "/v1/config")["engine"])
+
+        poller = threading.Thread(target=poll)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(fa, da)
+        poller.start()
+        ask = lambda q: (lambda: http_ok(url + "/v1/report", {
+            "volume_id": info["volume_id"], "question": q}))
+        stream = lambda: sse_deltas(url + "/v1/report", {
+            "volume_id": info["volume_id"],
+            "question": SERVING_QUESTIONS[0]}, lambda e: e["report_delta"])
+        replies, spans = fire([ask(q) for q in SERVING_QUESTIONS]
+                              + [stream])
+        stop.set()
+        poller.join()
+        launches = read_launches(fa, da)
+        peak = torch.cuda.max_memory_allocated()
+        config = http_ok(url + "/v1/config")
+    finally:
+        httpd.shutdown()
+        served.close()
+    n = len(SERVING_QUESTIONS) + 1  # the streamed request too
+    expected = {name: 0 for name in launches}
+    expected.update({"flash_fwd_noncausal": single.cfg.vision.num_layers * n,
+                     "flash_fwd_causal": single.cfg.llm.num_layers * n})
+    if launches != expected:
+        raise AssertionError(f"serving launches {launches} != {expected}")
+    texts = {q: r["report"] for q, r in zip(SERVING_QUESTIONS, replies)}
+    streamed = "".join(replies[-1])
+    if streamed.strip() != texts[SERVING_QUESTIONS[0]]:
+        raise AssertionError("the streamed report differs from the blocking "
+                             "one of the same question")
+    eos = single.gen_cfg.eos_token_id
+    tokens = rec["tokens"]()
+    verdicts = verdicts_against(refs, tokens, eos)
+    for q, text in texts.items():
+        if text != report_text(tok, torch.tensor(tokens[q]), 0):
+            raise AssertionError(f"{q!r}: reply text is not its tokens'")
+    emitted = sum(len(t) for t in tokens.values())
+    engine = config["engine"]
+    if engine["completed_requests"] != n or engine["active_slots"] != 0:
+        raise AssertionError(f"telemetry after the traffic: {engine}")
+    rates = [p["tokens_per_s"] for p in polls if p["tokens_per_s"] > 0]
+    # the twelve blocking requests: wall clock from the first send to the
+    # last reply (the streamed one runs beside them)
+    return {"requests": len(SERVING_QUESTIONS), "streamed": 1,
+            "slots": SERVING_SLOTS, "max_new_tokens": SERVING_TOKENS,
+            "upload_mb": len(data) / 1e6, "upload_ingest_s": upload_s,
+            "slice_png_equals_ingest": same_slice,
+            **span_readings(spans[:-1]),
+            "stream_deltas": len(replies[-1]),
+            "telemetry_tokens_per_s_median": (statistics.median(rates)
+                                              if rates else None),
+            "telemetry_tokens_per_s_max": max(rates) if rates else None,
+            "emitted_tokens": emitted, **tick_readings(rec),
+            "peak_mem_gb": peak / 1e9, "launches": launches,
+            "tie_rule": {q[:24]: v["first_diff"]
+                         for q, v in verdicts.items()}}, launches, tokens
+
+
+def spec_slot_phase(torch, ckpt, volume, tok, refs, plain_tokens) -> dict:
+    """``cli serve --slots 8 --speculative auto``: the twelve questions
+    from twelve threads through ``EngineInference.inference``; tokens
+    under the near-tie rule against B=1, and beside the plain slot
+    engine's; acceptance, the rungs visited, ms a dispatch."""
+    from u2tokenizer_torch import cli
+
+    inf = cli.build_served_model(
+        serve_args(ckpt, "--slots", str(SERVING_SLOTS), "--speculative",
+                   "auto"), tokenizer=tok)
+    try:
+        if not (inf.engine.adaptive and inf.speculative):
+            raise AssertionError("--speculative auto built no adaptive "
+                                 "engine")
+        rec = instrument(inf)
+        _, spans = fire([(lambda q=q: inf.inference(volume, q))
+                         for q in SERVING_QUESTIONS])
+        stats = dict(inf.spec_stats)
+    finally:
+        inf.close()
+    tokens = rec["tokens"]()
+    verdicts = verdicts_against(refs, tokens, inf.gen_cfg.eos_token_id)
+    rungs = sorted({kb for kind, _, kb in rec["ticks"] if kind == "decode"})
+    return {"speculative": "auto", "requests": len(SERVING_QUESTIONS),
+            "acceptance": stats["emitted_tokens"]
+            / max(stats["verify_steps"], 1), **stats,
+            "rungs_visited": rungs, **span_readings(spans),
+            **tick_readings(rec),
+            "tokens_equal_plain_slot_engine": sum(
+                tokens[q] == plain_tokens[q] for q in refs),
+            "tie_rule": {q[:24]: v["first_diff"]
+                         for q, v in verdicts.items()}}
+
+
+def serve_llm_phase(torch, fa, da) -> tuple:
+    """``cli serve-llm --preset llama_3_2_1b`` (seeded weights, bf16)
+    built by ``cli.build_llm_server`` and served as ``cmd_serve_llm``
+    serves it, on a thread (``serve_background``): one greedy
+    chat completion (speculative by default) whose tokens are held to the
+    plain greedy decode's under the near-tie rule, one completion, and a
+    sampled server's n=8 chat completion (fan-out); LLM_TOKENS tokens
+    each. Returns the result line and the launches of the requests."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.config import LLMConfig
+    from u2tokenizer_torch.models.generate import make_generate_fn
+    from u2tokenizer_torch.serve import TextLMServer, serve_background
+
+    tok = serving_tokenizer(LLMConfig.llama_3_2_1b().vocab_size)
+    args = cli.build_parser().parse_args(
+        ["serve-llm", "--preset", "llama_3_2_1b", "--max-new-tokens",
+         str(LLM_TOKENS), "--host", "127.0.0.1", "--port", "0"])
+    t0 = time.perf_counter()
+    lm = cli.build_llm_server(args, tokenizer=tok)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sampled = TextLMServer(lm.model, tok, max_new_tokens=LLM_TOKENS,
+                           do_sample=True, top_p=SAMPLE_TOP_P,
+                           name="llama_3_2_1b-sampled", device=lm.device)
+    raw = []
+    spec_gen = lm._gen
+
+    def keep(*a, **kw):
+        out = spec_gen(*a, **kw)
+        raw.append(out[0][0].tolist())
+        return out
+
+    lm._gen = keep
+    # what cmd_serve_llm serves, on a thread
+    servers = [serve_background(m, port=0, transform=False)
+               for m in (lm, sampled)]
+    url, url_s = (f"http://127.0.0.1:{s.server_address[1]}"
+                  for s in servers)
+    times = {}
+    try:
+        reset_launches(fa, da)
+        chat = {"messages": [{"role": "user", "content": LLM_PROMPTS[0]}]}
+        for name, target, payload in (
+                ("chat", url + "/v1/chat/completions", chat),
+                ("completion", url + "/v1/completions",
+                 {"prompt": LLM_PROMPTS[1]}),
+                ("fanout_n8", url_s + "/v1/chat/completions",
+                 dict(chat, n=FANOUT))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = http_ok(target, payload)
+            times[name] = time.perf_counter() - t0
+            if name == "fanout_n8":
+                choices = [c["message"]["content"] for c in out["choices"]]
+            elif name == "chat":
+                chat_text = out["choices"][0]["message"]["content"]
+        launches = read_launches(fa, da)
+        config = http_ok(url + "/v1/config")
+    finally:
+        for s in servers:
+            s.shutdown()
+    expected = {name: 0 for name in launches}
+    expected["flash_fwd_causal"] = 3 * lm.model.cfg.num_layers
+    if launches != expected:
+        raise AssertionError(f"serve-llm launches {launches} != {expected}")
+    if len(choices) != FANOUT or not all(isinstance(c, str)
+                                         for c in choices):
+        raise AssertionError(f"fan-out: {len(choices)} choices")
+    # the plain greedy decode of the chat prompt, with its top two logits
+    plain = make_generate_fn(lm.model, lm.gen_cfg)
+    arr, n_ids = lm._encode_prompt(LLM_PROMPTS[0])
+    ids = torch.from_numpy(arr).to(lm.device)
+    with torch.inference_mode(), top_two(torch, lm.model) as top:
+        ref = plain(lm.model.embed_tokens(ids),
+                    torch.tensor([n_ids], dtype=torch.int32,
+                                 device=lm.device))[0].tolist()
+    eos = lm.gen_cfg.eos_token_id
+    other = raw[0]
+    if eos in other:
+        other = other[:other.index(eos) + 1]
+    verdict = tie_verdict(ref, other, top, eos)
+    if not verdict["holds"]:
+        raise AssertionError(f"serve-llm: speculative greedy chat fails the "
+                             f"near-tie rule: {verdict}")
+    if chat_text != lm._decode_row(raw[0]):
+        raise AssertionError("serve-llm: chat text is not its tokens'")
+    stats = config.get("spec_stats", {})
+    del lm, sampled, plain
+    return {"preset": "llama_3_2_1b", "weights": "bf16",
+            "max_new_tokens": LLM_TOKENS, "max_length": 2048,
+            "build_s": build_s, "request_s": times,
+            "spec_stats": stats, "tie_rule": verdict["first_diff"],
+            "fanout_choices": len(choices),
+            "fanout_distinct": len(set(choices)),
+            "launches": launches}, launches
+
+
+def drive_serving(torch, fa, da, volume, tmp: str, card: str) -> dict:
+    """The serving phase at μ²Llama-3.2-1B from the report phase's
+    checkpoint (``tmp/mu2llama``) and CT (``tmp/ct.nii``, ``volume`` its
+    ingest): ``cli serve`` as a subprocess; the twelve questions one at a
+    time (``cli serve``'s single-request model; the reference tokens);
+    concurrent over HTTP on 8 slots; the slot decode's logits against
+    B=1 with planted faults; a profile of 8 busy dispatches; the
+    adaptive speculative slot engine; ``serve-llm``. One printed line
+    each; returns the launches of the HTTP traffic of each server."""
+    from u2tokenizer_torch import cli
+
+    cfg = released_config()
+    ckpt = os.path.join(tmp, "mu2llama")
+    ct_path = os.path.join(tmp, "ct.nii")
+    line = cli_subprocess_check(ckpt, ct_path,
+                                os.path.join(tmp, "cli_serve.log"))
+    print(json.dumps({"serving_cli_process": line, "card": card}),
+          flush=True)
+
+    tok = serving_tokenizer(cfg.llm.vocab_size)
+    single = cli.build_served_model(serve_args(ckpt), tokenizer=tok)
+    refs, seq_s = sequential_references(torch, single, volume)
+    counts = {}
+    http_line, counts["serving_http"], plain_tokens = concurrent_http_phase(
+        torch, fa, da, single, ckpt, ct_path, volume, tok, refs)
+    http_line["sequential"] = {
+        "wall_s": seq_s,
+        "reports_per_min": 60.0 * len(SERVING_QUESTIONS) / seq_s,
+        "s_per_report": seq_s / len(SERVING_QUESTIONS)}
+    http_line["speedup_over_sequential"] = (
+        http_line["reports_per_min"]
+        / http_line["sequential"]["reports_per_min"])
+    http_line["card"] = card
+    print(json.dumps({"serving_http": http_line}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plain = [plain_logits(torch, single, q, volume)
+             for q in SERVING_QUESTIONS[:2]]
+    sound = slot_logits_check(torch, single, volume, plain)
+    if not sound["holds"]:
+        raise AssertionError(f"slot decode against B=1: {sound}")
+    faults = {}
+    for fault in SLOT_FAULTS:
+        faults[fault] = slot_logits_check(torch, single, volume, plain,
+                                          fault)
+        gc.collect()
+    rejected = [f for f, r in faults.items() if not r["holds"]]
+    if not rejected:
+        raise AssertionError("no planted fault of the slot path is rejected")
+    print(json.dumps({"serving_slot_logits": {
+        "sound": sound, "faults": faults, "rejected": rejected},
+        "card": card}), flush=True)
+    print(json.dumps({"serving_profile": profile_slots(torch, single,
+                                                       volume),
+                      "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = spec_slot_phase(torch, ckpt, volume, tok, refs, plain_tokens)
+    spec["card"] = card
+    print(json.dumps({"serving_speculative": spec}), flush=True)
+    del single, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    llm, counts["serve_llm"] = serve_llm_phase(torch, fa, da)
+    llm["card"] = card
+    print(json.dumps({"serving_llm": llm}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def nucleus_readings(torch, row, draws: int, generator):
@@ -2371,6 +3193,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         counts.update(drive_speculative(torch, fa, da, volume, tmp,
                                         greedy_tokens, quant_run, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts.update(drive_serving(torch, fa, da, volume, tmp, card))
     del volume
     gc.collect()
     torch.cuda.empty_cache()

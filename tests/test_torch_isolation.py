@@ -47,10 +47,12 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-# beside torch and numpy the port needs the standard library only; the one
-# exception, imported inside U2InferenceModel when no tokenizer is passed
+# beside torch and numpy the port needs the standard library only; the
+# exceptions, imported inside U2InferenceModel when no tokenizer is passed
+# and inside the CLI's tokenizer loader when a tokenizer directory is named
 OTHERS = ("scipy", "safetensors", "transformers")
-LAZY = {("u2tokenizer_torch/eval/inference.py", "transformers")}
+LAZY = {("u2tokenizer_torch/eval/inference.py", "transformers"),
+        ("u2tokenizer_torch/cli.py", "transformers")}
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -69,7 +71,9 @@ def test_port_imports_without_jax():
             "u2tokenizer_torch.models.hf_export, "
             "u2tokenizer_torch.models.vocab, "
             "u2tokenizer_torch.data.transforms, "
-            "u2tokenizer_torch.utils.mock_tokenizer; "
+            "u2tokenizer_torch.utils.mock_tokenizer, "
+            "u2tokenizer_torch.models.slot_serving, u2tokenizer_torch.serve, "
+            "u2tokenizer_torch.cli; "
             "sys.exit(any(m.split('.')[0] in %r for m in sys.modules))"
             % (FORBIDDEN + OTHERS,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -102,6 +106,33 @@ def test_entry_point_needs_a_gpu(monkeypatch):
         resolve_device()
     model = U2CausalLM(cfg, dtype=torch.float32, device="cpu")
     assert model.device.type == "cpu"
+
+
+def test_serving_entry_points_need_a_gpu(monkeypatch, tmp_path):
+    """The slot engine, the text server and the CLI's build functions run on the
+    GPU unless told otherwise, and raise without one."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.config import GenerationConfig, LLMConfig
+    from u2tokenizer_torch.models.llm.decoder import CausalLM
+    from u2tokenizer_torch.models.slot_serving import (Engine,
+                                                       EngineInference)
+    from u2tokenizer_torch.serve import TextLMServer
+    from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = t_config.U2ModelConfig.tiny()
+    model = U2CausalLM(cfg, dtype=torch.float32, device="cpu")
+    lm = CausalLM(LLMConfig.tiny(), dtype=torch.float32, device="cpu")
+    for build in (
+            lambda: Engine(model, GenerationConfig(), 2, 16),
+            lambda: EngineInference(model, MockTokenizer(), cfg),
+            lambda: TextLMServer(lm, MockTokenizer()),
+            lambda: cli.build_llm_server(cli.build_parser().parse_args(
+                ["serve-llm"])),
+            lambda: cli.build_served_model(cli.build_parser().parse_args(
+                ["serve", "--tiny", "--checkpoint", str(tmp_path)]))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):

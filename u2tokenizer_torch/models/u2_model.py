@@ -32,6 +32,17 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def resolve_model_device(model: nn.Module, device="cuda") -> torch.device:
+    """``resolve_device(device)`` for an entry point handed a built model,
+    which must lie there: raises when its parameters are elsewhere."""
+    dev = resolve_device(device)
+    have = next(model.parameters()).device
+    if (have.type, have.index or 0) != (dev.type, dev.index or 0):
+        raise ValueError(f"the model's parameters are on {have}, the entry "
+                         f"point runs on {dev}: build the model there")
+    return dev
+
+
 def causal_padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     """(B, S) {0,1} -> bool (B, 1, S, S) causal mask without padded keys."""
     s = attention_mask.shape[1]
