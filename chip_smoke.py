@@ -80,23 +80,42 @@ Run from the root of a checkout. It
      slot busy; ``--speculative auto`` on the twelve; and ``serve-llm``
      on the Llama-3.2-1B preset (greedy chat under the near-tie rule, a
      completion, a sampled n=8 fan-out);
-  7. checks a reduced-depth, full-width model on the card against the same
+  7. drives the paper's two training stages through the port's CLI in
+     this process (``drive_green_dpo``), on the same checkpoint, two more
+     seeded CTs and a jsonl of three cases, with a closed
+     ``MockTokenizer``: ``train`` from files (3 steps, B=1, the training
+     augmentations on the card), ``generate --do-sample --num-samples 8``
+     (256 tokens, the users' 768 cut for the script's time) on two cases,
+     ``green`` with a judge directory (the Llama-3.2-1B preset, seeded
+     bf16 weights: 16 prompts in batches of 4 padded to 2048, 600 greedy
+     tokens, speculative with the shared prefix), one batch held to the
+     plain judge under the near-tie rule, which must reject a shared
+     prefix one bucket too long, and one batch with ``--judge-weights
+     int8``; ``green`` with the stub judge and ``dpo-convert`` (2 pairs);
+     ``dpo`` (4 steps at the JAX defaults: step 0 an identity, loss ln 2
+     and rewards 0; one step profiled), again with ``--ce-chunk 256``
+     (losses within 1e-3), and on one repeated pair at the default lr
+     until the margin separates; a reduced-depth DPO step on the card against the CPU,
+     whose limits must reject three planted faults, and the packed
+     layout against the unpacked; K2 and K4a-c at the DPO call and K2 at
+     the judge's;
+  8. checks a reduced-depth, full-width model on the card against the same
      weights run in fp32 on the CPU through the plain versions: bf16
      weights with the int8 cache, int8 or int4 weights (quantized once on
      the CPU) with the int4 cache, and μ²Llama-3.2-1B with the bf16 cache;
      and (μ²Qwen3) with the chunked prefill, the shared-prefix prefill
      and a verify block written per row;
-  8. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
+  9. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
      parameters and bf16 compute, AdamW at the ``TrainConfig`` defaults,
      decoder layers rematerialised, 6 steps of ``run_training`` on one
      seeded (1, 8, 32, 256, 256) volume and a 1024-token row (900 valid),
      a checkpoint at the end; asserts finite, falling loss, moving
      parameters and the kernel launches of every step; profiles one step;
-  9. runs one train step of the reduced-depth model on the card and on the
+ 10. runs one train step of the reduced-depth model on the card and on the
      CPU from the same weights and compares the loss and each parameter's
      gradient; shows that the same limits reject planted faults of the
      flash backward's wiring;
- 10. prints one JSON line per kernel table, the card line, and last
+ 11. prints one JSON line per kernel table, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full fp32 (TF32 off for matmuls and cuDNN).
@@ -115,6 +134,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -373,6 +393,17 @@ QWEN8B_PREFILL_CALL = dict(causal=True, b=2, s=PROMPT, h=32, hkv=8, d=128,
                            lens=[PROMPT, RAGGED], fused=False)
 LLAMA_TRAIN_CALL = dict(LLAMA_PREFILL_CALL, lens=[TRAIN_VALID])
 DECODE_PRESET_HEADS = {"qwen3_8b": (32, 8, 128), "llama_3_2_1b": (32, 8, 64)}
+# The stage-2 phase's calls (``drive_green_dpo``) at μ²Llama-3.2-1B: the
+# DPO forward and backward, 2 rows of 512 + 1024 tokens, prompt (266:
+# <user>, 256 image tokens, 8 question words, <assistant>) + chosen and
+# prompt + rejected (256 sampled tokens and eos each); and the plain
+# judge's prefill, 4 rows of 2048, its green prompts of 679 tokens (678
+# where a sample holds a token the tokenizer skips). Timed here, with the
+# other kernel checks; the phase checks the calls it made, untimed.
+DPO_CALL = dict(causal=True, b=2, s=512 + 1024, h=32, hkv=8, d=64,
+                lens=[266 + 257, 266 + 257], fused=False)
+JUDGE_CALL = dict(causal=True, b=4, s=2048, h=32, hkv=8, d=64,
+                  lens=[679, 679, 678, 679], fused=False)
 
 
 def attention_inputs(torch, call: dict, seed: int):
@@ -2762,8 +2793,8 @@ def drive_training(torch, fa, da, steps: int):
         ckpt_bytes = sum(e.stat().st_size for e in os.scandir(
             f"{out}/checkpoints/{steps}"))
         device_batch = {k: v.to("cuda") for k, v in batch.items()}
-        profile = profile_train_step(torch, fa, state, train_step,
-                                     device_batch)
+        profile = profile_call(
+            torch, fa, lambda: train_step(state, device_batch))[1]
     del state, model, train_step, device_batch
 
     losses = [r["loss"] for r in records]
@@ -2797,12 +2828,12 @@ def drive_training(torch, fa, da, steps: int):
             "step_profile": profile}
 
 
-def profile_train_step(torch, fa, state, train_step, batch):
-    """torch.profiler over one train step: the card's busy share of its
-    wall clock and device time by kernel, with the shares of the flash
-    forward and backward (their kernels matched by their ``__global__``
-    names); raises if either share reads 0 while the step launched its
-    kernels."""
+def profile_call(torch, fa, fn):
+    """torch.profiler over one call of ``fn`` (a train step): the card's
+    busy share of its wall clock and device time by kernel, with the
+    shares of the flash forward and backward (their kernels matched by
+    their ``__global__`` names); raises if either share reads 0 while the
+    step launched its kernels. Returns (fn's result, the readings)."""
     from torch.profiler import ProfilerActivity, profile
 
     before = read_launches(fa)
@@ -2810,7 +2841,7 @@ def profile_train_step(torch, fa, state, train_step, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_step(state, batch)
+        out = fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels, by_name = device_time(torch, prof)
@@ -2832,13 +2863,14 @@ def profile_train_step(torch, fa, state, train_step, batch):
         raise AssertionError(f"the profiled step launched K1/K2 "
                              f"{fwd_launches} times but no kernel named "
                              f"flash_fwd_kernel took device time")
-    return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / wall_us,
-            "kernels": len(kernels), "flash_bwd_launches": bwd_launches,
-            "flash_bwd_share": bwd_share,
-            "flash_fwd_launches": fwd_launches,
-            "flash_fwd_share": fwd_share,
-            "top_device_ms": {n: t / 1e3 for n, t in top}}
+    return out, {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+                 "device_busy_share": busy_us / wall_us,
+                 "kernels": len(kernels), "launches_by_kernel": launched,
+                 "flash_bwd_launches": bwd_launches,
+                 "flash_bwd_share": bwd_share,
+                 "flash_fwd_launches": fwd_launches,
+                 "flash_fwd_share": fwd_share,
+                 "top_device_ms": {n: t / 1e3 for n, t in top}}
 
 
 def planted_faults(torch, fa):
@@ -2932,30 +2964,31 @@ def judged(name: str) -> bool:
     return left_out(name) is None
 
 
-def misfits(readings):
+def misfits(readings, judge=judged):
     """The judged parameters whose gradient the limits reject."""
     return {name: r for name, r in readings.items()
-            if judged(name)
+            if judge(name)
             and not (r["cos"] >= TRAIN_COS_MIN
                      and abs(r["norm_ratio"] - 1) <= TRAIN_NORM_TOL)}
 
 
-def worst_leaves(readings):
+def worst_leaves(readings, judge=judged):
     """The lowest cosine and the norm ratio furthest from 1 among the
     judged parameters."""
-    some = {n: r for n, r in readings.items() if judged(n)}
+    some = {n: r for n, r in readings.items() if judge(n)}
     c = min(some, key=lambda n: some[n]["cos"])
     q = max(some, key=lambda n: abs(some[n]["norm_ratio"] - 1))
     return {"min_cos": [c, some[c]["cos"]],
             "worst_norm_ratio": [q, some[q]["norm_ratio"]]}
 
 
-def left_out_medians(readings):
-    """Per group of ``left_out``: its size and the median cosine and norm
+def left_out_medians(readings, rule=left_out,
+                     groups=("key_bias", "aggregator")):
+    """Per group of ``rule``: its size and the median cosine and norm
     ratio of its parameters' gradients."""
     out = {}
-    for group in ("key_bias", "aggregator"):
-        some = [r for n, r in readings.items() if left_out(n) == group]
+    for group in groups:
+        some = [r for n, r in readings.items() if rule(n) == group]
         out[group] = {"leaves": len(some), "median_cos": statistics.median(
             r["cos"] for r in some), "median_norm_ratio": statistics.median(
             r["norm_ratio"] for r in some)}
@@ -3039,6 +3072,823 @@ def check_train_reference(torch, fa):
             "planted_faults": caught}
 
 
+# ---------------------------------------------------------------------------
+# Stage 1 from files and stage 2 (GREEN-guided DPO) through the CLI
+# ---------------------------------------------------------------------------
+
+# The μ²Llama-3.2-1B checkpoint of the report phase, three seeded CTs (the
+# report phase's ct.nii is seed 0) and a jsonl of three cases. ``train``
+# takes TRAIN_FILE_STEPS steps; ``generate`` samples GEN_SAMPLES reports
+# of GEN_TOKENS tokens for the first GEN_CASES cases (the users' 768 tokens
+# cut for the script's time); the judge scores them in batches of
+# JUDGE_BATCH prompts padded to JUDGE_LENGTH, JUDGE_TOKENS greedy tokens
+# each (TorchJudge's defaults, the JAX package's); ``dpo`` takes DPO_STEPS
+# steps at the JAX defaults, and again with ``--ce-chunk`` DPO_CE_CHUNK;
+# a repeated pair at SEPARATE_LR, the JAX default, must separate (the
+# first update, at lr 0, leaves the policy; the second moves it).
+GREEN_CT_SEEDS = (0, 1, 2)
+TRAIN_FILE_STEPS = 3
+GEN_CASES, GEN_SAMPLES, GEN_TOKENS = 2, 8, 256
+JUDGE_BATCH, JUDGE_LENGTH, JUDGE_TOKENS = 4, 2048, 600
+DPO_STEPS, DPO_CE_CHUNK = 4, 256
+SEPARATE_LR, SEPARATE_STEPS = 4e-6, 4
+# step 0 of DPO is an identity (policy = reference): the sigmoid loss is
+# ln 2 within LN2_TOL (one fp32 rounding) and every reward exactly 0
+LN2_TOL = 1e-6
+# the chunked completion log-probs sum in another order than the plain
+# ones, so the two runs' losses may part by bf16 rounding; absolute, as
+# one update at the default lr already takes the loss from ln 2 to ~1e-6
+# (a random-weight model's 256-token log-probs move by tens of nats)
+DPO_CE_TOL = 1e-3
+# the packed layout attends in plain PyTorch (fp32 scores of bf16 inputs)
+# where the unpacked takes K2: the log-probs of a 64-token completion,
+# sums of ~11 nats a token, agree to bf16's 2^-8 relative
+PACKED_TOL = 1e-2
+GREEN_QUESTIONS = ("Describe the findings of this chest CT .",
+                   "Write the radiology report for this CT .",
+                   "What does this CT show ?")
+REPORT_SENTENCES = (
+    "The lungs are clear without focal consolidation .",
+    "There is no pleural effusion or pneumothorax .",
+    "The heart size is normal and the mediastinum is unremarkable .",
+    "A small hypodense lesion is seen in segment {n} of the liver .",
+    "The kidneys enhance symmetrically without hydronephrosis .",
+    "There is mild degenerative change of the thoracic spine at level T{n} .",
+    "No enlarged lymph nodes are seen in the hilar region .",
+    "The adrenal glands and the pancreas are unremarkable .",
+)
+DPO_FAULTS = ("rows swapped", "completion mask shifted",
+              "reference not detached")
+
+
+def green_answer(case: int) -> str:
+    """A reference report of ~100 words: long enough that the judge
+    prompts of a case share more than 256 tokens, one bucket of the
+    judge's shared prefix."""
+    return " ".join(s.format(n=case + i + 2) for i in range(2)
+                    for s in REPORT_SENTENCES)
+
+
+def green_tokenizer(vocab: int):
+    """A MockTokenizer that knows every word the phase writes (the chat
+    and GREEN templates, the questions, the reports) and a word for every
+    other id of the vocabulary, and then refuses a word it does not know:
+    an id past the vocabulary would fault the embedding on the card."""
+    from u2tokenizer_torch.eval.green import make_green_prompt
+    from u2tokenizer_torch.eval.inference import green_chat_format
+    from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
+
+    class Closed(MockTokenizer):
+        closed = False
+
+        def _id(self, w):
+            if self.closed and w not in self.vocab:
+                raise KeyError(f"{w!r} is not in the phase's vocabulary")
+            return super()._id(w)
+
+    tok = Closed()
+    # the dataset tokenizes prompt + answer as one text, which joins the
+    # template's last word and the answer's first
+    texts = [green_chat_format(make_green_prompt("", ""), "</s>"),
+             tok.apply_chat_template([{"role": "user", "content": ""}]),
+             *(tok.apply_chat_template([{"role": "user", "content": q}])
+               + green_answer(i) for i, q in enumerate(GREEN_QUESTIONS))]
+    tok(" ".join(texts))
+    tok(" ".join(f"w{i}" for i in range(vocab - len(tok.vocab))))
+    tok.closed = True
+    assert len(tok.vocab) == vocab
+    return tok
+
+
+def write_green_data(tmp: str) -> str:
+    """CTs of GREEN_CT_SEEDS (seed 0 the report phase's ``ct.nii``) and
+    ``cases.jsonl`` under ``tmp/green_dpo``; returns that directory."""
+    from u2tokenizer_torch.data.nifti import write_nifti
+
+    data = os.path.join(tmp, "green_dpo")
+    os.makedirs(data, exist_ok=True)
+    images = ["../ct.nii"]
+    for seed in GREEN_CT_SEEDS[1:]:
+        images.append(f"ct{seed}.nii")
+        write_nifti(os.path.join(data, images[-1]), synthetic_ct(seed=seed))
+    with open(os.path.join(data, "cases.jsonl"), "w") as f:
+        for i, image in enumerate(images):
+            f.write(json.dumps({"image": image,
+                                "question": GREEN_QUESTIONS[i],
+                                "answer": green_answer(i)}) + "\n")
+    return data
+
+
+def write_judge_dir(path: str, seed: int = 0) -> None:
+    """The judge on the card: the ``llama_3_2_1b`` decoder preset with
+    seeded weights, as an HF directory (bf16 ``model.safetensors`` through
+    ``export_decoder``, and its ``config.json``)."""
+    import torch
+
+    from u2tokenizer_torch.config import LLMConfig
+    from u2tokenizer_torch.models.hf_export import export_decoder
+    from u2tokenizer_torch.models.layers import init_weights
+    from u2tokenizer_torch.models.llm.decoder import CausalLM
+    from u2tokenizer_torch.models.safetensors_io import write_safetensors
+    from u2tokenizer_torch.weights import flax_params
+
+    cfg = LLMConfig.llama_3_2_1b()
+    model = CausalLM(cfg, dtype=torch.bfloat16, device="cuda")
+    init_weights(model, seed)
+    sd = {}
+    export_decoder(flax_params(model)["params"], cfg, sd)
+    del model
+    os.makedirs(path, exist_ok=True)
+    write_safetensors(os.path.join(path, "model.safetensors"),
+                      {k: torch.from_numpy(v).to(torch.bfloat16)
+                       for k, v in sd.items()})
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "model_type": "llama", "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+            "rms_norm_eps": cfg.rms_norm_eps,
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rope_scaling": {
+                "rope_type": cfg.rope_scaling_type,
+                "factor": cfg.rope_scaling_factor,
+                "low_freq_factor": cfg.rope_low_freq_factor,
+                "high_freq_factor": cfg.rope_high_freq_factor,
+                "original_max_position_embeddings":
+                    cfg.rope_original_max_position}}, f, indent=2)
+
+
+def cli_run(argv, **kw):
+    """One subcommand of the port's CLI in this process, as ``python -m
+    u2tokenizer_torch.cli`` runs it."""
+    from u2tokenizer_torch import cli
+
+    args = cli.build_parser().parse_args(argv)
+    return args.fn(args, **kw)
+
+
+@contextlib.contextmanager
+def step_probe(torch, fa, da, module, name: str, unpack: bool = False,
+               profile_at=None):
+    """``module.<name>``, a factory of train steps (returning the step, or
+    (state, step) with ``unpack``), wrapped inside the block so that every
+    step it makes is timed (host clock around a synchronize), and its
+    metrics, kernel launches and batch kept; with ``profile_at`` that
+    step is run under ``profile_call``. Yields the list of records."""
+    make = getattr(module, name)
+    records = []
+
+    def probed(*a, **kw):
+        made = make(*a, **kw)
+        step = made[1] if unpack else made
+
+        def run(*args):
+            before = read_launches(fa, da)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            profile = None
+            if profile_at == len(records):
+                out, profile = profile_call(torch, fa, lambda: step(*args))
+            else:
+                out = step(*args)
+            torch.cuda.synchronize()
+            after = read_launches(fa, da)
+            records.append({
+                "s": time.perf_counter() - t0, "profile": profile,
+                "metrics": {k: float(v) for k, v in out[1].items()},
+                "launches": {k: n - before[k] for k, n in after.items()},
+                "lens": args[-1]["attention_mask"].sum(-1).tolist()})
+            return out
+
+        return (made[0], run) if unpack else run
+
+    setattr(module, name, probed)
+    try:
+        yield records
+    finally:
+        setattr(module, name, make)
+
+
+def step_readings(records, skip: int = 1) -> dict:
+    """s/step (median of the unprofiled steps after the first ``skip``),
+    the per-step losses and the launches of one step."""
+    timed = [r["s"] for r in records[skip:] if r["profile"] is None]
+    return {"steps": len(records), "step_s": [r["s"] for r in records],
+            "s_per_step": statistics.median(timed),
+            "loss": [r["metrics"]["loss"] for r in records],
+            "grad_norm": [r["metrics"]["grad_norm"] for r in records],
+            "launches_per_step": records[-1]["launches"]}
+
+
+def expect_launches(label: str, records, want: dict) -> None:
+    for i, r in enumerate(records):
+        got = {k: n for k, n in r["launches"].items() if n or k in want}
+        if got != want:
+            raise AssertionError(f"{label} step {i}: launches {got} != "
+                                 f"{want}")
+
+
+def green_train_phase(torch, fa, da, tok, data: str, ckpt: str,
+                      tmp: str) -> tuple:
+    """``cli train`` from files: TRAIN_FILE_STEPS steps of B=1 over the
+    jsonl with the training augmentations on the card, from the
+    checkpoint; each step launches K1 12 (the ViT), K2 32 (16 decoder
+    layers, forward again under remat) and K4a-c 28 each."""
+    from u2tokenizer_torch.train import sft
+
+    out = os.path.join(tmp, "sft")
+    reset_launches(fa, da)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with step_probe(torch, fa, da, sft, "make_trainer", unpack=True) as recs:
+        state = cli_run(["train", "--pretrained", ckpt, "--tokenizer", "mock",
+                         "--train-base-path", data, "--train-jsonl-path",
+                         "cases.jsonl", "--max-steps", str(TRAIN_FILE_STEPS),
+                         "--batch-size", "1", "--max-length", "1024",
+                         "--num-workers", "2", "--output-dir", out],
+                        tokenizer=tok)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    expect_launches("train", recs, {
+        "flash_fwd_noncausal": 12, "flash_fwd_causal": 32,
+        "flash_bwd_lse": 28, "flash_bwd_dq": 28, "flash_bwd_dkv": 28})
+    readings = step_readings(recs)
+    if not all(math.isfinite(x) for x in readings["loss"]
+               + readings["grad_norm"]):
+        raise AssertionError(f"train from files: {readings}")
+    ckpt_gb = sum(e.stat().st_size for e in os.scandir(
+        os.path.join(out, "checkpoints", str(TRAIN_FILE_STEPS)))) / 1e9
+    shutil.rmtree(out)
+    return {**readings, "valid_tokens": [r["lens"] for r in recs],
+            "cli_total_s": total_s, "checkpoint_gb": ckpt_gb,
+            "peak_mem_gb": peak / 1e9}, launches
+
+
+def green_generate_phase(torch, fa, da, tok, data: str, ckpt: str) -> tuple:
+    """``cli generate --do-sample --num-samples 8`` for GEN_CASES cases:
+    the speculative fan-out route (K1 12 and K2 16 a case); two rows of up
+    to 8 predictions, every one but the last passing the validity
+    filter."""
+    from u2tokenizer_torch import cli
+
+    preds = os.path.join(data, "preds.jsonl")
+    loads = []
+    load = cli._init_or_load
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        model = load(*a, **kw)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return model
+
+    reset_launches(fa, da)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with planted(cli, {"_init_or_load": timed_load}):
+        cli_run(["generate", "--checkpoint", ckpt, "--tokenizer", "mock",
+                 "--base-path", data, "--jsonl-path", "cases.jsonl",
+                 "--output", preds, "--do-sample", "--num-samples",
+                 str(GEN_SAMPLES), "--max-new-tokens", str(GEN_TOKENS),
+                 "--end", str(GEN_CASES)], tokenizer=tok)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    rows = [json.loads(line) for line in open(preds)]
+    want = {name: 0 for name in launches}
+    want.update({"flash_fwd_noncausal": 12 * GEN_CASES,
+                 "flash_fwd_causal": 16 * GEN_CASES})
+    if launches != want:
+        raise AssertionError(f"generate launches {launches} != {want}")
+    if len(rows) != GEN_CASES or not all(
+            1 <= len(r["predictions"]) <= GEN_SAMPLES for r in rows):
+        raise AssertionError(f"generate: {[len(r['predictions']) for r in rows]}"
+                             " predictions a case")
+    for r in rows:
+        if not all(cli.check_report_validity(t)
+                   for t in r["predictions"][:-1]):
+            raise AssertionError("generate kept an invalid sample")
+    return {"cases": GEN_CASES, "samples": GEN_SAMPLES,
+            "max_new_tokens": GEN_TOKENS, "cli_total_s": total_s,
+            "load_s": loads[0],
+            "s_per_case": (total_s - loads[0]) / GEN_CASES,
+            "kept": [len(r["predictions"]) for r in rows],
+            "distinct": [len(set(r["predictions"])) for r in rows],
+            "words": [[len(t.split()) for t in r["predictions"]]
+                      for r in rows],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, \
+        launches, rows
+
+
+def judge_near_tie(torch, plain_judge, ids, lens, plain, other) -> dict:
+    """The near-tie rule (TIE_ULPS) for each row of a greedy judge batch
+    ``other`` against the plain judge's tokens ``plain`` on the same
+    padded batch: at the first index where a row differs, the plain
+    path's top-two logits there must lie within the rule and the other
+    route's token be the plain path's second choice."""
+    first = {}
+    for r in range(plain.shape[0]):
+        d = (plain[r] != other[r]).nonzero()
+        if len(d):
+            first[r] = int(d[0, 0])
+    rows = {r: {"first_diff": None, "holds": True}
+            for r in range(plain.shape[0]) if r not in first}
+    need = {i for i in first.values() if i > 0}
+    seen = {}
+    if need:
+        gen = plain_judge._gen_for(ids.shape[0], 0)
+        model = gen.model
+        step, calls = model.decode_step, [0]
+
+        def capture(*args, **kw):
+            out = step(*args, **kw)
+            calls[0] += 1
+            if calls[0] in need:  # call k (from 1) gives token k
+                seen[calls[0]] = out[0][:, 0].float().clone()
+            return out
+
+        model.decode_step = capture
+        try:
+            kv, tok0, done0, _ = gen.prefill_stage(
+                model.embed_tokens(ids), lens)
+            gen.decode_steps(kv, tok0, done0, lens, range(max(need)))
+        finally:
+            del model.decode_step
+    for r, i in first.items():
+        if i == 0:
+            rows[r] = {"first_diff": 0, "holds": False}
+            continue
+        top = seen[i][r].topk(2)
+        gap = (top.values[0] - top.values[1]).item()
+        limit = TIE_ULPS * 2.0 ** -8 * abs(top.values[0].item())
+        second = int(other[r, i]) == int(top.indices[1])
+        rows[r] = {"first_diff": i, "top2": top.indices.tolist(),
+                   "gap": gap, "limit": limit,
+                   "other_token_is_second": second,
+                   "holds": gap <= limit and second
+                   and int(plain[r, i]) == int(top.indices[0])}
+    return {"rows": rows, "holds": all(v["holds"] for v in rows.values())}
+
+
+def green_judge_phase(torch, fa, da, tok, data: str, tmp: str,
+                      rows) -> tuple:
+    """``cli green`` with the decoder judge (the ``llama_3_2_1b`` preset,
+    seeded bf16 weights): the GEN_CASES x GEN_SAMPLES predictions in
+    batches of JUDGE_BATCH, speculative with the shared prefix; one
+    batch's tokens against ``speculative=False, share_prefix=False`` under
+    the near-tie rule, which must reject a shared prefix one bucket (256)
+    too long; then one batch with ``--judge-weights int8``. Random weights
+    give replies that parse to no score."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.eval import green
+    from u2tokenizer_torch.eval.inference import green_chat_format
+
+    judge_dir = os.path.join(tmp, "judge")
+    t0 = time.perf_counter()
+    write_judge_dir(judge_dir)
+    write_s = time.perf_counter() - t0
+    built, batches = [], []
+    build, tokens_of = cli._build_judge, green.TorchJudge.batch_tokens
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        built.append(build(*a, **kw))
+        torch.cuda.synchronize()
+        built[-1].build_s = time.perf_counter() - t0
+        return built[-1]
+
+    def timed_tokens(judge, ids, lens, split):
+        before = read_launches(fa, da)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tokens_of(judge, ids, lens, split)
+        torch.cuda.synchronize()
+        after = read_launches(fa, da)
+        batches.append({"s": time.perf_counter() - t0, "split": split,
+                        "lens": lens.tolist(),
+                        "launches": {k: n - before[k]
+                                     for k, n in after.items() if n - before[k]},
+                        "inputs": (ids, lens, split, out)})
+        return out
+
+    def run_green(preds, output, *extra):
+        del batches[:]
+        torch.cuda.reset_peak_memory_stats()
+        with planted(cli, {"_build_judge": timed_build}), \
+                planted(green.TorchJudge, {"batch_tokens": timed_tokens}):
+            t0 = time.perf_counter()
+            cli_run(["green", "--predictions", preds, "--judge", judge_dir,
+                     "--output", output, *extra], tokenizer=tok)
+            total = time.perf_counter() - t0
+        first = batches[0]["inputs"]
+        for b in batches:
+            del b["inputs"]
+        return first, {"batches": len(batches), "cli_total_s": total,
+                "build_s": built[-1].build_s,
+                "s_per_batch": statistics.median(b["s"] for b in batches),
+                "batch_s": [b["s"] for b in batches],
+                "shared_prefix": [b["split"] for b in batches],
+                "prompt_lens": [b["lens"] for b in batches],
+                "launches_per_batch": [b["launches"] for b in batches],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    preds = os.path.join(data, "preds.jsonl")
+    reset_launches(fa, da)
+    (ids, lens, split, spec_tokens), bf16 = run_green(
+        preds, os.path.join(data, "greened_judge.jsonl"))
+    launches = read_launches(fa, da)
+    n_prompts = sum(len(r["predictions"]) for r in rows)
+    if bf16["batches"] != sum(math.ceil(len(r["predictions"]) / JUDGE_BATCH)
+                              for r in rows):
+        raise AssertionError(f"judge batches {bf16['batches']} for "
+                             f"{n_prompts} prompts")
+    greened = [json.loads(line) for line in open(
+        os.path.join(data, "greened_judge.jsonl"))]
+    scores = [s for r in greened for s in r["green_scores"]]
+    judge = built[-1]
+
+    # the first batch (the first case's first four samples) held against
+    # the plain judge on the same prompts
+    chunk = [green_chat_format(green.make_green_prompt(
+        rows[0]["answer"], p), "</s>") for p in rows[0]["predictions"][:4]]
+    plain_judge = green.TorchJudge(judge.model, tok, speculative=False,
+                                   share_prefix=False)
+    p_ids, p_lens, _ = plain_judge.batch_inputs(chunk)
+    if not (torch.equal(p_ids, ids) and torch.equal(p_lens, lens)):
+        raise AssertionError("the two judges padded the batch differently")
+    t0 = time.perf_counter()
+    plain_tokens = plain_judge.batch_tokens(ids, lens, 0)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    sound = judge_near_tie(torch, plain_judge, ids, lens, plain_tokens,
+                           spec_tokens)
+    if not sound["holds"]:
+        raise AssertionError(f"speculative shared-prefix judge against the "
+                             f"plain judge: {sound}")
+    if split + 256 >= int(lens.min()):
+        raise AssertionError(f"no room for the planted prefix fault: split "
+                             f"{split}, lens {lens.tolist()}")
+    faulty = judge.batch_tokens(ids, lens, split + 256)
+    fault = judge_near_tie(torch, plain_judge, ids, lens, plain_tokens,
+                           faulty)
+    if fault["holds"]:
+        raise AssertionError("the near-tie rule does not reject a shared "
+                             f"prefix one bucket too long: {fault}")
+    judge_lens = lens.tolist()
+    del judge, plain_judge, built[:], spec_tokens, plain_tokens, faulty
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    one = os.path.join(data, "preds_one_batch.jsonl")
+    with open(one, "w") as f:
+        f.write(json.dumps(dict(rows[0], predictions=rows[0]["predictions"]
+                                [:JUDGE_BATCH])) + "\n")
+    _, int8 = run_green(one, os.path.join(data, "greened_int8.jsonl"),
+                        "--judge-weights", "int8", "--no-summary")
+    built.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"judge": "llama_3_2_1b preset, seeded bf16 weights",
+            "write_judge_s": write_s, "prompts": n_prompts,
+            "batch": JUDGE_BATCH, "max_length": JUDGE_LENGTH,
+            "max_new_tokens": JUDGE_TOKENS, "bf16": bf16, "int8": int8,
+            "scores_parsed": sum(s is not None and s != 0 for s in scores),
+            "plain_batch_s": plain_s, "near_tie": sound,
+            "planted_prefix_fault": {"split": split + 256, **fault}}, \
+        launches, judge_lens
+
+
+def green_stub_phase(data: str, rows) -> dict:
+    """``cli green`` with the stub judge (every score 1.0, the samples'
+    order kept), then ``cli dpo-convert``: one pair a case, chosen the
+    first sample and rejected the last."""
+    greened = os.path.join(data, "greened_stub.jsonl")
+    pairs = os.path.join(data, "pairs.jsonl")
+    cli_run(["green", "--predictions", os.path.join(data, "preds.jsonl"),
+             "--output", greened])
+    cli_run(["dpo-convert", "--greened", greened, "--output", pairs])
+    out = [json.loads(line) for line in open(pairs)]
+    if len(out) != GEN_CASES:
+        raise AssertionError(f"dpo-convert: {len(out)} pairs")
+    for pair, row in zip(out, rows):
+        if (pair["chosen"] == pair["rejected"]
+                or pair["chosen"] != row["predictions"][0]
+                or pair["rejected"] != row["predictions"][-1]):
+            raise AssertionError("dpo-convert: the pair is not (first, last) "
+                                 "of distinct samples")
+    with open(os.path.join(data, "pairs_one.jsonl"), "w") as f:
+        f.write(json.dumps(out[0]) + "\n")
+    return {"pairs": len(out),
+            "chosen_words": [len(p["chosen"].split()) for p in out],
+            "rejected_words": [len(p["rejected"].split()) for p in out]}
+
+
+def green_dpo_run(torch, fa, da, tok, data: str, ckpt: str, tmp: str,
+                  pairs: str, steps: int, *extra, profile_at=None):
+    """``cli dpo`` over ``pairs`` for ``steps`` steps; (step readings,
+    launches, peak memory GB)."""
+    from u2tokenizer_torch.train import dpo
+
+    reset_launches(fa, da)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with step_probe(torch, fa, da, dpo, "make_dpo_train_step",
+                    profile_at=profile_at) as recs:
+        state, ref = cli_run(["dpo", "--pretrained", ckpt, "--tokenizer",
+                              "mock", "--train-base-path", data,
+                              "--train-jsonl-path", pairs, "--max-steps",
+                              str(steps), "--output-dir",
+                              os.path.join(tmp, "dpo"), *extra],
+                             tokenizer=tok)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches(fa, da)
+    del state, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect_launches("dpo", recs, {
+        "flash_fwd_noncausal": 24, "flash_fwd_causal": 48,
+        "flash_bwd_lse": 28, "flash_bwd_dq": 28, "flash_bwd_dkv": 28})
+    return recs, {**step_readings(recs), "cli_total_s": total,
+                  "peak_mem_gb": peak / 1e9,
+                  "rewards_margin": [r["metrics"]["rewards_margin"]
+                                     for r in recs],
+                  "lens": recs[0]["lens"]}, launches
+
+
+def swap_rows(batch: dict) -> dict:
+    """A preference batch with its chosen and rejected rows swapped."""
+    b = batch["input_ids"].shape[0] // 2
+    out = dict(batch)
+    for key in ("input_ids", "attention_mask", "completion_mask"):
+        out[key] = batch[key].roll(b, dims=0)
+    return out
+
+
+def shift_mask(batch: dict) -> dict:
+    """A preference batch with its completion mask one token late."""
+    return dict(batch, completion_mask=batch["completion_mask"].roll(1, 1))
+
+
+def undetached_loss(dpo):
+    """make_dpo_loss_fn with the reference forward run on the policy with
+    grad: at step 0 the policy and reference terms cancel in the
+    gradient."""
+    def make(cfg):
+        def loss_fn(model, ref_model, batch):
+            logps = dpo._completion_logps(model, batch, False)
+            ref_logps = dpo._completion_logps(model, batch, False)
+            b = logps.shape[0] // 2
+            loss, _ = dpo.dpo_loss(logps[:b], logps[b:], ref_logps[:b],
+                                   ref_logps[b:], cfg)
+            return loss, {"loss": loss.detach()}
+        return loss_fn
+    return make
+
+
+def dpo_left_out(name: str):
+    """``left_out``, and the leaves that the released configuration's
+    DiffTS and DMTP add (the training check's μ²Qwen3 has neither):
+    DMTP's gate, whose gradient is zero in exact arithmetic (the gates of
+    the scales differ only by means of the same tokens, which average
+    pooling keeps, and by the bias they share, and the softmax over them
+    is invariant to what they share), and DiffTS's score net, whose
+    gradient reaches the loss only through softmaxes over 1024 bf16
+    scores, as the aggregator's does."""
+    if name.endswith(("dynamic_pool.gate_kernel", "dynamic_pool.gate_bias")):
+        return "dmtp_gate"
+    if name.startswith("u2tokenizer.svt_module.token_selection.score_net"):
+        return "diffts_score"
+    return left_out(name)
+
+
+def dpo_judged(name: str) -> bool:
+    return dpo_left_out(name) is None
+
+
+DPO_LEFT_OUT = ("key_bias", "aggregator", "dmtp_gate", "diffts_score")
+
+
+def dpo_reference_readings(torch, fa, tok):
+    """One DPO step (step 0, the reference the policy's frozen copy) of
+    the reduced-depth, full-width μ²Llama-3.2-1B (4 chunks) on the CPU
+    (fp32, plain versions) and, from the same weights, on the card (bf16
+    compute, kernels): sound and under each of DPO_FAULTS. One pair of a
+    320-token prompt and 12- and 8-token completions (rows of 384).
+    Returns the CPU's loss and log-probs, the card's, the gradient
+    readings of the sound step and of each fault, and the card's packed
+    log-probs against its unpacked ones."""
+    from u2tokenizer_torch.config import DPOConfig, TrainConfig
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.train import dpo
+    from u2tokenizer_torch.train.sft import TrainState, make_optimizer
+
+    cfg = reduced_config(num_chunks=4, base=released_config())
+    g = torch.Generator().manual_seed(3)
+    d, h, w = cfg.vision.input_spatial
+    q = tok(GREEN_QUESTIONS[0])["input_ids"]
+    sample = {
+        "prompt": tok.apply_chat_template([{"role": "user", "content":
+                                            "<im_patch>" * cfg.proj_out_num
+                                            + GREEN_QUESTIONS[0]}]),
+        "chosen": " ".join(f"w{i}" for i in torch.randint(
+            0, 100000, (12,), generator=g).tolist()),
+        "rejected": " ".join(f"w{i}" for i in torch.randint(
+            0, 100000, (8,), generator=g).tolist()),
+        "image": torch.randn(cfg.num_chunks, d, h, w, generator=g),
+        "prompt_question_ids": q + [0] * (64 - len(q))}
+    batch = dpo.collate_preference_batch([sample], tok, 320, 64)
+    packed = dpo.collate_packed_preference_batch([sample], tok, 320, 64)
+
+    def step(model, ref, batch, cfg_=DPOConfig()):
+        state = TrainState(0, model, make_optimizer(TrainConfig(),
+                                                    model.parameters(), 1))
+        _, metrics = dpo.make_dpo_train_step(model, cfg_)(state, ref, batch)
+        return float(metrics["loss"])
+
+    cpu = U2CausalLM(cfg, dtype=torch.float32, device="cpu", seed=1,
+                     remat=True)
+    gpu = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=2,
+                     remat=True)
+    gpu.load_state_dict(cpu.state_dict())
+    weights = {k: v.clone() for k, v in gpu.state_dict().items()}
+    with torch.no_grad():
+        logps_cpu = dpo._completion_logps(cpu, batch, False)
+    loss_cpu = step(cpu, dpo.frozen_reference(cpu), batch)
+    ref = {n: p.grad.double().flatten() for n, p in cpu.named_parameters()}
+    del cpu
+    card = dpo.to_device(batch, "cuda")
+
+    def card_step(batch, replacements=None, attention=None):
+        gpu.load_state_dict(weights)
+        with planted(dpo, replacements or {}), planted(fa, attention or {}):
+            loss = step(gpu, dpo.frozen_reference(gpu), batch)
+        return loss, gradient_readings(torch, gpu, ref)
+
+    loss_gpu, sound = card_step(card)
+    plain = card_step(card, attention=plain_attention(fa))[1]
+    with torch.no_grad():
+        logps_gpu = dpo._completion_logps(gpu, card, False)
+        logps_packed = dpo._packed_completion_logps(
+            gpu, dpo.to_device(packed, "cuda"), False)
+    packed_loss = step(gpu, dpo.frozen_reference(gpu),
+                       dpo.to_device(packed, "cuda"), DPOConfig(packed=True))
+    faults = {
+        "rows swapped": card_step(swap_rows(card))[1],
+        "completion mask shifted": card_step(shift_mask(card))[1],
+        "reference not detached": card_step(card, {
+            "make_dpo_loss_fn": undetached_loss(dpo)})[1]}
+    del gpu, weights
+    return {"loss_cpu": loss_cpu, "loss_gpu": loss_gpu,
+            "logps_cpu": logps_cpu.tolist(),
+            "logps_gpu": logps_gpu.float().cpu().tolist(),
+            "logps_packed": logps_packed.float().cpu().tolist(),
+            "packed_loss": packed_loss,
+            "seq": batch["input_ids"].shape[1],
+            "valid": batch["attention_mask"].sum(-1).tolist()}, sound, \
+        plain, faults
+
+
+def check_dpo_reference(torch, fa, tok) -> dict:
+    """``dpo_reference_readings`` held to TRAIN_LOSS_TOL (the loss and the
+    log-probs), TRAIN_COS_MIN and TRAIN_NORM_TOL (each gradient that
+    ``dpo_judged`` holds; the left-out groups' medians are reported, with
+    the kernels and with the plain attention on the card);
+    the packed log-probs to PACKED_TOL of the unpacked on the card; fails
+    unless the limits reject every fault of DPO_FAULTS."""
+    line, sound, plain, faults = dpo_reference_readings(torch, fa, tok)
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    line["loss_rel_err"] = abs(line["loss_gpu"] - line["loss_cpu"]) \
+        / abs(line["loss_cpu"])
+    line["logps_rel_err"] = rel(line["logps_gpu"], line["logps_cpu"])
+    line["packed_rel_err"] = rel(line["logps_packed"], line["logps_gpu"])
+    if not (line["loss_rel_err"] <= TRAIN_LOSS_TOL
+            and line["logps_rel_err"] <= TRAIN_LOSS_TOL):
+        raise AssertionError(f"reduced DPO step: card vs CPU {line}")
+    if not line["packed_rel_err"] <= PACKED_TOL:
+        raise AssertionError(f"packed against unpacked log-probs on the "
+                             f"card: {line['packed_rel_err']:.4g}")
+    if abs(line["packed_loss"] - math.log(2)) > LN2_TOL:
+        raise AssertionError(f"packed step 0 loss {line['packed_loss']}")
+    bad = misfits(sound, dpo_judged)
+    if bad:
+        raise AssertionError(f"reduced DPO step: gradients off the CPU's: "
+                             f"{bad}")
+    caught = {}
+    for label, readings in faults.items():
+        bad = misfits(readings, dpo_judged)
+        if not bad:
+            raise AssertionError(f"the DPO reference limits do not reject "
+                                 f"the planted fault {label}: "
+                                 f"{worst_leaves(readings, dpo_judged)}")
+        caught[label] = {**worst_leaves(readings, dpo_judged),
+                         "leaves_rejected": len(bad)}
+    medians = lambda r: left_out_medians(r, dpo_left_out, DPO_LEFT_OUT)
+    return {**line, "loss_tol": TRAIN_LOSS_TOL, "packed_tol": PACKED_TOL,
+            "grad_cos_min": TRAIN_COS_MIN, "grad_norm_tol": TRAIN_NORM_TOL,
+            "leaves_held": sum(map(dpo_judged, sound)),
+            "leaves": len(sound), "held": worst_leaves(sound, dpo_judged),
+            "left_out": {"kernels": medians(sound),
+                         "plain_attention": medians(plain)},
+            "plain_attention": worst_leaves(plain, dpo_judged),
+            "planted_faults": caught}
+
+
+def drive_green_dpo(torch, F, fa, da, tmp: str, card: str) -> tuple:
+    """Stage 1 from files and stage 2 of the paper through the port's CLI
+    in this process, each subcommand with a closed ``MockTokenizer``
+    (``green_tokenizer``), at the released μ²Llama-3.2-1B configuration
+    from the report phase's checkpoint ``tmp/mu2llama``: ``train``,
+    ``generate``, ``green`` with the decoder judge and with the stub
+    judge, ``dpo-convert``, ``dpo`` (plain, ``--ce-chunk``, a repeated
+    pair); the reduced-depth DPO step against the CPU; K2 and K4a-c at the
+    DPO call and K2 at the judge's as this run made them (untimed). One
+    printed line each; returns (the
+    launches of the phase by path, the kernel checks at its calls)."""
+    cfg = released_config()
+    ckpt = os.path.join(tmp, "mu2llama")
+    tok = green_tokenizer(cfg.llm.vocab_size)
+    t0 = time.perf_counter()
+    data = write_green_data(tmp)
+    counts = {}
+    line = {"write_data_s": time.perf_counter() - t0}
+    line["train"], counts["green_dpo_train"] = green_train_phase(
+        torch, fa, da, tok, data, ckpt, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["generate"], counts["green_dpo_generate"], rows = \
+        green_generate_phase(torch, fa, da, tok, data, ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["judge"], counts["green_dpo_judge"], judge_lens = green_judge_phase(
+        torch, fa, da, tok, data, tmp, rows)
+    line["stub_green_and_convert"] = green_stub_phase(data, rows)
+    line["card"] = card
+    print(json.dumps({"green_dpo_files": line}), flush=True)
+
+    recs, plain, counts["green_dpo_dpo"] = green_dpo_run(
+        torch, fa, da, tok, data, ckpt, tmp, "pairs.jsonl", DPO_STEPS,
+        profile_at=DPO_STEPS - 1)
+    first = recs[0]["metrics"]
+    rewards = {k: first[k] for k in ("rewards_chosen", "rewards_rejected",
+                                     "rewards_margin")}
+    if abs(first["loss"] - math.log(2)) > LN2_TOL or any(rewards.values()):
+        raise AssertionError(f"DPO step 0 is not an identity: {first}")
+    plain["profile"] = recs[-1]["profile"]
+    _, chunked, counts["green_dpo_dpo_ce_chunk"] = green_dpo_run(
+        torch, fa, da, tok, data, ckpt, tmp, "pairs.jsonl", DPO_STEPS,
+        "--ce-chunk", str(DPO_CE_CHUNK))
+    ce_err = max(abs(a - b) for a, b in zip(chunked["loss"],
+                                            plain["loss"]))
+    if not ce_err <= DPO_CE_TOL:
+        raise AssertionError(f"--ce-chunk {DPO_CE_CHUNK} losses "
+                             f"{chunked['loss']} against {plain['loss']}")
+    _, separate, counts["green_dpo_dpo_separate"] = green_dpo_run(
+        torch, fa, da, tok, data, ckpt, tmp, "pairs_one.jsonl",
+        SEPARATE_STEPS, "--learning-rate", str(SEPARATE_LR))
+    if not (separate["loss"][-1] < separate["loss"][0]
+            and separate["rewards_margin"][-1] > 0):
+        raise AssertionError(f"a repeated pair does not separate: "
+                             f"{separate}")
+    print(json.dumps({"green_dpo_train": {
+        "dpo": plain, "step0": {"loss": first["loss"], **rewards},
+        "ce_chunk": {"chunk": DPO_CE_CHUNK, **chunked,
+                     "loss_abs_err_vs_plain": ce_err, "tol": DPO_CE_TOL},
+        "separate": {"learning_rate": SEPARATE_LR, **separate},
+        "card": card}}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(json.dumps({"green_dpo_reference_check": check_dpo_reference(
+        torch, fa, tok), "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the calls this run made, untimed (DPO_CALL and JUDGE_CALL are timed
+    # with the other kernel checks)
+    checks = [check_flash(torch, F, fa, dict(DPO_CALL, lens=plain["lens"]),
+                          30, timed=False),
+              *check_flash_bwd(torch, F, fa, dict(DPO_CALL,
+                                                  lens=plain["lens"]),
+                               31, timed=False),
+              check_flash(torch, F, fa, dict(JUDGE_CALL, lens=judge_lens),
+                          32, timed=False)]
+    for k in checks:
+        print(json.dumps({"kernel_check": k}), flush=True)
+    return counts, checks
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--max-new", type=int, default=B4_MAX_NEW)
@@ -3046,6 +3896,7 @@ def main() -> int:
                         help="build and check the kernels, then stop "
                         "(no result line)")
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -3099,6 +3950,10 @@ def main() -> int:
                 for causal in (False, True)]
     edge_fwd.append(check_flash(torch, F, fa, QWEN8B_PREFILL_CALL, 17,
                                 timed=False))
+    # the stage-2 phase's calls: K2 at the DPO call and the judge's
+    green_fwd = {"prefill_dpo": check_flash(torch, F, fa, DPO_CALL, 18),
+                 "prefill_judge": check_flash(torch, F, fa, JUDGE_CALL, 19)}
+    fwd_calls.update(green_fwd)
     for k in list(fwd_calls.values()) + edge_fwd:
         print(json.dumps({"kernel_check": k}), flush=True)
     print(json.dumps({"flash_fwd_calls": flash_fwd_summary(fwd_calls),
@@ -3117,17 +3972,19 @@ def main() -> int:
     vit_bwd = check_flash_bwd(torch, F, fa, VIT_CALL, 4)
     dec_bwd = check_flash_bwd(torch, F, fa, PREFILL_CALL, 5)
     b1_bwd = check_flash_bwd(torch, F, fa, TRAIN_DECODER_CALL, 6)
+    dpo_bwd = check_flash_bwd(torch, F, fa, DPO_CALL, 20)
     edge_bwd = [e for i, call in enumerate(EDGE_CALLS + [LLAMA_TRAIN_CALL])
                 for e in check_flash_bwd(torch, F, fa, call, 7 + i,
                                          timed=False)]
     for k in [int8, int4, int4_b4] + edge_decode + vit_bwd + dec_bwd \
-            + b1_bwd + edge_bwd:
+            + b1_bwd + dpo_bwd + edge_bwd:
         print(json.dumps({"kernel_check": k}), flush=True)
     print(json.dumps({"decode_calls": decode_summary(
         {f"int8_b{BATCH}": int8, f"int4_b{QUANT_BATCH}": int4,
          f"int4_b{BATCH}": int4_b4}), "card": card}), flush=True)
     print(json.dumps({"flash_bwd_calls": flash_bwd_summary(
-        {"vit": vit_bwd, "decoder": dec_bwd, "decoder_b1": b1_bwd}),
+        {"vit": vit_bwd, "decoder": dec_bwd, "decoder_b1": b1_bwd,
+         "decoder_dpo": dpo_bwd}),
         "card": card}), flush=True)
     # one entry per kernel: K1 at the ViT's call with the quantized path's
     # beside it, K2 at the B=4 prefill with the quantized path's, the
@@ -3141,7 +3998,8 @@ def main() -> int:
               "bound_by", "library_ms")
     nested = {"vit": ("vit_quantized",),
               "prefill": ("prefill_quantized", "decoder_b1",
-                          "prefill_mu2llama")}
+                          "prefill_mu2llama", "prefill_dpo",
+                          "prefill_judge")}
     for top, labels in nested.items():
         entry = fwd_calls[top]
         for label in labels:
@@ -3157,14 +4015,16 @@ def main() -> int:
     int4[f"batch{BATCH}_call"] = {key: int4_b4[key]
                                   for key in beside + ("n_split",)}
     kernels.append(int4)
-    for i, (vit, dec, b1) in enumerate(zip(vit_bwd, dec_bwd, b1_bwd)):
+    for i, (vit, dec, b1, dpo) in enumerate(zip(vit_bwd, dec_bwd, b1_bwd,
+                                                dpo_bwd)):
         vit["max_abs_err"] = max(e["max_abs_err"] for e in
-                                 (vit, dec, b1, *edge_bwd[i::3]))
+                                 (vit, dec, b1, dpo, *edge_bwd[i::3]))
         vit["decoder_call"] = {key: dec[key] for key in beside}
         vit["decoder_call_b1"] = {key: b1[key] for key in beside}
+        vit["decoder_call_dpo"] = {key: dpo[key] for key in beside}
         kernels.append(vit)
-    del int4_b4, vit_bwd, dec_bwd, b1_bwd, edge_bwd, fwd_calls, edge_fwd, \
-        edge_decode
+    del int4_b4, vit_bwd, dec_bwd, b1_bwd, dpo_bwd, edge_bwd, fwd_calls, \
+        edge_fwd, edge_decode
     gc.collect()
     torch.cuda.empty_cache()
     if args.kernels_only:
@@ -3196,6 +4056,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         counts.update(drive_serving(torch, fa, da, volume, tmp, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        green_counts, green_calls = drive_green_dpo(torch, F, fa, da, tmp,
+                                                    card)
+        green_s = time.perf_counter() - t0
+        counts.update(green_counts)
     del volume
     gc.collect()
     torch.cuda.empty_cache()
@@ -3233,12 +4100,18 @@ def main() -> int:
     print(json.dumps({"train_reference_check": check_train_reference(
         torch, fa)}), flush=True)
 
+    # the stage-2 phase's own calls of K2 and K4a-c, checked untimed
+    for new in green_calls:
+        entry = next(k for k in kernels if k["name"] == new["name"])
+        entry["max_abs_err"] = max(entry["max_abs_err"], new["max_abs_err"])
     for k in kernels:
         by_path = {path: n[k["name"]] for path, n in counts.items()}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         for key in ("shape", "check", "ref_scale", "plain_rows"):
             k.pop(key, None)
+    print(json.dumps({"script_s": time.perf_counter() - t_start,
+                      "green_dpo_phase_s": green_s}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -50,7 +50,8 @@ def test_no_jax_imports(path):
 # beside torch and numpy the port needs the standard library only; the
 # exceptions, imported inside U2InferenceModel when no tokenizer is passed
 # and inside the CLI's tokenizer loader when a tokenizer directory is named
-OTHERS = ("scipy", "safetensors", "transformers")
+OTHERS = ("scipy", "safetensors", "transformers", "sklearn",
+          "sentence_transformers")
 LAZY = {("u2tokenizer_torch/eval/inference.py", "transformers"),
         ("u2tokenizer_torch/cli.py", "transformers")}
 
@@ -73,7 +74,8 @@ def test_port_imports_without_jax():
             "u2tokenizer_torch.data.transforms, "
             "u2tokenizer_torch.utils.mock_tokenizer, "
             "u2tokenizer_torch.models.slot_serving, u2tokenizer_torch.serve, "
-            "u2tokenizer_torch.cli; "
+            "u2tokenizer_torch.data.datasets, u2tokenizer_torch.train.dpo, "
+            "u2tokenizer_torch.eval.green, u2tokenizer_torch.cli; "
             "sys.exit(any(m.split('.')[0] in %r for m in sys.modules))"
             % (FORBIDDEN + OTHERS,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -84,7 +86,7 @@ def test_port_imports_without_jax():
     ("U2ModelConfig", "default"), ("U2ModelConfig", "tiny"),
     ("LLMConfig", "tiny"), ("LLMConfig", "qwen3_8b"),
     ("LLMConfig", "llama_3_2_1b"), ("GenerationConfig", "default"),
-    ("TrainConfig", "default")])
+    ("TrainConfig", "default"), ("DPOConfig", "default")])
 def test_config_copies_match(name, variant):
     jcls, tcls = getattr(j_config, name), getattr(t_config, name)
     jcfg = jcls() if variant == "default" else getattr(jcls, variant)()

@@ -14,6 +14,7 @@ PyTorch version instead.
 __version__ = "0.1.0"
 
 from .config import (  # noqa: F401
+    DPOConfig,
     GenerationConfig,
     LLMConfig,
     MeshConfig,

@@ -251,6 +251,31 @@ class U2ModelConfig:
 
 
 @dataclass(frozen=True)
+class DPOConfig:
+    """Stage-2 DPO hyperparameters (script/amos_mm_stage2.sh,
+    src/train/train_stage2.py:23-86)."""
+
+    beta: float = 0.1
+    learning_rate: float = 4e-6
+    num_epochs: float = 6.0
+    max_prompt_length: int = 512
+    max_completion_length: int = 1024
+    label_smoothing: float = 0.0
+    loss_type: str = "sigmoid"  # sigmoid | ipo
+    # WPO weighting (dpo_u2trainer.py:320-329, arXiv 2406.11827 eq. 2)
+    use_weighting: bool = False
+    # RPO: add alpha * chosen-completion NLL (dpo_u2trainer.py:331-340)
+    rpo_alpha: Optional[float] = None
+    # chosen and rejected packed into one row with segment-masked
+    # attention and restarting positions (TRL's padding-free path), so the
+    # prompt and the vision encode run once per sample instead of twice
+    packed: bool = False
+    # > 0: compute completion log-probs in sequence chunks of this size,
+    # never materializing the (2B, S, vocab) logits; unpacked path only
+    ce_chunk: int = 0
+
+
+@dataclass(frozen=True)
 class GenerationConfig:
     """Decode parameters: greedy, or with ``do_sample`` top-p sampling at
     ``temperature`` (``ops.sampling``)."""

@@ -28,13 +28,20 @@ and scipy. The two agree to about 1e-5 on the [0, 1] output
   ``linspace`` coordinates, which on a grid is linear interpolation along
   each axis in turn; an output size of 1 takes the centre.
 
-Training augmentations and the 'linear' (non-u2) transform are not ported
-yet.
+The training mode adds the reference's augmentations after the crop
+(``apply_augmentations``: rot90 over the (X, Y) axes, three flips,
+intensity scale and shift), each drawn from a ``torch.Generator`` that the
+transform owns, seeded by ``seed``; the JAX package draws the same gates
+and values in the same order from numpy's ``default_rng``, so the two
+packages augment a volume alike only when given the same draws
+(``tests/test_torch_transforms.py`` scripts them). The 'linear' (non-u2)
+transform is ``LinearVolumeTransform`` over ``normalize_ct``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,30 +157,95 @@ def resize_trilinear(x: torch.Tensor, out_size: Tuple[int, ...],
     return x
 
 
+@dataclass
+class AugmentConfig:
+    """Training-time augmentations (u2Transform.py:38-43)."""
+
+    rotate90_prob: float = 0.5
+    flip_prob: float = 0.10
+    scale_intensity: float = 0.1
+    scale_prob: float = 0.5
+    shift_intensity: float = 0.1
+    shift_prob: float = 0.5
+
+
+class TorchDraws:
+    """The draws ``apply_augmentations`` takes, with numpy Generator's
+    names, from a CPU ``torch.Generator`` seeded by ``seed`` (a
+    nondeterministic seed when None)."""
+
+    def __init__(self, seed: Optional[int] = None):
+        self.generator = torch.Generator()
+        if seed is None:
+            self.generator.seed()
+        else:
+            self.generator.manual_seed(seed)
+
+    def random(self) -> float:
+        return torch.rand((), dtype=torch.float64,
+                          generator=self.generator).item()
+
+    def integers(self, low: int, high: int) -> int:
+        return int(torch.randint(low, high, (), generator=self.generator))
+
+    def uniform(self, low: float, high: float) -> float:
+        return low + (high - low) * self.random()
+
+
+def apply_augmentations(x: torch.Tensor, draws,
+                        cfg: AugmentConfig) -> torch.Tensor:
+    """x: (C, Z, X, Y) on any device; ``draws`` gives ``random()``,
+    ``integers(low, high)`` and ``uniform(low, high)`` (``TorchDraws``).
+    Drawn in the JAX package's order: the rot90 gate and k (rotating over
+    (X, Y), the reference's spatial axes (1, 2)), the three flip gates, the
+    scale gate and factor, the shift gate and offset."""
+    if draws.random() < cfg.rotate90_prob:
+        k = draws.integers(1, 4)
+        x = torch.rot90(x, k, dims=(2, 3))
+    for ax in (1, 2, 3):
+        if draws.random() < cfg.flip_prob:
+            x = torch.flip(x, dims=(ax,))
+    if draws.random() < cfg.scale_prob:
+        x = x * (1.0 + draws.uniform(-cfg.scale_intensity,
+                                     cfg.scale_intensity))
+    if draws.random() < cfg.shift_prob:
+        x = x + draws.uniform(-cfg.shift_intensity, cfg.shift_intensity)
+    return x.contiguous()
+
+
+def _upload_nifti(path: str, device) -> torch.Tensor:
+    """A NIfTI file's (X, Y, Z) voxels as float32 on ``device``, scaled
+    by the header's slope and intercept where they apply."""
+    raw, slope, inter = read_nifti_raw(path)
+    vol = torch.from_numpy(raw.astype(raw.dtype.newbyteorder("=")))
+    vol = vol.to(device).float()
+    if scaling_applies(slope, inter):
+        vol = vol * (slope if slope != 0.0 else 1.0) + inter
+    return vol
+
+
 class U2VolumeTransform:
     """The u2 ingest on ``device`` (the GPU unless the caller names
     another): NIfTI path, or (X, Y, Z) voxel array, -> (num_chunks,
     chunk_depth, target_size, target_size) float32 tensor on that device.
     The defaults are the reference's: target 256 and depth 256, 8 chunks of
-    32. Only the validation mode exists."""
+    32. ``data_type="training"`` augments each volume after the crop, with
+    draws from ``seed``."""
 
     def __init__(self, data_type: str = "validation", target_size: int = 256,
-                 chunk_depth: int = 32, num_chunks: int = 8, device="cuda"):
-        if data_type in ("training", "train"):
-            raise NotImplementedError(
-                "training augmentations are not ported yet")
+                 chunk_depth: int = 32, num_chunks: int = 8,
+                 augment: Optional[AugmentConfig] = None,
+                 seed: Optional[int] = None, device="cuda"):
+        self.training = data_type in ("training", "train")
         self.device = resolve_device(device)
         self.target_size = target_size
         self.chunk_depth = chunk_depth
         self.num_chunks = num_chunks
+        self.augment = augment or AugmentConfig()
+        self.draws = TorchDraws(seed)
 
     def __call__(self, path: str) -> torch.Tensor:
-        raw, slope, inter = read_nifti_raw(path)
-        vol = torch.from_numpy(raw.astype(raw.dtype.newbyteorder("=")))
-        vol = vol.to(self.device).float()
-        if scaling_applies(slope, inter):
-            vol = vol * (slope if slope != 0.0 else 1.0) + inter
-        return self.from_array(vol)
+        return self.from_array(_upload_nifti(path, self.device))
 
     def from_array(self, vol) -> torch.Tensor:
         """vol: the (X, Y, Z) voxels (nibabel's layout), numpy or torch."""
@@ -183,6 +255,8 @@ class U2VolumeTransform:
         x = x.permute(2, 0, 1)[None]  # (1, Z, X, Y)
         x = scale_intensity_range_percentiles(x)
         x = crop_foreground(x)
+        if self.training:
+            x = apply_augmentations(x, self.draws, self.augment)
         x = x[0].permute(1, 2, 0)  # (X, Y, Z)
 
         ratio = min(target / x.shape[0], target / x.shape[1])
@@ -194,3 +268,52 @@ class U2VolumeTransform:
         out[:sx, :sy, :sz] = x
         out = out.permute(2, 0, 1)  # (Z, X, Y)
         return out.reshape(self.num_chunks, self.chunk_depth, target, target)
+
+
+# ---------------------------------------------------------------------------
+# "linear" (non-u2) mode: one fixed chunk (src/utils/data_transforms.py)
+# ---------------------------------------------------------------------------
+
+def normalize_ct(x: torch.Tensor) -> torch.Tensor:
+    """Reference src/utils/utils.py:58-80: foreground (voxels above the
+    mean) clipped to its 0.05 and 99.95 percentiles and z-scored by its
+    mean and (population) standard deviation, then min-max to [0, 1].
+    Input (X, Y, Z); output (1, Z, X, Y) float32."""
+    x = x.float()
+    fg = x[x > x.mean()]
+    if fg.numel():
+        lo, hi = percentiles(fg, (0.05, 99.95))
+        x = x.clamp(lo, hi)
+        mean = fg.double().mean().item()
+        std = max(fg.double().std(unbiased=False).item(), 1e-8)
+        x = (x - mean) / std
+    x = (x - x.min()) / max((x.max() - x.min()).item(), 1e-8)
+    return x.permute(2, 0, 1)[None].contiguous()
+
+
+class LinearVolumeTransform:
+    """Non-u2 path on ``device``: normalize, crop the foreground, (training)
+    augment, resize to ``out_shape`` without anti-aliasing: one chunk,
+    (1, 32, 256, 256) by default (data_transforms.py:28-61). The draws come
+    from ``seed``, nondeterministic when None, as the JAX package's
+    unseeded generator."""
+
+    def __init__(self, data_type: str = "validation",
+                 out_shape: Tuple[int, int, int] = (32, 256, 256),
+                 seed: Optional[int] = None, device="cuda"):
+        self.training = data_type in ("training", "train")
+        self.out_shape = out_shape
+        self.device = resolve_device(device)
+        self.draws = TorchDraws(seed)
+
+    def __call__(self, path: str) -> torch.Tensor:
+        return self.from_array(_upload_nifti(path, self.device))
+
+    def from_array(self, vol) -> torch.Tensor:
+        """vol: the (X, Y, Z) voxels, numpy or torch."""
+        x = normalize_ct(torch.as_tensor(vol).to(self.device))
+        x = crop_foreground(x)
+        if self.training:
+            x = apply_augmentations(x, self.draws, AugmentConfig())
+        resized = resize_trilinear(x[0], self.out_shape, anti_aliasing=False)
+        return resized[None].float()
