@@ -27,7 +27,13 @@ Run from the root of a checkout. It
      whole K4a + K4b + K4c against SDPA's whole backward); K2 also at the
      μ²Llama-3.2-1B prefill (D=64, GQA group 4, timed) and the Qwen3-8B
      one (D=128, group 4), K3 at both presets' heads and K4a-c at the
-     μ²Llama SFT call (D=64, causal, group 4), these untimed;
+     μ²Llama SFT call (D=64, causal, group 4), these untimed; the Phi
+     forms (``phi_kernel_checks``): K2 at μ²Phi-3-mini's prefill (D=96,
+     MHA) and at the Phi-2 judge's (D=80), K3-int8 and K3-int4 at both
+     head dims (B=4, 32 heads, step 127 of 1024 + 256 slots), timed, with
+     a ``phi_calls`` line; K1 at D=80 and 96, K1/K2 at both on the tile
+     edge, K3 at groups 2, 4 and 8, its first and last steps and a 3-token
+     prompt, and K4a-c at D=128 non-causal, untimed;
   3. drives the serving path twice, each time full-width μ²Qwen3-1.7B with
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
@@ -61,7 +67,8 @@ Run from the root of a checkout. It
      fan-out, one case x 8 sampled samples of 256 tokens, speculative and
      plain, with every K2 call at the case batch; and ``bench.py``'s forced-content
      speculative configuration (μ²Qwen3-1.7B, int8 weights, int4 cache,
-     B=112, scripts of ``report_token_scripts(112, 776, vocab, seed=7)``):
+     B=112, FORCED_TOKENS tokens, scripts of
+     ``report_token_scripts(112, FORCED_TOKENS + 8, vocab, seed=7)``):
      the script emitted exactly, the verify steps equal to the host replay
      of the loop's drafting, reports/min beside the plain quantized run's;
   6. drives serving (``drive_serving``) on the same checkpoint and CT:
@@ -69,7 +76,7 @@ Run from the root of a checkout. It
      must answer /health and one report; twelve questions one at a time
      through the single-request model ``cli serve`` builds (the reference
      tokens, and the sequential reports/min); the server ``cli serve
-     --slots 8 --max-new-tokens 256`` builds, started by
+     --slots 8 --max-new-tokens 128`` builds, started by
      ``serve_background``: the CT uploaded (ingest on the card), the
      twelve questions from twelve client threads at once and one streamed
      (K1 12 and K2 16 launches a request, K3 none), each report's tokens
@@ -99,23 +106,36 @@ Run from the root of a checkout. It
      whose limits must reject three planted faults, and the packed
      layout against the unpacked; K2 and K4a-c at the DPO call and K2 at
      the judge's;
-  8. checks a reduced-depth, full-width model on the card against the same
+  8. drives the Phi phase (``drive_phi``) on the same CT: μ²Phi-3-mini
+     (the default μ² stack on the ``phi3_mini`` decoder, 32 heads of 96,
+     seeded weights) through ``drive_report``: exported by
+     ``save_hf_checkpoint`` (fp32, as users write it) and read through
+     its config.json alone by ``U2InferenceModel``, one greedy report
+     (K1 12, K2 32) bit for bit the exported model's; its B=4
+     batches of 256 tokens, bf16 weights with the int8 cache and int8
+     weights with the int4 cache (K3 32 a step); the Phi-2 decoder
+     (GREEN-RadPhi2's architecture, seeded bf16 weights, an HF Phi-2
+     directory) as the judge of ``cli green`` on the stage-2 phase's 16
+     samples (K2 32 a batch at D=80), and in greedy B=4 batches over the
+     int8 and int4 caches; both reduced to 2 decoder layers against the
+     CPU's fp32 path within LOGIT_TOL;
+  9. checks a reduced-depth, full-width model on the card against the same
      weights run in fp32 on the CPU through the plain versions: bf16
      weights with the int8 cache, int8 or int4 weights (quantized once on
      the CPU) with the int4 cache, and μ²Llama-3.2-1B with the bf16 cache;
      and (μ²Qwen3) with the chunked prefill, the shared-prefix prefill
      and a verify block written per row;
-  9. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
+ 10. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
      parameters and bf16 compute, AdamW at the ``TrainConfig`` defaults,
      decoder layers rematerialised, 6 steps of ``run_training`` on one
      seeded (1, 8, 32, 256, 256) volume and a 1024-token row (900 valid),
      a checkpoint at the end; asserts finite, falling loss, moving
      parameters and the kernel launches of every step; profiles one step;
- 10. runs one train step of the reduced-depth model on the card and on the
+ 11. runs one train step of the reduced-depth model on the card and on the
      CPU from the same weights and compares the loss and each parameter's
      gradient; shows that the same limits reject planted faults of the
      flash backward's wiring;
- 11. prints one JSON line per kernel table, the card line, and last
+ 12. prints one JSON line per kernel table, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full fp32 (TF32 off for matmuls and cuDNN).
@@ -250,23 +270,29 @@ def device_ms(torch, fn, kernel: str, calls: int = 7):
     is ``kernel`` over ``calls`` calls of ``fn`` (after one unprofiled),
     from torch.profiler's trace of the card; each call launches it once.
     The trace may miss a launch at the end of the window (seen on the H100
-    with 4 ms launches), so it must hold at least half of them."""
+    with 4 ms launches), so it must hold at least half of them; a trace
+    that holds fewer (twice on the H100: none and one of 7 launches of
+    K2, each in a kernel check) is taken once more. Returns the time and
+    each trace's count of launches, which the kernel checks print."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    traced = []
+    for _ in range(2):
+        fn()
         torch.cuda.synchronize()
-    kernels, _ = device_time(torch, prof)
-    times = [e.time_range.elapsed_us() for e in kernels
-             if f"::{kernel}<" in e.name]
-    if not calls // 2 <= len(times) <= calls:
-        raise AssertionError(f"device_ms: {len(times)} launches of {kernel} "
-                             f"in the trace of {calls} calls")
-    return statistics.median(times) / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels, _ = device_time(torch, prof)
+        times = [e.time_range.elapsed_us() for e in kernels
+                 if f"::{kernel}<" in e.name]
+        traced.append(len(times))
+        if calls // 2 <= len(times) <= calls:
+            return statistics.median(times) / 1e3, traced
+    raise AssertionError(f"device_ms: {traced} launches of {kernel} in "
+                         f"two traces of {calls} calls")
 
 
 def ptxas_summary(report: str) -> dict:
@@ -434,6 +460,11 @@ def visible_pairs(causal: bool, s: int, lens) -> int:
     return s * sum(lens)
 
 
+def seen_keys(s: int, lens) -> int:
+    """Key rows, over the batch, that a row's lens lets the kernels load."""
+    return sum(min(n, s) for n in lens)
+
+
 def sdpa_mask(torch, lens_t, s: int, causal: bool):
     """The boolean (B, 1, 1 or S, S) mask of SDPA's call: keys j < lens[b]
     (and j <= i when causal)."""
@@ -475,11 +506,11 @@ def check_flash(torch, F, fa, call: dict, seed: int, timed: bool = True,
     check = compare(torch, out[rows], ref, name, mutants, mass)
     del out, ref, mutants, mass
 
-    ms = dev_ms = plain_ms = library_ms = None
+    ms = dev_ms = traced = plain_ms = library_ms = None
     if timed:
         ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lens_t,
                                                        causal=causal))
-        dev_ms = device_ms(torch, lambda: fa.flash_attention(
+        dev_ms, traced = device_ms(torch, lambda: fa.flash_attention(
             q, k, v, lens_t, causal=causal), "flash_fwd_kernel")
         plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(
             hq, hk, hv, hl, causal=causal), reps=3)
@@ -489,10 +520,11 @@ def check_flash(torch, F, fa, call: dict, seed: int, timed: bool = True,
             qt, kt, vt, attn_mask=mask, enable_gqa=hkv != h))
         del mask, qt, kt, vt
 
-    # work this data needs; each tensor is read or written once
+    # work this data needs; q and out are read or written once in full,
+    # k and v only up to each row's lens (the kernel loads no tile past it)
     pairs = h * visible_pairs(causal, s, lens)  # one exponential each
     flops = 4.0 * d * pairs
-    nbytes = 2.0 * b * s * d * (2 * h + 2 * hkv)
+    nbytes = 2.0 * 2 * b * s * h * d + 2.0 * 2 * hkv * d * seen_keys(s, lens)
     bms, by = bound_ms(flops, nbytes, pairs)
     return {"name": name, "route": "cuda",
             "source": "u2tokenizer_torch/csrc/flash_fwd.cu",
@@ -500,7 +532,7 @@ def check_flash(torch, F, fa, call: dict, seed: int, timed: bool = True,
                          if causal else
                          "u2tokenizer_tpu/ops/flash_attention.py:45"),
             "max_abs_err": check.pop("max_abs_err"), "ms": ms,
-            "device_ms": dev_ms,
+            "device_ms": dev_ms, "device_ms_traced": traced,
             "plain_ms": plain_ms, "plain_rows": rows.stop - rows.start,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "library_call": "SDPA, the same mask", "check": check,
@@ -617,20 +649,24 @@ def check_flash_bwd(torch, F, fa, call: dict, seed: int,
                 for name, ref in (("lse", lse_ref), ("dq", dq_ref),
                                   ("dk", dk_ref), ("dv", dv_ref))}
 
-    ms = dev_ms = plain_ms = {"lse": None, "dq": None, "dkv": None}
+    ms = plain_ms = {"lse": None, "dq": None, "dkv": None}
+    dev_ms = {key: (None, None) for key in ms}
     library_ms = None
     if timed:
         ms, dev_ms, plain_ms, library_ms = time_flash_bwd(
             torch, F, fa, q, k, v, do, lse_ref, dd, lens_t, kw)
 
     seen = visible_pairs(causal, s, lens)
-    q_bytes, kv_bytes, stat_bytes = 2.0 * b * s * h * d, \
-        2.0 * b * s * hkv * d, 4.0 * b * h * s
-    work = {"lse": (2.0 * d * h * seen, q_bytes + kv_bytes + stat_bytes),
+    # k and v are read up to each row's lens; dk and dv are written in full
+    q_bytes, kv_read, kv_bytes, stat_bytes = 2.0 * b * s * h * d, \
+        2.0 * hkv * d * seen_keys(s, lens), 2.0 * b * s * hkv * d, \
+        4.0 * b * h * s
+    work = {"lse": (2.0 * d * h * seen, q_bytes + kv_read + stat_bytes),
             "dq": (6.0 * d * h * seen,
-                   3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes),
+                   3 * q_bytes + 2 * kv_read + 2 * stat_bytes),
             "dkv": (8.0 * d * h * seen,
-                    2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes)}
+                    2 * q_bytes + 2 * kv_read + 2 * kv_bytes
+                    + 2 * stat_bytes)}
     shape = {"q": list(q.shape), "k": list(k.shape), "lens": lens,
              "causal": causal}
     entries = []
@@ -645,7 +681,8 @@ def check_flash_bwd(torch, F, fa, call: dict, seed: int,
             "name": name, "route": "cuda",
             "source": "u2tokenizer_torch/csrc/flash_bwd.cu",
             "replaces": f"u2tokenizer_tpu/ops/flash_attention.py:{line}",
-            "max_abs_err": err, "ms": ms[key], "device_ms": dev_ms[key],
+            "max_abs_err": err, "ms": ms[key], "device_ms": dev_ms[key][0],
+            "device_ms_traced": dev_ms[key][1],
             "plain_ms": plain_ms[key],
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "library_call": "SDPA backward: dq, dk and dv together",
@@ -697,18 +734,18 @@ def nibbles(p, torch, order: str):
 
 def check_decode(torch, da, attn, bits: int, b: int,
                  step: int = (MAX_NEW - 1) // 2, prompt=None,
-                 timed: bool = True, heads=(16, 8, 128)):
+                 timed: bool = True, heads=(16, 8, 128), new: int = MAX_NEW):
     """K3 at decode step ``step`` of a serving path: ``b`` rows, ``heads``
     (q heads, kv heads, head dim; μ²Qwen3-1.7B's 16 / 8 of 128 by
-    default), an int8 (``bits`` 8) or packed int4 (4) cache of 1024 + 768
-    slots, the rows' prompts ``prompt`` long (by default 1024, the last row
-    900). Holds it to its plain version under TOL, shows that the same
+    default), an int8 (``bits`` 8) or packed int4 (4) cache of 1024 +
+    ``new`` slots, the rows' prompts ``prompt`` long (by default 1024, the
+    last row 900). Holds it to its plain version under TOL, shows that the same
     limits reject prompt_len[-1] and end one key off (and, at int4,
     nibbles read wrongly) and that a second call gives the same bits. With
     ``timed`` it is timed (CUDA events and device time) on caches cycled
     out of L2."""
     h, hkv, d = heads
-    s_total = PROMPT + MAX_NEW
+    s_total = PROMPT + new
     name = da.KERNELS[bits]
     plen_l = list(prompt or [PROMPT] * (b - 1) + [RAGGED])
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -764,7 +801,7 @@ def check_decode(torch, da, attn, bits: int, b: int,
     check = compare(torch, out, ref, name, mutants)
     del mutants, again
 
-    ms = dev_ms = plain_ms = None
+    ms = dev_ms = traced = plain_ms = None
     if timed:
         it = iter(range(1 << 30))
 
@@ -774,7 +811,8 @@ def check_decode(torch, da, attn, bits: int, b: int,
                                           PROMPT)
 
         ms = time_ms(torch, run, inner=32)
-        dev_ms = device_ms(torch, run, "decode_attn_kernel", calls=32)
+        dev_ms, traced = device_ms(torch, run, "decode_attn_kernel",
+                                   calls=32)
         plain_ms = time_ms(torch, lambda: da.decode_attention_reference(
             q, kq, ks, vq, vs, plen, end, PROMPT), inner=4)
     rows = int(visible.sum())  # visible cache rows
@@ -788,7 +826,8 @@ def check_decode(torch, da, attn, bits: int, b: int,
             "source": "u2tokenizer_torch/csrc/decode_attention.cu",
             "replaces": "u2tokenizer_tpu/ops/decode_attention.py:32",
             "max_abs_err": check.pop("max_abs_err"), "ms": ms,
-            "device_ms": dev_ms, "n_split": n_split,
+            "device_ms": dev_ms, "device_ms_traced": traced,
+            "n_split": n_split,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "check": check,
             "shape": {"q": list(q.shape), "k": list(kq.shape),
@@ -836,9 +875,9 @@ def read_launches(*modules):
 
 
 def drive_main_path(torch, max_new: int, batch: int, weights: str,
-                    cache: str, vision_microbatch: int):
-    """One serving run of full-width μ²Qwen3-1.7B through
-    ``make_multimodal_generate_fn``: weights cast to bf16 and, unless
+                    cache: str, vision_microbatch: int, cfg=None):
+    """One serving run of full-width ``cfg`` (μ²Qwen3-1.7B by default)
+    through ``make_multimodal_generate_fn``: weights cast to bf16 and, unless
     ``weights`` is "bf16", the decoder's quantized in place to int8 or
     int4; a ``cache`` KV cache; ``batch`` volumes; the ViT over groups of
     ``vision_microbatch`` chunks. Times each stage, reads the kernel
@@ -851,7 +890,7 @@ def drive_main_path(torch, max_new: int, batch: int, weights: str,
     from u2tokenizer_torch.ops import decode_attention as da
     from u2tokenizer_torch.ops import flash_attention as fa
 
-    cfg = U2ModelConfig()  # μ²Qwen3-1.7B, full width and depth
+    cfg = cfg or U2ModelConfig()  # μ²Qwen3-1.7B, full width and depth
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
@@ -905,7 +944,8 @@ def drive_main_path(torch, max_new: int, batch: int, weights: str,
     assert tokens.dtype == torch.int64
     assert ((tokens >= 0) & (tokens < vocab)).all(), "token out of range"
     total = t3 - t0
-    return {"model": "mu2Qwen3-1.7B", "batch": batch, "prompt": PROMPT,
+    return {"model": MODEL_NAMES[cfg.llm.model_type], "batch": batch,
+            "prompt": PROMPT,
             "prompt_len": f"{PROMPT} x{batch - 1}, {RAGGED}",
             "question_tokens": QUESTION, "max_new_tokens": max_new,
             "cache": cache, "weights": weights, "weight_gb": weight_gb,
@@ -920,23 +960,28 @@ def drive_main_path(torch, max_new: int, batch: int, weights: str,
 
 
 def serve_and_check(torch, da, max_new: int, batch: int, weights: str,
-                    cache: str, vision_microbatch: int, card: str):
+                    cache: str, vision_microbatch: int, card: str, cfg=None,
+                    label: str = "serve"):
     """``drive_main_path``, printed, with its launches held to what the
     code gives: K1 once per ViT layer per group of chunks, K2 once per
     decoder layer, the cache's K3 form once per decoder layer per decode
     step, no other kernel."""
+    from u2tokenizer_torch.config import U2ModelConfig
+
+    cfg = cfg or U2ModelConfig()
     run = drive_main_path(torch, max_new, batch, weights, cache,
-                          vision_microbatch)
+                          vision_microbatch, cfg)
     run["card"] = card
-    print(json.dumps({f"serve_{weights}_weights_{cache}_cache": run}),
+    print(json.dumps({f"{label}_{weights}_weights_{cache}_cache": run}),
           flush=True)
     chunks = batch * 8
     groups = (chunks // vision_microbatch if chunks > vision_microbatch
               and chunks % vision_microbatch == 0 else 1)
+    layers = cfg.llm.num_layers
     expected = {name: 0 for name in run["launches"]}
-    expected.update({"flash_fwd_noncausal": 12 * groups,
-                     "flash_fwd_causal": 28,
-                     da.KERNELS[int(cache[3:])]: 28 * (max_new - 1)})
+    expected.update({"flash_fwd_noncausal": cfg.vision.num_layers * groups,
+                     "flash_fwd_causal": layers,
+                     da.KERNELS[int(cache[3:])]: layers * (max_new - 1)})
     if run["launches"] != expected:
         raise AssertionError(f"{weights} weights, {cache} cache: launches "
                              f"{run['launches']} != expected {expected}")
@@ -1000,6 +1045,8 @@ def reduced_config(num_chunks: int, base=None):
 
 
 SHARED_SPLIT, PREFILL_CHUNK, VERIFY_BLOCK = 280, 128, 4
+MODEL_NAMES = {"qwen3": "mu2Qwen3-1.7B", "llama": "mu2Llama-3.2-1B",
+               "phi3": "mu2Phi-3-mini", "phi2": "Phi-2"}
 
 
 def check_reference(torch, weights: str = "bf16", cache="int8", base=None,
@@ -1068,23 +1115,32 @@ def check_reference(torch, weights: str = "bf16", cache="int8", base=None,
             block = verify_block_logits(torch, model, kv, args[3], s,
                                         src[:, :VERIFY_BLOCK])
         results[name] = (logits, tokens, block)
+    return logits_line(results, MODEL_NAMES[cfg.llm.model_type], weights,
+                       cache, variant)
+
+
+def logits_line(results: dict, model: str, weights: str, cache,
+                variant=None) -> dict:
+    """A reduced-depth check's line: the card's prefill logits (and
+    verify block's, where not None) against the CPU's, ``results`` "gpu"
+    and "cpu" each (logits, greedy tokens, block logits or None), their
+    relative error held to LOGIT_TOL, and the tokens' agreement."""
     (ref, tok_ref, block_ref), (out, tok_out, block_out) = \
         results["cpu"], results["gpu"]
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
     agree = (tok_ref == tok_out).float().mean().item()
-    line = {"model": "mu2Llama-3.2-1B" if base else "mu2Qwen3-1.7B",
-            "weights": weights, "cache": str(cache),
+    line = {"model": model, "weights": weights, "cache": str(cache),
             "variant": variant or "one_shot", "logits_rel_err": rel,
-            "logits_tol": 5e-2, "token_agreement": agree,
+            "logits_tol": LOGIT_TOL, "token_agreement": agree,
             "tokens_cpu": tok_ref.tolist(), "tokens_gpu": tok_out.tolist()}
     if block_ref is not None:
         line["verify_block_rel_err"] = ((block_out - block_ref).abs().max()
                                         / block_ref.abs().max()).item()
         rel = max(rel, line["verify_block_rel_err"])
-    if not rel <= 5e-2:
-        raise AssertionError(f"reduced model, {weights} weights, {cache} "
+    if not rel <= LOGIT_TOL:
+        raise AssertionError(f"reduced {model}, {weights} weights, {cache} "
                              f"cache, {line['variant']}: card vs CPU logits "
-                             f"relative error {rel:.4g} over 5e-2")
+                             f"relative error {rel:.4g} over {LOGIT_TOL}")
     return line
 
 
@@ -1274,34 +1330,46 @@ def full_vocab_tokenizer(vocab: int):
     return tok
 
 
-def drive_report(torch, fa, da, volume, tmp: str):
-    """The μ²Llama-3.2-1B report path at full width and depth: random
-    weights from seed 0 written by ``save_hf_checkpoint`` (fp32), loaded
-    back by ``U2InferenceModel`` (bf16, bf16 cache), one greedy report of up
-    to REPORT_TOKENS tokens through ``inference`` with the kernel launches
-    of that call; its tokens (``generate_tokens``) against
-    ``make_multimodal_generate_fn`` on the in-memory model that was
-    exported, cast the same way, stage by stage (timed); then two sampled
-    reports (top-p 0.9) from two instances of one seed. Returns the greedy
-    report's tokens and the result line."""
-    from u2tokenizer_torch.eval.inference import U2InferenceModel
+def drive_report(torch, fa, da, volume, tmp: str, cfg=None,
+                 sampled: bool = True, config_json: bool = False):
+    """The report path of ``cfg`` (μ²Llama-3.2-1B by default) at full width
+    and depth: random weights from seed 0 written by ``save_hf_checkpoint``
+    (fp32) to ``tmp/mu2<model_type>``, loaded back by ``U2InferenceModel``
+    (bf16, bf16 cache; with ``config_json`` through config.json alone,
+    ``u2_tpu_config.json`` removed), one greedy report of up to
+    REPORT_TOKENS tokens through ``inference`` with the kernel launches of
+    that call (K1 once per ViT layer, K2 once per decoder layer); its
+    tokens against ``make_multimodal_generate_fn`` on the in-memory model
+    that was exported, cast the same way, stage by stage (timed); then,
+    with ``sampled``, two sampled reports (top-p 0.9) from two instances of
+    one seed. Returns the greedy report's tokens and the result line."""
+    from u2tokenizer_torch.eval.inference import (U2InferenceModel,
+                                                  load_model_config)
     from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
     from u2tokenizer_torch.models.hf_export import save_hf_checkpoint
     from u2tokenizer_torch.models.quantize import cast_for_inference
     from u2tokenizer_torch.models.u2_model import U2CausalLM
     from u2tokenizer_torch.weights import flax_params
 
-    cfg = released_config()
+    cfg = cfg or released_config()
+    model_name = MODEL_NAMES[cfg.llm.model_type]
     t0 = time.perf_counter()
     model = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    ckpt = os.path.join(tmp, "mu2llama")
+    ckpt = os.path.join(tmp, f"mu2{cfg.llm.model_type}")
+    gc.collect()
     t0 = time.perf_counter()
     save_hf_checkpoint(ckpt, flax_params(model), cfg)
     export_s = time.perf_counter() - t0
     ckpt_gb = sum(e.stat().st_size for e in os.scandir(ckpt)) / 1e9
+    disk_free_gb = shutil.disk_usage(ckpt).free / 1e9
+    if config_json:
+        os.remove(os.path.join(ckpt, "u2_tpu_config.json"))
+        if load_model_config(ckpt) != cfg:
+            raise AssertionError(f"config.json reads as "
+                                 f"{load_model_config(ckpt)}")
     cast_for_inference(model)  # the in-memory model, served as the loaded
     tok = full_vocab_tokenizer(cfg.llm.vocab_size)
 
@@ -1313,6 +1381,9 @@ def drive_report(torch, fa, da, volume, tmp: str):
                               max_new_tokens=REPORT_TOKENS)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+    seen, generate_tokens = [], im.generate_tokens
+    im.generate_tokens = lambda *a: seen.append(generate_tokens(*a)) \
+        or seen[-1]
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches(fa, da)
@@ -1327,9 +1398,10 @@ def drive_report(torch, fa, da, volume, tmp: str):
     expected.update({"flash_fwd_noncausal": cfg.vision.num_layers,
                      "flash_fwd_causal": cfg.llm.num_layers})
     if launches != expected:
-        raise AssertionError(f"report launches {launches} != {expected}")
+        raise AssertionError(f"{model_name} report launches {launches} != "
+                             f"{expected}")
 
-    tokens = im.generate_tokens(volume, REPORT_QUESTION)
+    tokens = seen[0]
     ids, qids, plen = im._encode_prompt(REPORT_QUESTION)
     if plen != REPORT_PROMPT_LEN:
         raise AssertionError(f"prompt of {plen} tokens, not "
@@ -1357,7 +1429,7 @@ def drive_report(torch, fa, da, volume, tmp: str):
     ref = torch.cat([tok0[:, None], rest], dim=1)[0]
     if not torch.equal(tokens, ref):
         diff = (tokens != ref).nonzero()[:, 0].tolist()
-        raise AssertionError(f"loaded model's tokens differ from the "
+        raise AssertionError(f"loaded {model_name}'s tokens differ from the "
                              f"exported model's at steps {diff[:8]}")
     vocab = cfg.llm.vocab_size
     if not (tokens.shape == (max_new,) and ((tokens >= 0)
@@ -1366,38 +1438,44 @@ def drive_report(torch, fa, da, volume, tmp: str):
     del kv, embeds, ref_fn, model, im
     gc.collect()
     torch.cuda.empty_cache()
+    line = {"model": model_name, "n_params": n_params,
+            "weights": "bf16", "cache": "bf16", "question": REPORT_QUESTION,
+            "prompt_len": plen, "max_new_tokens": max_new,
+            "model_build_s": build_s, "export_s": export_s,
+            "export": "save_hf_checkpoint, fp32",
+            "checkpoint_gb": ckpt_gb, "disk_free_gb": disk_free_gb,
+            "config_from": ("config.json" if config_json
+                            else "u2_tpu_config.json"),
+            "load_s": load_s, "load_host_gb": host,
+            "report_s": report_s, **stages,
+            "peak_mem_gb": peak / 1e9, "launches": launches,
+            "tokens_equal_exported_model": True,
+            "report_words": len(text.split()), "report_head": text[:80]}
+    if not sampled:
+        return tokens, line
 
-    sampled = []
+    samples = []
     for _ in range(2):
         sim = U2InferenceModel(ckpt, tokenizer=tok, do_sample=True,
                                top_p=SAMPLE_TOP_P, speculative=False, seed=1,
                                max_new_tokens=REPORT_TOKENS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sampled.append(sim.inference(volume, REPORT_QUESTION))
+        samples.append(sim.inference(volume, REPORT_QUESTION))
         torch.cuda.synchronize()
         sample_s = time.perf_counter() - t0
         del sim
         gc.collect()
-    if sampled[0] != sampled[1]:
+    if samples[0] != samples[1]:
         raise AssertionError("two sampled reports of one seed differ")
-    if sampled[0] == text:
+    if samples[0] == text:
         raise AssertionError("the sampled report is the greedy one")
-    return tokens, {"model": "mu2Llama-3.2-1B", "n_params": n_params,
-            "weights": "bf16", "cache": "bf16", "question": REPORT_QUESTION,
-            "prompt_len": plen, "max_new_tokens": max_new,
-            "model_build_s": build_s, "export_s": export_s,
-            "checkpoint_gb": ckpt_gb, "load_s": load_s,
-            "load_host_gb": host,
-            "report_s": report_s, **stages,
-            "peak_mem_gb": peak / 1e9, "launches": launches,
-            "tokens_equal_exported_model": True,
-            "report_words": len(text.split()), "report_head": text[:80],
-            "sampled": {"top_p": SAMPLE_TOP_P, "seed": 1,
-                        "same_text_two_instances": True,
-                        "report_s": sample_s,
-                        "words": len(sampled[0].split()),
-                        "head": sampled[0][:80]}}
+    line["sampled"] = {"top_p": SAMPLE_TOP_P, "seed": 1,
+                       "same_text_two_instances": True,
+                       "report_s": sample_s,
+                       "words": len(samples[0].split()),
+                       "head": samples[0][:80]}
+    return tokens, line
 
 
 # Speculative decoding phase (``drive_speculative``).
@@ -1405,6 +1483,9 @@ SPEC_BLOCK = 8             # the verify block, as make_spec_generate_fn's
 FANOUT = 8                 # samples a case, pred_then_green's protocol
 FANOUT_TOKENS = 256        # the fan-out phase's depth (the users' 768 cut)
 SCRIPT_SEED = 7            # bench.py's report scripts
+# the forced-content phase's depth (bench.py's 768 cut for the script's
+# time; it launches no K3, so the B=112 path's K3 checks stay at 768)
+FORCED_TOKENS = 256
 # Greedy speculative decoding against plain greedy on the card. A verify
 # block's logits come from other GEMM shapes than a single step's, so the
 # two bf16 computations of one position may order a near tie differently.
@@ -1674,9 +1755,10 @@ def spec_report_phase(torch, fa, da, volume, ckpt: str, cfg,
 def spec_forced_content_phase(torch, fa, da, plain_run: dict) -> dict:
     """``bench.py``'s forced-content speculative configuration on the
     card: μ²Qwen3-1.7B, int8 decoder weights, int4 cache, 112 volumes, the
-    ViT over groups of 128 chunks, 768 tokens scripted by
-    ``report_token_scripts(112, 776, vocab, seed=7)``; the inputs of the
-    plain quantized run (``drive_main_path``), whose reports/min are set
+    ViT over groups of 128 chunks, FORCED_TOKENS tokens scripted by
+    ``report_token_scripts(112, FORCED_TOKENS + 8, vocab, seed=7)``; the
+    inputs of the plain quantized run (``drive_main_path``), whose
+    reports/min (at its own MAX_NEW tokens) and ms a step are set
     beside. Emitted tokens must equal the script and the verify steps the
     host replay of the loop's drafting (the largest row's)."""
     import numpy as np
@@ -1692,7 +1774,7 @@ def spec_forced_content_phase(torch, fa, da, plain_run: dict) -> dict:
     from u2tokenizer_torch.models.u2_model import U2CausalLM
 
     cfg = U2ModelConfig()
-    batch, max_new = QUANT_BATCH, MAX_NEW
+    batch, max_new = QUANT_BATCH, FORCED_TOKENS
     model = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
                                           device="cuda", seed=0))
     quantize_llm_weights(model, QUANT_WEIGHTS)
@@ -1753,6 +1835,7 @@ def spec_forced_content_phase(torch, fa, da, plain_run: dict) -> dict:
                 script[:, :max_new], SPEC_BLOCK, prompt=prompt),
             **stages, "reports_per_min": 60.0 * batch / total,
             "plain_reports_per_min": plain_run["reports_per_min"],
+            "plain_max_new_tokens": plain_run["max_new_tokens"],
             "plain_decode_ms_per_step": plain_run["decode_ms_per_step"],
             "peak_mem_gb": peak / 1e9, "launches": launches,
             "tokens_equal_script": True}
@@ -1859,7 +1942,9 @@ def drive_speculative(torch, fa, da, volume, tmp: str, plain_greedy,
 # at the released μ²Llama-3.2-1B configuration, as ``cli serve --slots 8``
 # builds them, with concurrent requests.
 SERVING_SLOTS = 8
-SERVING_TOKENS = 256       # cli serve --max-new-tokens
+# cli serve --max-new-tokens (the users' 768; 256 before the Phi phase
+# came, cut for the script's time; the serving paths launch no K3)
+SERVING_TOKENS = 128
 SUBPROCESS_TOKENS = 16     # the subprocess server's one report
 LLM_TOKENS = 128           # serve-llm's requests
 LOGIT_STEPS = 8            # decode steps whose logits are held to B=1's
@@ -3129,11 +3214,12 @@ def green_answer(case: int) -> str:
                     for s in REPORT_SENTENCES)
 
 
-def green_tokenizer(vocab: int):
+def green_tokenizer(vocab: int, extra=()):
     """A MockTokenizer that knows every word the phase writes (the chat
-    and GREEN templates, the questions, the reports) and a word for every
-    other id of the vocabulary, and then refuses a word it does not know:
-    an id past the vocabulary would fault the embedding on the card."""
+    and GREEN templates, the questions, the reports) and those of the
+    texts ``extra``, and a word for every other id of the vocabulary, and
+    then refuses a word it does not know: an id past the vocabulary would
+    fault the embedding on the card."""
     from u2tokenizer_torch.eval.green import make_green_prompt
     from u2tokenizer_torch.eval.inference import green_chat_format
     from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
@@ -3153,8 +3239,12 @@ def green_tokenizer(vocab: int):
              tok.apply_chat_template([{"role": "user", "content": ""}]),
              *(tok.apply_chat_template([{"role": "user", "content": q}])
                + green_answer(i) for i, q in enumerate(GREEN_QUESTIONS))]
-    tok(" ".join(texts))
-    tok(" ".join(f"w{i}" for i in range(vocab - len(tok.vocab))))
+    tok(" ".join([*texts, *extra]))
+    i = 0
+    while len(tok.vocab) < vocab:  # filler words, past those already known
+        n = vocab - len(tok.vocab)
+        tok(" ".join(f"w{j}" for j in range(i, i + n)))
+        i += n
     tok.closed = True
     assert len(tok.vocab) == vocab
     return tok
@@ -3179,10 +3269,41 @@ def write_green_data(tmp: str) -> str:
     return data
 
 
-def write_judge_dir(path: str, seed: int = 0) -> None:
-    """The judge on the card: the ``llama_3_2_1b`` decoder preset with
-    seeded weights, as an HF directory (bf16 ``model.safetensors`` through
-    ``export_decoder``, and its ``config.json``)."""
+def hf_decoder_config(cfg) -> dict:
+    """The ``config.json`` of an HF decoder directory for ``cfg``: the
+    Llama family's fields, or HF Phi-2's (``model_type`` "phi",
+    ``partial_rotary_factor``, ``layer_norm_eps``)."""
+    config = {
+        "model_type": "llama", "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "max_position_embeddings": cfg.max_position_embeddings}
+    if cfg.model_type == "phi2":
+        del config["rms_norm_eps"], config["head_dim"]
+        config.update(model_type="phi", layer_norm_eps=cfg.rms_norm_eps,
+                      partial_rotary_factor=cfg.partial_rotary_factor)
+    elif cfg.rope_scaling_type:
+        config["rope_scaling"] = {
+            "rope_type": cfg.rope_scaling_type,
+            "factor": cfg.rope_scaling_factor,
+            "low_freq_factor": cfg.rope_low_freq_factor,
+            "high_freq_factor": cfg.rope_high_freq_factor,
+            "original_max_position_embeddings":
+                cfg.rope_original_max_position}
+    return config
+
+
+def write_judge_dir(path: str, seed: int = 0,
+                    preset: str = "llama_3_2_1b") -> None:
+    """A judge for the card: the decoder ``preset`` with seeded weights, as
+    an HF directory (bf16 ``model.safetensors`` through ``export_decoder``,
+    and its ``config.json``)."""
     import torch
 
     from u2tokenizer_torch.config import LLMConfig
@@ -3192,7 +3313,7 @@ def write_judge_dir(path: str, seed: int = 0) -> None:
     from u2tokenizer_torch.models.safetensors_io import write_safetensors
     from u2tokenizer_torch.weights import flax_params
 
-    cfg = LLMConfig.llama_3_2_1b()
+    cfg = getattr(LLMConfig, preset)()
     model = CausalLM(cfg, dtype=torch.bfloat16, device="cuda")
     init_weights(model, seed)
     sd = {}
@@ -3203,24 +3324,7 @@ def write_judge_dir(path: str, seed: int = 0) -> None:
                       {k: torch.from_numpy(v).to(torch.bfloat16)
                        for k, v in sd.items()})
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({
-            "model_type": "llama", "vocab_size": cfg.vocab_size,
-            "hidden_size": cfg.hidden_size,
-            "intermediate_size": cfg.intermediate_size,
-            "num_hidden_layers": cfg.num_layers,
-            "num_attention_heads": cfg.num_heads,
-            "num_key_value_heads": cfg.num_kv_heads,
-            "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
-            "rms_norm_eps": cfg.rms_norm_eps,
-            "tie_word_embeddings": cfg.tie_word_embeddings,
-            "max_position_embeddings": cfg.max_position_embeddings,
-            "rope_scaling": {
-                "rope_type": cfg.rope_scaling_type,
-                "factor": cfg.rope_scaling_factor,
-                "low_freq_factor": cfg.rope_low_freq_factor,
-                "high_freq_factor": cfg.rope_high_freq_factor,
-                "original_max_position_embeddings":
-                    cfg.rope_original_max_position}}, f, indent=2)
+        json.dump(hf_decoder_config(cfg), f, indent=2)
 
 
 def cli_run(argv, **kw):
@@ -3889,6 +3993,294 @@ def drive_green_dpo(torch, F, fa, da, tmp: str, card: str) -> tuple:
     return counts, checks
 
 
+
+# The Phi phase (``drive_phi``): the paper's μ²Phi-3-mini backbone
+# (Phi-3-mini-4k's decoder: 32 layers, 32 heads of 96, MHA, vocabulary
+# 32,064) and the Phi-2 decoder that the reference's stage 2 judges with
+# (GREEN-RadPhi2's base: 32 layers, 32 heads of 80, partial rotary 0.4,
+# LayerNorm, GELU, parallel blocks, biases), full width and depth with
+# seeded weights (no Phi weights are in the repository); the kernels' D=96
+# and D=80 forms on their paths.
+PHI_NEW = 256              # tokens of the B=4 batches: 1024 + 256 slots
+PHI3_PREFILL_CALL = dict(PREFILL_CALL, h=32, hkv=32, d=96)
+PHI2_JUDGE_CALL = dict(JUDGE_CALL, hkv=32, d=80)
+PHI_HEADS = {96: (32, 32, 96), 80: (32, 32, 80)}
+# Untimed: K1 at D=80 and 96, which no path launches (the ViT's heads are
+# 64), at a 1024-token call; K1 and K2 at both on the tile-edge shape
+# (group 2); K3 at both with groups 2, 4 and 8 and at the first and last
+# steps and a 3-token prompt; K4a-c at D=128 non-causal, a form no path
+# makes (ROADMAP.md queue 2).
+PHI_EDGE_FWD = ([dict(causal=False, b=2, s=PROMPT, h=32, hkv=32, d=d,
+                      lens=[PROMPT, RAGGED], fused=False) for d in (80, 96)]
+                + [dict(EDGE_CALLS[1], causal=causal, d=d)
+                   for d in (80, 96) for causal in (False, True)])
+BWD_NONCAUSAL_128_CALL = dict(PREFILL_CALL, causal=False, b=2,
+                              lens=[PROMPT, RAGGED])
+
+
+def phi_kernel_checks(torch, F, fa, da, attn) -> tuple:
+    """The Phi forms: K2 at μ²Phi-3's prefill (D=96) and at the Phi-2
+    judge's (D=80), K3-int8 and K3-int4 at both (B=4, 32 heads, group 1,
+    step 127 of 1024 + 256 slots), timed; the untimed forms above. Returns
+    (the timed entries, named by form, and every check)."""
+    timed = {"flash_fwd_causal_d96": check_flash(torch, F, fa,
+                                                 PHI3_PREFILL_CALL, 40),
+             "flash_fwd_causal_d80": check_flash(torch, F, fa,
+                                                 PHI2_JUDGE_CALL, 41)}
+    for d, heads in PHI_HEADS.items():
+        for bits in (8, 4):
+            timed[f"{da.KERNELS[bits]}_d{d}"] = check_decode(
+                torch, da, attn, bits, BATCH, (PHI_NEW - 1) // 2,
+                heads=heads, new=PHI_NEW)
+    checks = [check_flash(torch, F, fa, call, 42 + i, timed=False)
+              for i, call in enumerate(PHI_EDGE_FWD)]
+    for d in PHI_HEADS:
+        for bits in (8, 4):
+            checks += [check_decode(torch, da, attn, bits, BATCH, step,
+                                    prompt, timed=False, heads=PHI_HEADS[d],
+                                    new=PHI_NEW)
+                       for step, prompt in ((0, None), (PHI_NEW - 1, None),
+                                            (0, [PROMPT] * 3 + [3]))]
+            checks += [check_decode(torch, da, attn, bits, 2, timed=False,
+                                    heads=(32, hkv, d), new=PHI_NEW)
+                       for hkv in (16, 8, 4)]
+    checks += check_flash_bwd(torch, F, fa, BWD_NONCAUSAL_128_CALL, 50,
+                              timed=False)
+    for form, entry in timed.items():
+        entry["head_dim"] = int(form[-2:])
+        entry["kernel"], entry["name"] = entry["name"], form
+    return timed, checks
+
+
+def phi3_config():
+    """μ²Phi-3-mini: the default μ² stack (ViT3D 12 x 768, SPP, the
+    μ²tokenizer) on the ``phi3_mini`` decoder."""
+    from u2tokenizer_torch.config import LLMConfig, U2ModelConfig
+
+    return U2ModelConfig(llm=LLMConfig.phi3_mini())
+
+
+def phi2_judge_phase(torch, fa, da, tmp: str, preds: str) -> tuple:
+    """``cli green --judge DIR`` with a Phi-2 judge (seeded bf16 weights
+    written as an HF Phi-2 directory by ``write_judge_dir``) on
+    ``preds``, in batches of JUDGE_BATCH padded to JUDGE_LENGTH, replies of
+    JUDGE_TOKENS greedy tokens (speculative, shared prefix); each batch
+    launches K2 once per layer at D=80. Returns (the result line, the
+    launches, the judge's model)."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.config import LLMConfig
+    from u2tokenizer_torch.eval import green
+
+    cfg = LLMConfig.phi2()
+    judge_dir = os.path.join(tmp, "phi2_judge")
+    t0 = time.perf_counter()
+    write_judge_dir(judge_dir, preset="phi2")
+    write_s = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(preds)]
+    # the samples' words (the generating model's vocabulary) among the
+    # judge's 51,200 ids
+    tok = green_tokenizer(cfg.vocab_size,
+                          [p for r in rows for p in r["predictions"]])
+    built, batches = [], []
+    build, tokens_of = cli._build_judge, green.TorchJudge.batch_tokens
+
+    def judge_of(*a, **kw):
+        built.append(build(*a, **kw))
+        return built[-1]
+
+    def timed_tokens(judge, ids, lens, split):
+        before = read_launches(fa, da)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tokens_of(judge, ids, lens, split)
+        torch.cuda.synchronize()
+        after = read_launches(fa, da)
+        batches.append({"s": time.perf_counter() - t0, "split": split,
+                        "lens": lens.tolist(),
+                        "launches": {k: n - before[k] for k, n in
+                                     after.items() if n - before[k]}})
+        return out
+
+    out = os.path.join(tmp, "greened_phi2.jsonl")
+    reset_launches(fa, da)
+    with planted(cli, {"_build_judge": judge_of}), \
+            planted(green.TorchJudge, {"batch_tokens": timed_tokens}):
+        t0 = time.perf_counter()
+        cli_run(["green", "--predictions", preds, "--judge", judge_dir,
+                 "--output", out], tokenizer=tok)
+        total = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    greened = [json.loads(line) for line in open(out)]
+    want = sum(math.ceil(len(r["predictions"]) / JUDGE_BATCH) for r in rows)
+    if len(batches) != want or len(greened) != len(rows):
+        raise AssertionError(f"Phi-2 judge: {len(batches)} batches, "
+                             f"{len(greened)} rows")
+    for b in batches:
+        if b["launches"] != {"flash_fwd_causal": cfg.num_layers}:
+            raise AssertionError(f"Phi-2 judge batch launches "
+                                 f"{b['launches']}")
+    for r, g in zip(rows, greened):
+        if (len(g["green_scores"]) != len(r["predictions"])
+                or sorted(g["predictions"]) != sorted(r["predictions"])):
+            raise AssertionError("Phi-2 judge: a row lost its samples")
+    model, built_cfg = built[-1].model, built[-1].gen_cfg
+    del built[:]
+    return {"judge": "phi2 preset, seeded bf16 weights",
+            "write_judge_s": write_s, "cli_total_s": total,
+            "batches": len(batches),
+            "max_new_tokens": built_cfg.max_new_tokens,
+            "s_per_batch": statistics.median(b["s"] for b in batches),
+            "batch_s": [b["s"] for b in batches],
+            "shared_prefix": [b["split"] for b in batches],
+            "prompt_lens": [b["lens"] for b in batches],
+            "launches_per_batch": batches[0]["launches"]}, launches, model
+
+
+def phi2_generate(torch, fa, da, model, cache: str) -> tuple:
+    """A greedy batch of the Phi-2 decoder ``model`` (bf16): B=4 prompts of
+    1024 seeded tokens (the last 900), PHI_NEW new tokens over a ``cache``
+    KV cache; every decode step launches K3 once per layer at D=80.
+    Returns (the result line, its launches)."""
+    from u2tokenizer_torch.config import GenerationConfig
+    from u2tokenizer_torch.models.generate import make_generate_fn
+
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=g,
+                        device="cuda")
+    plen = torch.tensor([PROMPT] * (BATCH - 1) + [RAGGED], dtype=torch.int32,
+                        device="cuda")
+    gen = make_generate_fn(model, GenerationConfig(
+        max_new_tokens=PHI_NEW, do_sample=False, eos_token_id=-2,
+        pad_token_id=0), cache_dtype=cache)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa, da)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        embeds = model.embed_tokens(ids)
+    kv, tok0, done0, hidden = gen.prefill_stage(embeds, plen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, _, rest = gen.decode_steps(kv, tok0, done0, plen, range(PHI_NEW - 1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches(fa, da)
+    tokens = torch.cat([tok0[:, None], rest], dim=1)
+    layers = cfg.num_layers
+    expected = {name: 0 for name in launches}
+    expected.update({"flash_fwd_causal": layers,
+                     da.KERNELS[int(cache[3:])]: layers * (PHI_NEW - 1)})
+    if launches != expected:
+        raise AssertionError(f"Phi-2 {cache} cache: launches {launches} != "
+                             f"{expected}")
+    if not (torch.isfinite(hidden).all() and tokens.shape == (BATCH, PHI_NEW)
+            and ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"Phi-2 {cache} cache: bad output")
+    return {"model": "Phi-2", "batch": BATCH,
+            "prompt_len": f"{PROMPT} x{BATCH - 1}, {RAGGED}",
+            "max_new_tokens": PHI_NEW, "cache": cache, "weights": "bf16",
+            "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "decode_ms_per_step": 1e3 * (t2 - t1) / (PHI_NEW - 1),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "first_tokens": tokens[:, :8].tolist(),
+            "launches": launches}, launches
+
+
+def check_decoder_reference(torch, llm_cfg, cache="int8"):
+    """A text-only decoder (``llm_cfg``, full width, 2 layers) on the card
+    (bf16 weights, kernels) against the same weights in fp32 on the CPU
+    (plain versions): B=2 prompts of 384 tokens (the second 300), the
+    prefill's last-position logits within LOGIT_TOL, and the greedy
+    tokens' agreement over 4 decode steps."""
+    from u2tokenizer_torch.config import GenerationConfig
+    from u2tokenizer_torch.models.generate import make_generate_fn
+    from u2tokenizer_torch.models.layers import init_weights
+    from u2tokenizer_torch.models.llm.decoder import CausalLM
+    from u2tokenizer_torch.models.quantize import cast_for_inference
+
+    cfg = dataclasses.replace(llm_cfg, num_layers=2)
+    b, s = 2, 384
+    cpu = CausalLM(cfg, dtype=torch.float32, device="cpu")
+    init_weights(cpu, 1)
+    gpu = cast_for_inference(CausalLM(cfg, dtype=torch.bfloat16,
+                                      device="cuda"))
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    plen = torch.tensor([s, 300], dtype=torch.int32)
+    gen = GenerationConfig(max_new_tokens=5, eos_token_id=-2)
+    results = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
+        fn = make_generate_fn(model, gen, cache)
+        with torch.inference_mode():
+            embeds = model.embed_tokens(ids.to(dev))
+        kv, tok0, done0, last = fn.prefill_stage(embeds, plen.to(dev))
+        with torch.inference_mode():
+            logits = model.lm_logits(last)[:, 0].float().cpu()
+        _, _, rest = fn.decode_steps(kv, tok0, done0, plen.to(dev), range(4))
+        results[name] = (logits, torch.cat([tok0[:, None], rest], 1).cpu(),
+                         None)
+    return logits_line(results, MODEL_NAMES[cfg.model_type], "bf16", cache)
+
+
+def drive_phi(torch, fa, da, volume, tmp: str, preds: str, card: str):
+    """The Phi phase: μ²Phi-3-mini's report from files, its B=4 batches
+    (bf16 weights with the int8 cache; int8 weights with the int4 cache;
+    PHI_NEW tokens), the Phi-2 judge through ``cli green`` on ``preds``,
+    Phi-2's greedy B=4 batches over the int8 and int4 caches, and both
+    reduced-depth checks against the CPU. The launch counters are reset
+    at each part, so that each path's counts are its own: K2 and K3 at
+    D=96 on μ²Phi-3's (K1 at the ViT's D=64), at D=80 on Phi-2's. Returns
+    the launches by path."""
+    counts = {}
+    t0 = time.perf_counter()
+    cfg = phi3_config()
+    _, line = drive_report(torch, fa, da, volume, tmp, cfg, sampled=False,
+                           config_json=True)
+    # nothing later reads the checkpoint (about 19 GB in fp32)
+    shutil.rmtree(os.path.join(tmp, "mu2phi3"))
+    counts["report_mu2phi3"] = line["launches"]
+    line["card"] = card
+    print(json.dumps({"report_mu2phi3": line}), flush=True)
+    for weights, cache in (("bf16", "int8"), ("int8", "int4")):
+        counts[f"batch_mu2phi3_{cache}"] = serve_and_check(
+            torch, da, PHI_NEW, BATCH, weights, cache, VISION_MICROBATCH,
+            card, cfg, label="batch_mu2phi3")["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"reference_check": check_reference(
+        torch, "bf16", "int8", cfg), "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phi3_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    line, counts["judge_phi2"], model = phi2_judge_phase(torch, fa, da, tmp,
+                                                         preds)
+    line["card"] = card
+    print(json.dumps({"green_phi2_judge": line}), flush=True)
+    for cache in ("int8", "int4"):
+        line, counts[f"batch_phi2_{cache}"] = phi2_generate(torch, fa, da,
+                                                            model, cache)
+        line["card"] = card
+        print(json.dumps({f"batch_phi2_{cache}_cache": line}), flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    from u2tokenizer_torch.config import LLMConfig
+
+    print(json.dumps({"reference_check": check_decoder_reference(
+        torch, LLMConfig.phi2()), "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"phi_phase_s": {"mu2phi3": phi3_s,
+                                      "phi2": time.perf_counter() - t0}}),
+          flush=True)
+    return counts
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--max-new", type=int, default=B4_MAX_NEW)
@@ -4027,6 +4419,27 @@ def main() -> int:
         edge_fwd, edge_decode
     gc.collect()
     torch.cuda.empty_cache()
+    # the Phi forms: K2 at D=96 and D=80 and K3 at both, one entry each,
+    # its error the largest of its form's checks
+    phi_timed, phi_checks = phi_kernel_checks(torch, F, fa, da, attn)
+    for k in list(phi_timed.values()) + phi_checks:
+        print(json.dumps({"kernel_check": k}), flush=True)
+    print(json.dumps({"phi_calls": {
+        "flash_fwd": flash_fwd_summary({f: e for f, e in phi_timed.items()
+                                        if f.startswith("flash")}),
+        "decode": decode_summary({f: e for f, e in phi_timed.items()
+                                  if f.startswith("decode")})},
+        "card": card}), flush=True)
+    for entry in phi_timed.values():
+        entry["max_abs_err"] = max(
+            [entry["max_abs_err"]] + [c["max_abs_err"] for c in phi_checks
+                                      if c["name"] == entry["kernel"]
+                                      and c["shape"]["q"][-1]
+                                      == entry["head_dim"]])
+    kernels += phi_timed.values()
+    del phi_checks
+    gc.collect()
+    torch.cuda.empty_cache()
     if args.kernels_only:
         return 0
 
@@ -4063,6 +4476,12 @@ def main() -> int:
                                                     card)
         green_s = time.perf_counter() - t0
         counts.update(green_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phi_counts = drive_phi(torch, fa, da, volume, tmp, os.path.join(
+            tmp, "green_dpo", "preds.jsonl"), card)
+        phi_s = time.perf_counter() - t0
     del volume
     gc.collect()
     torch.cuda.empty_cache()
@@ -4104,14 +4523,26 @@ def main() -> int:
     for new in green_calls:
         entry = next(k for k in kernels if k["name"] == new["name"])
         entry["max_abs_err"] = max(entry["max_abs_err"], new["max_abs_err"])
+    family = {96: "mu2phi3", 80: "phi2"}  # the paths of each Phi form
     for k in kernels:
-        by_path = {path: n[k["name"]] for path, n in counts.items()}
+        if "head_dim" in k:
+            by_path = {path: n[k["kernel"]] for path, n in phi_counts.items()
+                       if family[k["head_dim"]] in path}
+        else:
+            by_path = {path: n[k["name"]] for path, n in counts.items()}
+        if k["name"] == "flash_fwd_noncausal":  # μ²Phi-3's ViT, D=64
+            by_path.update({path: n[k["name"]]
+                            for path, n in phi_counts.items()})
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-        for key in ("shape", "check", "ref_scale", "plain_rows"):
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']}: no launch on its paths")
+        for key in ("shape", "check", "ref_scale", "plain_rows",
+                    "device_ms_traced"):
             k.pop(key, None)
     print(json.dumps({"script_s": time.perf_counter() - t_start,
-                      "green_dpo_phase_s": green_s}), flush=True)
+                      "green_dpo_phase_s": green_s, "phi_phase_s": phi_s}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

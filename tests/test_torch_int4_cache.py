@@ -214,6 +214,11 @@ def test_int4_wrapper_refuses_devices_and_operands():
         q, torch.zeros(b, hkv, sk, d, dtype=torch.int8), sc,
         torch.zeros(b, hkv, sk, d, dtype=torch.int8), sc, n, n) == \
         "decode_attention_int8"
+    for dim in (80, 96):  # Phi-2's and Phi-3's head dims
+        packed = torch.zeros(b, hkv, sk, dim // 2, dtype=torch.int8)
+        assert t_dec.check_operands(
+            torch.zeros(b, 1, h, dim, dtype=torch.bfloat16), packed, sc,
+            packed, sc, n, n) == "decode_attention_int4"
     bad = {
         "odd row": dict(k=torch.zeros(b, hkv, sk, 24, dtype=torch.int8)),
         "uint8 cache": dict(k=k.to(torch.uint8)),
@@ -223,9 +228,9 @@ def test_int4_wrapper_refuses_devices_and_operands():
         "int64 lengths": dict(plen=n.long()),
         "strided cache": dict(k=torch.zeros(b, sk, hkv, d // 2,
                                             dtype=torch.int8).transpose(1, 2)),
-        "D=96": dict(q=torch.zeros(b, 1, h, 96, dtype=torch.bfloat16),
-                     k=torch.zeros(b, hkv, sk, 48, dtype=torch.int8),
-                     v=torch.zeros(b, hkv, sk, 48, dtype=torch.int8)),
+        "D=48": dict(q=torch.zeros(b, 1, h, 48, dtype=torch.bfloat16),
+                     k=torch.zeros(b, hkv, sk, 24, dtype=torch.int8),
+                     v=torch.zeros(b, hkv, sk, 24, dtype=torch.int8)),
         "group 3": dict(q=torch.zeros(b, 1, 6, d, dtype=torch.bfloat16)),
     }
     for label, change in bad.items():

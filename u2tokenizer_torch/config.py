@@ -131,6 +131,7 @@ class LLMConfig:
     max_position_embeddings: int = 40960
     attention_bias: bool = False
     use_flash_attention: bool = True  # hand-written prefill kernel on GPU
+    # Phi-2's switches (the GREEN-RadPhi2 judge's base)
     parallel_block: bool = False
     partial_rotary_factor: float = 1.0
     norm_type: str = "rmsnorm"  # rmsnorm | layernorm
@@ -170,6 +171,32 @@ class LLMConfig:
             rope_scaling_type="llama3", rope_scaling_factor=32.0,
             rope_low_freq_factor=1.0, rope_high_freq_factor=4.0,
             rope_original_max_position=8192,
+        )
+
+    @classmethod
+    def phi3_mini(cls, vocab_size: int = 32064) -> "LLMConfig":
+        """μ²Phi-3-mini's decoder (Phi-3-mini-4k: MHA, 32 heads of 96)."""
+        return cls(
+            model_type="phi3", vocab_size=vocab_size, hidden_size=3072,
+            intermediate_size=8192, num_layers=32, num_heads=32, num_kv_heads=32,
+            head_dim=96, rope_theta=10_000.0, rms_norm_eps=1e-5,
+            tie_word_embeddings=False, qk_norm=False,
+            max_position_embeddings=4096,
+        )
+
+    @classmethod
+    def phi2(cls, vocab_size: int = 51200) -> "LLMConfig":
+        """Phi-2 (the GREEN-RadPhi2 judge's base): parallel blocks, partial
+        rotary, LayerNorm, GELU MLP, biases everywhere."""
+        return cls(
+            model_type="phi2", vocab_size=vocab_size, hidden_size=2560,
+            intermediate_size=10240, num_layers=32, num_heads=32,
+            num_kv_heads=32, head_dim=80, rope_theta=10_000.0,
+            rms_norm_eps=1e-5, tie_word_embeddings=False, qk_norm=False,
+            max_position_embeddings=2048, attention_bias=True,
+            parallel_block=True, partial_rotary_factor=0.4,
+            norm_type="layernorm", mlp_type="gelu", mlp_bias=True,
+            lm_head_bias=True,
         )
 
     @classmethod

@@ -38,8 +38,13 @@
 //     it uses any, so every thread keeps several loads in flight (32 or 128
 //     bytes, 64-thread blocks, and the next iteration's loads issued before
 //     this one's arithmetic all read slower on the H100). The values are
-//     made fp32 without int-to-float conversions (unpack). Scores
-//     are reduced over the row's D/16 threads by shuffles; each warp keeps
+//     made fp32 without int-to-float conversions (unpack). A row takes
+//     TPR lanes, D/16 rounded up to a power of two (4 at D=64, 8 at 80, 96
+//     and 128), so that a warp's rows form xor-shuffle groups: at D=80 and
+//     96 the first 5 or 6 lanes of a row hold its values and the others
+//     hold zero q (their loads repeat lane 0's bytes, from the same cache
+//     line, and are never stored), 62.5 % and 75 % of the lanes working.
+//     Scores are reduced over the row's TPR lanes by shuffles; each warp keeps
 //     a running max and sum per query head (log2 units, MUFU.EX2) and its
 //     value sums in registers, rescaled when the max moves. The warps'
 //     partials merge in shared memory in warp order.
@@ -70,7 +75,7 @@
 // card's byte rate: with 128 registers a thread, 4 blocks (16 warps) share
 // an SM, and the ~170 instructions each (row, thread) issues (unpacking,
 // 2 x group x 16 FMAs, the shuffles and the online softmax, the latter
-// repeated by the row's D/16 threads) leave the loads' latency exposed.
+// repeated by the row's TPR lanes) leave the loads' latency exposed.
 // A group of 2 fills 2 of a tensor-core tile's 16 rows, so mma does not
 // pay here. At group 8 a thread holds 128 query values and 128 value sums
 // and spills.
@@ -120,6 +125,23 @@ __device__ float block_reduce(float x, float* red) {
 #pragma unroll
   for (int w = 1; w < NWARPS; ++w) r = MAX ? fmaxf(r, red[w]) : r + red[w];
   return r;
+}
+
+// A row's lanes: D / DPT of them hold its values (`active`), and a row
+// takes `per_row` lanes, that rounded up to a power of two, so that the
+// rows of a warp are aligned xor-shuffle groups.
+template <int D>
+struct Lanes {
+  static_assert(D % DPT == 0 && D / DPT <= 8, "D in 64, 80, 96, 128");
+  static constexpr int active = D / DPT;
+  static constexpr int per_row = active <= 4 ? 4 : 8;
+};
+
+// The lane's byte offset into a cache row: its slice, or lane 0's for a
+// lane past `active`, whose values meet a zero q and are never stored.
+template <int BITS, int D>
+__device__ __forceinline__ int slice_offset(int sub) {
+  return (sub < Lanes<D>::active ? sub : 0) * DPT * BITS / 8;
 }
 
 // The DPT * BITS / 8 cache bytes of a thread's slice of a row.
@@ -183,15 +205,21 @@ __device__ __forceinline__ float unscale(int j) {
 }
 
 // The thread's DPT values of q, rounded like the TPU kernel (bf16(q *
-// bf16(scale))) and times unscale, and OFF times their sum before unscale.
+// bf16(scale))) and times unscale, and OFF times their sum before unscale;
+// zeros for a lane past the row's D/DPT (Lanes).
 template <int BITS, int D, int G>
 __device__ __forceinline__ void load_q(const bf16* q, float scale, int sub,
                                        float (&qr)[G][DPT], float (&qoff)[G]) {
   const bf16 scale_h = __float2bfloat16(scale);
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const uint4* qh = reinterpret_cast<const uint4*>(q + g * D + sub * DPT);
     qoff[g] = 0.f;
+    if (sub >= Lanes<D>::active) {
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) qr[g][j] = 0.f;
+      continue;
+    }
+    const uint4* qh = reinterpret_cast<const uint4*>(q + g * D + sub * DPT);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const uint4 raw = qh[half];
@@ -207,8 +235,8 @@ __device__ __forceinline__ void load_q(const bf16* q, float scale, int sub,
   }
 }
 
-// q . k over the row's TPR threads (each thread's DPT values, then
-// shuffles): every lane of the row gets it.
+// q . k over the row's TPR lanes (each lane's DPT values, then shuffles):
+// every lane of the row gets it.
 template <int BITS, int G, int TPR>
 __device__ __forceinline__ void dots(const float (&qr)[G][DPT], const float (&qoff)[G],
                                      const Slice<BITS>& kr, float (&acc)[G]) {
@@ -244,7 +272,7 @@ __device__ void exact_row(const float (&qr)[G][DPT], const float (&qoff)[G], con
                           const bf16* ksb, const bf16* vsb, int a, int c, int n_vis,
                           bf16* out, float (*s_o)[G][D]) {
   constexpr int ROW = D * BITS / 8;
-  constexpr int TPR = D / DPT;
+  constexpr int TPR = Lanes<D>::per_row;
   constexpr int RPW = 32 / TPR;
   __shared__ float s_p[G][EXACT_ROWS];  // scores, then probabilities
   __shared__ float red[NWARPS];
@@ -302,7 +330,7 @@ __device__ void exact_row(const float (&qr)[G][DPT], const float (&qoff)[G], con
     for (int off = 16; off >= TPR; off >>= 1)
 #pragma unroll
       for (int j = 0; j < DPT; ++j) o[g][j] += __shfl_xor_sync(0xffffffffu, o[g][j], off);
-    if (lane < TPR)
+    if (lane < Lanes<D>::active)
 #pragma unroll
       for (int j = 0; j < DPT; ++j) s_o[warp][g][sub * DPT + j] = o[g][j];
   }
@@ -325,7 +353,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ k,
                    int s_prompt, float scale) {
   constexpr int ROW = D * BITS / 8;         // bytes per cache row
   constexpr int BPT = DPT * BITS / 8;       // bytes a thread reads of a row
-  constexpr int TPR = D / DPT;              // threads per row
+  constexpr int TPR = Lanes<D>::per_row;    // lanes per row
   constexpr int RPW = 32 / TPR;             // rows per warp per load
   constexpr int U = 64 / (2 * BPT);         // rows a thread loads at once
   constexpr int RW = RPW * U;               // rows per warp per iteration
@@ -357,8 +385,8 @@ decode_attn_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ k,
   float qr[G][DPT], qoff[G];
   load_q<BITS, D, G>(q + (long long)bh * G * D, scale, sub, qr, qoff);
 
-  const int8_t* kb = k + (long long)bh * sk * ROW + sub * BPT;
-  const int8_t* vb = v + (long long)bh * sk * ROW + sub * BPT;
+  const int8_t* kb = k + (long long)bh * sk * ROW + slice_offset<BITS, D>(sub);
+  const int8_t* vb = v + (long long)bh * sk * ROW + slice_offset<BITS, D>(sub);
   const bf16* ksb = ks + (long long)bh * sk;
   const bf16* vsb = vs + (long long)bh * sk;
   if (n_vis < EXACT_ROWS) {  // block-uniform: a short row is not split
@@ -461,7 +489,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ k,
       s_m[warp][g] = m_run[g];
       s_l[warp][g] = l_run[g];
     }
-    if (lane < TPR)
+    if (lane < Lanes<D>::active)
 #pragma unroll
       for (int j = 0; j < DPT; ++j) s_o[warp][g][sub * DPT + j] = o[g][j];
   }
@@ -572,8 +600,12 @@ int dispatch(const void* q, const void* k, const void* ks, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = h / hkv;
   if (n_split < 1 || n_split > MAX_SPLIT) return (int)cudaErrorInvalidValue;
-  if (d == 64) return dispatch_group<BITS, 64>(g, K3_ARGS);
-  if (d == 128) return dispatch_group<BITS, 128>(g, K3_ARGS);
+  switch (d) {
+    case 64: return dispatch_group<BITS, 64>(g, K3_ARGS);
+    case 80: return dispatch_group<BITS, 80>(g, K3_ARGS);
+    case 96: return dispatch_group<BITS, 96>(g, K3_ARGS);
+    case 128: return dispatch_group<BITS, 128>(g, K3_ARGS);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -54,6 +54,13 @@
 //     tile (the last, which meets every key tile) of every head first, the
 //     q heads of a GQA group next to each other, so the short tiles fill in
 //     behind the long ones.
+//   * Head dims 80 (Phi-2) and 96 (Phi-3) take D=128's tiles: the TMA map
+//     keeps the tensor's own d, so the second 64-column box of a row
+//     arrives with its columns past d zeroed, and nothing is padded or
+//     copied in device memory. S = Q K^T sums only the d/16 k-steps that
+//     hold data; O += P V runs at N = 128 with columns past d zero, and the
+//     store writes d columns. Shared memory, registers and blocks an SM are
+//     those of D=128; the P V product does 128/d times the work it needs.
 // P is rounded to bf16 before its product, unnormalised (the TPU kernel
 // rounds it after normalising, in _kernel); chip_smoke.py's limit for K1/K2
 // allows for that.
@@ -62,6 +69,7 @@
 // non-causal, no spills), blocks an SM (of 233,472 B, 1 KB of it reserved
 // a block, and 65,536 registers):
 //     D=64   42,024 B   90 / 92   5      D=128  66,592 B  133 / 128  3
+//     D=80, D=96: D=128's layout and blocks an SM
 //
 // Not yet done (later work): tile t+1's S product overlapping tile t's
 // softmax inside the warpgroup (FA3's intra-warpgroup pipelining, with a
@@ -79,10 +87,12 @@ namespace {
 
 template <int D>
 struct FwdLayout {
-  // V stages: two at D=64; one at D=128, where it brings a block from
+  // tile width: 64 columns at D=64, 128 at D=80, 96 and 128
+  static constexpr int W = D <= 64 ? 64 : 128;
+  // V stages: two at D=64; one at W=128, where it brings a block from
   // 82,968 to 66,592 B, so that three fit an SM instead of two
-  static constexpr int v_stages = D == 128 ? 1 : 2;
-  static constexpr int tile = Tile<D>::bytes;
+  static constexpr int v_stages = W == 128 ? 1 : 2;
+  static constexpr int tile = Tile<W>::bytes;
   static constexpr int q = 0;
   static constexpr int k0 = q + tile;                // K tile t in slot t % 2
   static constexpr int v0 = k0 + 2 * tile;           // V tile t in slot t % v_stages
@@ -138,12 +148,13 @@ __device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m_run)[
 
 // q, k and v are read through TMA maps (tensor_map in hopper.cuh).
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS, D == 64 ? 4 : 3)
+__global__ void __launch_bounds__(NTHREADS, FwdLayout<D>::W == 64 ? 4 : 3)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
                  const __grid_constant__ CUtensorMap v, const int* __restrict__ lens,
                  bf16* __restrict__ out, int sq, int sk, int group, float scale,
                  Strides os) {
   using L = FwdLayout<D>;
+  constexpr int W = L::W;
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned base = aligned_smem(smem);
   const unsigned bar = base + L::bars;
@@ -168,11 +179,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ 
   auto v_bar = [&](int t) { return bar + 8 * (3 + t % L::v_stages); };
   auto issue_k = [&](int t) {  // by one thread
     mbar_expect(k_bar(t), L::tile);
-    tma_tile<D>(base + L::k0 + (t & 1) * L::tile, k, t * BK, kvh, b, k_bar(t));
+    tma_tile<W>(base + L::k0 + (t & 1) * L::tile, k, t * BK, kvh, b, k_bar(t));
   };
   auto issue_v = [&](int t) {
     mbar_expect(v_bar(t), L::tile);
-    tma_tile<D>(base + L::v0 + (t % L::v_stages) * L::tile, v, t * BK, kvh, b, v_bar(t));
+    tma_tile<W>(base + L::v0 + (t % L::v_stages) * L::tile, v, t * BK, kvh, b, v_bar(t));
   };
   if (threadIdx.x == 0) {
     for (int i = 0; i < L::n_bars; ++i) mbar_init(bar + 8 * i);
@@ -181,7 +192,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ 
   __syncthreads();
   if (threadIdx.x == 0) {
     mbar_expect(bar, L::tile);
-    tma_tile<D>(base + L::q, q, q0, h, b, bar);
+    tma_tile<W>(base + L::q, q, q0, h, b, bar);
     issue_k(0);
     issue_v(0);
   }
@@ -191,7 +202,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ 
   const float to_log2 = scale * 1.4426950408889634f;  // scale * log2(e)
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's columns only
-  float acc[D / 8][4];
+  float acc[W / 8][4];
   zero(acc);
   mbar_wait(bar, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -206,7 +217,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ 
     float s[8][4], alpha[2];
     zero(s);  // before the fence: wgmma then reads what these wrote
     wgmma_fence();
-    scores<D>(s, base + L::q, base + L::k0 + (t & 1) * L::tile);  // S = Q K^T
+    scores<W, D / 16>(s, base + L::q, base + L::k0 + (t & 1) * L::tile);  // S = Q K^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -214,7 +225,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ 
     online_softmax<CAUSAL>(s, m_run, l_run, alpha, to_log2, edge, k0, len, sk, q0 + r0,
                            lane);
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
+    for (int nt = 0; nt < W / 8; ++nt) {
       acc[nt][0] *= alpha[0];
       acc[nt][1] *= alpha[0];
       acc[nt][2] *= alpha[1];
@@ -224,7 +235,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ 
     to_operand(pa, s);
     mbar_wait(v_bar(t), (t / L::v_stages) & 1);
     wgmma_fence();
-    accumulate<D>(acc, pa, base + L::v0 + (t % L::v_stages) * L::tile);  // O += P V
+    accumulate<W>(acc, pa, base + L::v0 + (t % L::v_stages) * L::tile);  // O += P V
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -269,8 +280,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* lens,
   const int* l = static_cast<const int*>(lens);
   const long long* st = static_cast<const long long*>(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 128) return launch<128, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
+  switch (d) {
+    case 64: return launch<64, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
+    case 80: return launch<80, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
+    case 96: return launch<96, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
+    case 128: return launch<128, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -225,11 +225,13 @@ __device__ __forceinline__ void zero(float (&d)[N][4]) {
   for (int j = 0; j < N; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
 }
 
-// c (64 x 64) += a . b^T over the head dim, a and b 64-row tiles.
-template <int D>
+// c (64 x 64) += a . b^T over the head dim, a and b 64-row tiles of
+// width D; only the first KSTEPS k-steps of 16 columns are summed (a head
+// dim of 80 or 96 in a 128-column tile, whose other columns are zeros).
+template <int D, int KSTEPS = D / 16>
 __device__ __forceinline__ void scores(float (&c)[8][4], unsigned a, unsigned b) {
 #pragma unroll
-  for (int k = 0; k < D / 16; ++k) wgmma_ss_n64(c, desc_k<D>(a, k), desc_k<D>(b, k));
+  for (int k = 0; k < KSTEPS; ++k) wgmma_ss_n64(c, desc_k<D>(a, k), desc_k<D>(b, k));
 }
 
 // acc (64 x D) += a . b, a (64 x 64 bf16) in registers, b a 64-row tile.
@@ -280,14 +282,15 @@ __device__ __forceinline__ Block block_of_grid() {
                rest % (int)gridDim.y, rest / (int)gridDim.y};
 }
 
-// Rows r0 and r0 + 8 of the warpgroup's 64 x D accumulator, times `mul0`
-// and `mul1` respectively, to bf16 rows of `out` (row stride `stride`);
-// rows at or past `limit` are skipped.
-template <int D>
+// Rows r0 and r0 + 8 of the first D columns of the warpgroup's 64 x 8NT
+// accumulator, times `mul0` and `mul1` respectively, to bf16 rows of `out`
+// (row stride `stride`); rows at or past `limit` are skipped.
+template <int D, int NT>
 __device__ __forceinline__ void store_rows(bf16* out, long long stride,
-                                           const float (&acc)[D / 8][4],
+                                           const float (&acc)[NT][4],
                                            int r0, int limit, int lane,
                                            float mul0, float mul1) {
+  static_assert(D % 8 == 0 && D / 8 <= NT, "D columns of the accumulator");
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + half * 8;
@@ -329,7 +332,9 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 // A TMA map of a bf16 (batch, rows, heads, D) tensor with the given
 // strides (in elements: batch, row, head; the head dim contiguous), read in
 // boxes of 64 rows x 64 values of one head, 128-byte swizzled (the Tile
-// layout); rows past `rows` read as zeros.
+// layout); rows past `rows`, and columns past `d` (a head dim of 80 or 96
+// in a tile of two column blocks), read as zeros, and a box's bytes count
+// in full on its mbarrier.
 int tensor_map(CUtensorMap* map, const void* data, int b, int rows, int heads, int d,
                const Strides& st) {
   static EncodeTiled encode = nullptr;

@@ -29,8 +29,16 @@ def _np(x) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(x, dtype=np.float32))
 
 
+def _weight(kernel) -> np.ndarray:
+    """An (in, out) kernel as the (out, in) HF weight, contiguous. The
+    transpose is taken before any copy: a kernel that is itself a
+    transposed view (``weights.flax_params`` gives the port's (out, in)
+    weights so) comes back without one."""
+    return np.ascontiguousarray(np.asarray(kernel, dtype=np.float32).T)
+
+
 def _lin(sd: Dict[str, np.ndarray], name: str, p: Mapping):
-    sd[name + ".weight"] = np.ascontiguousarray(_np(p["kernel"]).T)
+    sd[name + ".weight"] = _weight(p["kernel"])
     if "bias" in p:
         sd[name + ".bias"] = _np(p["bias"])
 
@@ -73,7 +81,7 @@ def export_decoder(params: Mapping, cfg, sd: Dict[str, np.ndarray]) -> None:
         attn = layer["self_attn"]
         if fused:
             sd[p + "self_attn.qkv_proj.weight"] = np.concatenate(
-                [np.ascontiguousarray(_np(attn[nm]["kernel"]).T)
+                [_weight(attn[nm]["kernel"])
                  for nm in ("q_proj", "k_proj", "v_proj")], axis=0)
         else:
             for nm in ("q_proj", "k_proj", "v_proj"):
@@ -89,7 +97,7 @@ def export_decoder(params: Mapping, cfg, sd: Dict[str, np.ndarray]) -> None:
             _lin(sd, p + "mlp.fc2", mlp["fc2"])
         elif fused:
             sd[p + "mlp.gate_up_proj.weight"] = np.concatenate(
-                [np.ascontiguousarray(_np(mlp[nm]["kernel"]).T)
+                [_weight(mlp[nm]["kernel"])
                  for nm in ("gate_proj", "up_proj")], axis=0)
             _lin(sd, p + "mlp.down_proj", mlp["down_proj"])
         else:
@@ -113,7 +121,7 @@ def export_vit(params: Mapping, cfg, sd: Dict[str, np.ndarray],
         b = f"{prefix}blocks.{i}."
         _ln(sd, b + "norm1", blk["norm1"])
         _ln(sd, b + "norm2", blk["norm2"])
-        sd[b + "attn.qkv.weight"] = np.ascontiguousarray(_np(blk["attn"]["qkv"]["kernel"]).T)
+        sd[b + "attn.qkv.weight"] = _weight(blk["attn"]["qkv"]["kernel"])
         if "bias" in blk["attn"]["qkv"]:
             sd[b + "attn.qkv.bias"] = _np(blk["attn"]["qkv"]["bias"])
         _lin(sd, b + "attn.out_proj", blk["attn"]["out_proj"])
@@ -142,8 +150,8 @@ def export_u2tokenizer(params: Mapping, cfg: U2ModelConfig,
     _lin(sd, pre + "svt_module.token_selection.score_net",
          svt["token_selection"]["score_net"])
     if "dynamic_pool" in svt:
-        sd[pre + "svt_module.dynamic_pool.gate_fc.weight"] = np.ascontiguousarray(
-            _np(svt["dynamic_pool"]["gate_kernel"]).T)
+        sd[pre + "svt_module.dynamic_pool.gate_fc.weight"] = _weight(
+            svt["dynamic_pool"]["gate_kernel"])
         sd[pre + "svt_module.dynamic_pool.gate_fc.bias"] = _np(
             svt["dynamic_pool"]["gate_bias"])
     tta = params["tta_module"]

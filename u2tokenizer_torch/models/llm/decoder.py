@@ -1,9 +1,13 @@
 """Decoder-only LM stack (counterpart of
-``u2tokenizer_tpu/models/llm/decoder.py``), Qwen3/Llama family: RMSNorm,
-GQA attention with RoPE and optional per-head q/k RMSNorm, SwiGLU MLP,
-tied or separate fp32 LM head. Weights are float (bf16 for serving) or
-weight-only int8/int4 (``QDense``, ``models.quantize``); the Phi-2 switches
-and LoRA are not ported yet.
+``u2tokenizer_tpu/models/llm/decoder.py``), Qwen3/Llama/Phi-3 family:
+RMSNorm, GQA attention with RoPE and optional per-head q/k RMSNorm, SwiGLU
+MLP, tied or separate fp32 LM head. Phi-2's switches are ported as the JAX
+package has them: LayerNorm (``norm_type``), a tanh-GELU MLP ``fc1``/``fc2``
+(``mlp_type``), attention and MLP reading one pre-norm (``parallel_block``),
+RoPE over the leading dims of each head only (``partial_rotary_factor``),
+and biases on the projections and the LM head. Weights are float (bf16 for
+serving) or weight-only int8/int4 (``QDense``, ``models.quantize``); LoRA is
+not ported yet.
 
 Attention routing mirrors the JAX package's:
   * a prefill (S > 1, ``lens`` given, attending its own fresh K/V) goes to
@@ -50,7 +54,7 @@ from ...ops.attention import (gqa_sdpa, gqa_sdpa_fanout,
 from ...ops.decode_attention import decode_attention_quantized
 from ...ops.flash_attention import flash_attention
 from ...ops.rotary import apply_rope, rope_cos_sin
-from ..layers import Dense
+from ..layers import Dense, LayerNorm
 
 
 @dataclass
@@ -233,17 +237,33 @@ class RMSNorm(nn.Module):
         return (xf * self.weight.float()).to(self.dtype)
 
 
+def make_norm(cfg: LLMConfig, dtype=torch.bfloat16, device=None) -> nn.Module:
+    """The decoder's norm: flax's LayerNorm (Phi-2) or RMSNorm, both with
+    epsilon ``rms_norm_eps``."""
+    cls = LayerNorm if cfg.norm_type == "layernorm" else RMSNorm
+    return cls(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
+
+
+def rope_dim(cfg: LLMConfig) -> int:
+    """The leading dims of a head that RoPE rotates: head_dim times
+    ``partial_rotary_factor``, rounded down to an even number."""
+    rot = int(cfg.head_dim * cfg.partial_rotary_factor)
+    return rot - rot % 2
+
+
+def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """RoPE over the leading ``cos.shape[-1]`` dims of x's heads; the rest
+    pass through (Phi-2's partial rotary)."""
+    rot = cos.shape[-1]
+    if rot == x.shape[-1]:
+        return apply_rope(x, cos, sin)
+    return torch.cat([apply_rope(x[..., :rot], cos, sin), x[..., rot:]], -1)
+
+
 def _check_supported(cfg: LLMConfig) -> None:
-    unsupported = {
-        "lora_rank": cfg.lora_rank,
-        "parallel_block": cfg.parallel_block,
-        "norm_type": cfg.norm_type != "rmsnorm",
-        "mlp_type": cfg.mlp_type != "swiglu",
-        "partial_rotary_factor": cfg.partial_rotary_factor != 1.0,
-    }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
-        raise NotImplementedError(f"LLMConfig options not ported yet: {bad}")
+    if cfg.lora_rank:
+        raise NotImplementedError("LLMConfig options not ported yet: "
+                                  "['lora_rank']")
 
 
 class Attention(nn.Module):
@@ -267,7 +287,7 @@ class Attention(nn.Module):
                 lens=None, decode_bounds=None, prefix_kv=None,
                 prefix_mask=None):
         """x (B, S, E); rope the (cos, sin) tables of the positions, each
-        (B, S, D); mask bool (B, 1, S, Sk); cache_kv
+        (B, S, rope_dim); mask bool (B, 1, S, Sk); cache_kv
         (k, v, k_scale, v_scale) head-major buffers written in place at
         ``write_index`` (an int, or a (B,) int32 tensor: per row); lens
         (B,) right-pad valid lengths; decode_bounds (prompt_len (B,),
@@ -285,8 +305,8 @@ class Attention(nn.Module):
             q = self.q_norm(q)
             k = self.k_norm(k)
         cos, sin = rope
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        q = _rope(q, cos, sin)
+        k = _rope(k, cos, sin)
 
         quantized_decode = cached_decode = False
         k_att, v_att = k, v
@@ -366,36 +386,51 @@ def _row_writer(write_index: torch.Tensor, b: int, s: int):
 
 
 class MLP(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU: down(silu(gate(x)) * up(x)); or Phi-2's fc2(gelu(fc1(x)))
+    with tanh GELU (HF ``gelu_new``) and ``mlp_bias``."""
 
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
         e, m = cfg.hidden_size, cfg.intermediate_size
         quant = cfg.quantized_weights
+        self.gelu = cfg.mlp_type == "gelu"
+        if self.gelu:
+            self.fc1 = QDense(e, m, cfg.mlp_bias, dtype, device, quant)
+            self.fc2 = QDense(m, e, cfg.mlp_bias, dtype, device, quant)
+            return
         self.gate_proj = QDense(e, m, False, dtype, device, quant)
         self.up_proj = QDense(e, m, False, dtype, device, quant)
         self.down_proj = QDense(m, e, False, dtype, device, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gelu:
+            return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class DecoderLayer(nn.Module):
+    """Pre-norm attention then MLP; with ``parallel_block`` (Phi-2) both
+    read the one pre-norm: x + attn(y) + mlp(y), and there is no
+    ``post_attention_layernorm``."""
+
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
-                                       dtype, device)
+        self.parallel = cfg.parallel_block
+        self.input_layernorm = make_norm(cfg, dtype, device)
         self.self_attn = Attention(cfg, dtype, device)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
-                                                cfg.rms_norm_eps, dtype, device)
+        if not self.parallel:
+            self.post_attention_layernorm = make_norm(cfg, dtype, device)
         self.mlp = MLP(cfg, dtype, device)
 
     def forward(self, x, rope, mask, cache_kv=None, write_index=None,
                 lens=None, decode_bounds=None, prefix_kv=None,
                 prefix_mask=None):
+        y = self.input_layernorm(x)
         attn_out, cache_kv = self.self_attn(
-            self.input_layernorm(x), rope, mask, cache_kv, write_index,
-            lens, decode_bounds, prefix_kv, prefix_mask)
+            y, rope, mask, cache_kv, write_index, lens, decode_bounds,
+            prefix_kv, prefix_mask)
+        if self.parallel:
+            return x + attn_out + self.mlp(y), cache_kv
         x = x + attn_out
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, cache_kv
@@ -435,7 +470,7 @@ class DecoderModel(nn.Module):
             self.set_embedding(torch.empty(shape, device=device))
         self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, device)
                                     for _ in range(cfg.num_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
+        self.norm = make_norm(cfg, dtype, device)
 
     @property
     def quantized(self) -> bool:
@@ -469,11 +504,11 @@ class DecoderModel(nn.Module):
                 prefix_cache=None, prefix_mask=None):
         cfg = self.cfg
         x = inputs_embeds.to(self.dtype)
-        # one rotary table for all layers
+        # one rotary table for all layers, over the dims that rotate
         scaling = (cfg.rope_scaling_type, cfg.rope_scaling_factor,
                    cfg.rope_low_freq_factor, cfg.rope_high_freq_factor,
                    cfg.rope_original_max_position)
-        rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+        rope = rope_cos_sin(positions, rope_dim(cfg), cfg.rope_theta,
                             scaling=scaling)
         for i, layer in enumerate(self.layers):
             args = (x, rope, mask, _layer_kv(cache, i), write_index, lens,

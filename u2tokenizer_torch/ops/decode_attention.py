@@ -31,6 +31,8 @@ from .attention import _scalar, unpack_nibbles
 
 KERNELS = {8: "decode_attention_int8", 4: "decode_attention_int4"}
 launches = {name: 0 for name in KERNELS.values()}
+# head dims csrc/decode_attention.cu instantiates (80: Phi-2, 96: Phi-3)
+HEAD_DIMS = (64, 80, 96, 128)
 # n_split: about TARGET_BLOCKS_PER_SM blocks of 128 threads an SM, at
 # least MIN_SPLIT_ROWS cache slots a split, and at most MAX_SPLIT (the
 # kernel's merge keeps a weight per split in shared memory). On the H100
@@ -123,9 +125,9 @@ def check_operands(q, k_int, k_scale, v_int, v_scale, prompt_len,
         if x.data_ptr() % 16 and x.dim() == 4:
             raise ValueError("decode attention: data must be 16-byte aligned")
     group = h // hkv
-    if d not in (64, 128) or h % hkv or group not in (1, 2, 4, 8):
+    if d not in HEAD_DIMS or h % hkv or group not in (1, 2, 4, 8):
         raise ValueError(f"decode attention: D={d}, H={h}, Hkv={hkv} not "
-                         "supported (D in 64/128, group in 1/2/4/8)")
+                         f"supported (D in {HEAD_DIMS}, group in 1/2/4/8)")
     return KERNELS[bits]
 
 

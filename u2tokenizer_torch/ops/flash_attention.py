@@ -19,8 +19,9 @@ views.
 ``flash_attention`` takes the framework's (B, S, H, D) layout and is
 differentiable. Its backward computes ``dd = rowsum(dO * O)`` and then
 K4a -> K4b -> K4c, as ``_flash_bwd_raw`` does on the TPU, at every sequence
-length. For CUDA tensors every step launches the hand-written kernel (bf16,
-D in {64, 128}) or raises; for CPU tensors it computes the plain version of
+length. For CUDA tensors every step launches the hand-written kernel (bf16;
+D in {64, 80, 96, 128} forward, {64, 128} backward) or raises; for CPU
+tensors it computes the plain version of
 the same function (``flash_attention_reference`` and the three
 ``flash_bwd_*_reference``). ``launches`` counts kernel launches by kernel
 name.
@@ -38,6 +39,9 @@ from . import _build
 NEG_INF = -1e30
 KERNELS = ("flash_fwd_noncausal", "flash_fwd_causal")
 BWD_KERNELS = ("flash_bwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+# head dims the CUDA sources instantiate: the forward (csrc/flash_fwd.cu)
+# takes Phi-2's 80 and Phi-3's 96 in D=128's tiles; the backward not yet
+FWD_HEAD_DIMS, BWD_HEAD_DIMS = (64, 80, 96, 128), (64, 128)
 launches = {name: 0 for name in KERNELS + BWD_KERNELS}
 
 
@@ -153,17 +157,18 @@ def _check_operand(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
-def _check_attention(q, k, v, lens, **others) -> None:
+def _check_attention(q, k, v, lens, dims=BWD_HEAD_DIMS, **others) -> None:
     """Raise unless q/k/v (and ``others``, each shaped like q) form GQA
-    attention the kernels take, on one CUDA device, with int32 lens."""
+    attention the kernels take at a head dim in ``dims``, on one CUDA
+    device, with int32 lens."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     for name, x in (("q", q), ("k", k), ("v", v), *others.items()):
         _check_operand(x, name)
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    if d not in (64, 128):
-        raise ValueError(f"head dim {d} not supported (64 or 128)")
+    if d not in dims:
+        raise ValueError(f"head dim {d} not supported (one of {dims})")
     if k.shape != (b, sk, hkv, d) or v.shape != k.shape or h % hkv:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not form GQA attention")
@@ -198,7 +203,7 @@ def _stream(x: torch.Tensor) -> int:
 def _flash_cuda(q, k, v, lens, causal: bool, scale: float) -> torch.Tensor:
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    _check_attention(q, k, v, lens)
+    _check_attention(q, k, v, lens, FWD_HEAD_DIMS)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = _strides(q, k, v, out)
     name = KERNELS[int(causal)]
