@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--max-new N] [--kernels-only]
+                          [--qlora-reference-at STD [STD ...]]
 
 Run from the root of a checkout. It
 
@@ -30,10 +31,14 @@ Run from the root of a checkout. It
      μ²Llama SFT call (D=64, causal, group 4), these untimed; the Phi
      forms (``phi_kernel_checks``): K2 at μ²Phi-3-mini's prefill (D=96,
      MHA) and at the Phi-2 judge's (D=80), K3-int8 and K3-int4 at both
-     head dims (B=4, 32 heads, step 127 of 1024 + 256 slots), timed, with
-     a ``phi_calls`` line; K1 at D=80 and 96, K1/K2 at both on the tile
-     edge, K3 at groups 2, 4 and 8, its first and last steps and a 3-token
-     prompt, and K4a-c at D=128 non-causal, untimed;
+     head dims (B=4, 32 heads, step 127 of 1024 + 256 slots), K4a-c at
+     the QLoRA path's call (D=96, B=1, 1024 tokens, 423 valid) and at a
+     Phi-2-shaped one (D=80, no path launches it), timed, with a
+     ``phi_calls`` line and both K4 calls on the ``flash_bwd_calls`` line;
+     K1 at D=80 and 96 (no path either) on 1024 tokens, K1/K2 at both on
+     the tile edge, K3 at groups 2, 4 and 8, its first and last steps and
+     a 3-token prompt, K4a-c at both non-causal and on the tile edge,
+     causal and not, and at D=128 non-causal, untimed;
   3. drives the serving path twice, each time full-width μ²Qwen3-1.7B with
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
@@ -111,7 +116,17 @@ Run from the root of a checkout. It
      seeded weights) through ``drive_report``: exported by
      ``save_hf_checkpoint`` (fp32, as users write it) and read through
      its config.json alone by ``U2InferenceModel``, one greedy report
-     (K1 12, K2 32) bit for bit the exported model's; its B=4
+     (K1 12, K2 32) bit for bit the exported model's; its stage 1 on the
+     same directory, ``cli train --qlora int8`` (``qlora_phase``: 4 steps
+     of B=1 at 1024 tokens on the stage-2 phase's cases, remat; each
+     step's launches by head dim K1 12 at D=64, K2 64 and K4a-c 32 each
+     at D=96, none at D=64 in the backward; one step profiled; the
+     adapters file read back bit for bit; a checkpoint of the trainable
+     leaves and the optimizer state), and its QLoRA step cut to 2 layers
+     against the CPU (``check_train_reference(..., qlora="int8")``: the
+     CLI's step, lora_b drawn at QLORA_B_STD so that every adapter has a
+     gradient; the same limits must reject the planted faults at D=96;
+     ``--qlora-reference-at`` reads it alone at other spreads); its B=4
      batches of 256 tokens, bf16 weights with the int8 cache and int8
      weights with the int4 cache (K3 32 a step); the Phi-2 decoder
      (GREEN-RadPhi2's architecture, seeded bf16 weights, an HF Phi-2
@@ -234,6 +249,13 @@ TRAIN_VALID, TRAIN_PROMPT = 900, 320  # the training row: valid, unlabelled
 # softmaxes over bf16 scores, and which are as far off the CPU's when the
 # card runs the plain attention in place of the kernels.
 TRAIN_LOSS_TOL, TRAIN_COS_MIN, TRAIN_NORM_TOL = 1e-3, 0.995, 3e-2
+# The QLoRA step's adapters in that check: lora_b drawn from
+# N(0, QLORA_B_STD^2) beside lora_a's N(0, 1/r), so that lora_a has a
+# gradient and (alpha/r) lora_a @ lora_b has a spread of 2 QLORA_B_STD,
+# about a tenth of the seeded decoder weights' (lecun normal, 0.018 at 3072
+# inputs), as a trained adapter's change is. ``--qlora-reference-at``
+# reads the same step at other spreads.
+QLORA_B_STD = 1e-3
 
 
 def log(*args):
@@ -869,9 +891,21 @@ def reset_launches(*modules):
             module.launches[name] = 0
 
 
-def read_launches(*modules):
-    return {name: n for module in modules for name, n in
-            module.launches.items()}
+def by_kernel(counts: dict) -> dict:
+    """Launch counts by kernel, summed over the head dims that
+    ``flash_attention`` counts them by ("flash_bwd_dq_d96")."""
+    out = {}
+    for key, n in counts.items():
+        name = re.sub(r"_d\d+$", "", key)
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def read_launches(*modules, by_dim: bool = False):
+    """The launch counts of ``modules`` by kernel, or with ``by_dim`` as
+    counted."""
+    counts = {k: n for module in modules for k, n in module.launches.items()}
+    return counts if by_dim else by_kernel(counts)
 
 
 def drive_main_path(torch, max_new: int, batch: int, weights: str,
@@ -2958,14 +2992,15 @@ def profile_call(torch, fa, fn):
                  "top_device_ms": {n: t / 1e3 for n, t in top}}
 
 
-def planted_faults(torch, fa):
+def planted_faults(torch, fa, mha: bool = False):
     """Faults of the flash backward's wiring, as replacements of ``fa``'s
     kernel wrappers, that the training reference check must reject: dk
     without its scale, dd left out of dS, dk and dv summed over only the
-    first q head of each GQA group, and lse taken over the keys past the
-    causal frontier. (A key off by one at the end of ``lens`` is left to
-    the kernel checks: in a causal layer only rows that the loss masks see
-    it, and in the ViT it is one key of 2049 in one of 8 rows.)"""
+    first q head of each GQA group (left out with ``mha``: with one q head
+    a kv head it is the sound kernel), and lse taken over the keys past
+    the causal frontier. (A key off by one at the end of ``lens`` is left
+    to the kernel checks: in a causal layer only rows that the loss masks
+    see it, and in the ViT it is one key of 2049 in one of 8 rows.)"""
     lse, dq, dkv = fa.flash_bwd_lse, fa.flash_bwd_dq, fa.flash_bwd_dkv
 
     def dk_unscaled(*args, scale, **kw):
@@ -2986,11 +3021,15 @@ def planted_faults(torch, fa):
     def lse_not_causal(q, k, lens, *, causal, scale):
         return lse(q, k, lens, causal=False, scale=scale)
 
-    return {"dk unscaled": {"flash_bwd_dkv": dk_unscaled},
-            "dd dropped": {"flash_bwd_dq": without_dd(dq),
-                           "flash_bwd_dkv": without_dd(dkv)},
-            "GQA sum of the first q head": {"flash_bwd_dkv": first_head_only},
-            "lse not causal": {"flash_bwd_lse": lse_not_causal}}
+    faults = {"dk unscaled": {"flash_bwd_dkv": dk_unscaled},
+              "dd dropped": {"flash_bwd_dq": without_dd(dq),
+                             "flash_bwd_dkv": without_dd(dkv)},
+              "GQA sum of the first q head": {
+                  "flash_bwd_dkv": first_head_only},
+              "lse not causal": {"flash_bwd_lse": lse_not_causal}}
+    if mha:
+        del faults["GQA sum of the first q head"]
+    return faults
 
 
 def plain_attention(fa):
@@ -3018,12 +3057,18 @@ def planted(fa, replacements):
             setattr(fa, name, fn)
 
 
-def gradient_readings(torch, model, ref):
-    """Per parameter: the cosine of its gradient to ``ref``'s (flat fp64)
-    and the ratio of their norms, summed in fp64."""
+def model_grads(model) -> dict:
+    """{name: gradient} of every parameter of ``model`` (after a step)."""
+    return {name: p.grad for name, p in model.named_parameters()}
+
+
+def gradient_readings(torch, grads, ref):
+    """Per parameter of ``grads`` ({name: gradient}): the cosine of its
+    gradient to ``ref``'s (flat fp64) and the ratio of their norms, summed
+    in fp64."""
     out = {}
-    for name, p in model.named_parameters():
-        g, r = p.grad.double().flatten().cpu(), ref[name]
+    for name, grad in grads.items():
+        g, r = grad.double().flatten().cpu(), ref[name]
         gn, rn = g.norm().item(), r.norm().item()
         if gn == rn == 0:  # no path to the loss (the top-k's score net)
             out[name] = {"cos": 1.0, "norm_ratio": 1.0}
@@ -3080,54 +3125,100 @@ def left_out_medians(readings, rule=left_out,
     return out
 
 
-def train_reference_readings(torch, fa):
+class GradientRecorder:
+    """An optimizer for ``lora.make_qlora_train_step`` that keeps the
+    gradients it is given and updates nothing."""
+
+    def update(self, grads) -> None:
+        self.grads = grads
+
+
+def train_reference_readings(torch, fa, qlora=None, lora_b_std=None,
+                             faults: bool = True):
     """One train step of the reduced-depth, full-width model (4 chunks, the
     fewest that give the μ²tokenizer's 1024-token top-k enough candidates;
     2 rows of 384 tokens, one valid for 300) on the CPU (fp32, plain
-    versions) and, from the same fp32 weights, on the card (bf16 compute,
-    kernels): sound, with the plain attention, and under each of
-    ``planted_faults``. Returns the CPU's loss, the card's sound loss, and
-    ``gradient_readings`` of the sound step, of the plain attention's and
-    of each fault's."""
+    versions) and, from the same weights, on the card (bf16 compute,
+    kernels): sound, with the plain attention, and (with ``faults``) under
+    each of ``planted_faults``. The model is μ²Qwen3-1.7B's, trained in
+    full by ``sft.make_trainer``; or, with ``qlora`` ("int8" or "int4"),
+    μ²Phi-3-mini's (heads of 96, MHA) as ``cli train --qlora`` sets it up
+    (``lora.make_qlora_trainer``: fp32 on the CPU; on the card the
+    μ²tokenizer and projector in bf16, then every leaf the CPU's), with
+    lora_b drawn from N(0, ``lora_b_std``²) so that lora_a has a gradient,
+    the gradients taken by ``lora.make_qlora_train_step`` (the CLI's step)
+    with a ``GradientRecorder`` for optimizer. Returns the CPU's loss, the
+    card's sound loss, and ``gradient_readings`` of the sound step, of the
+    plain attention's and of each fault's, by parameter name."""
     from u2tokenizer_torch.config import TrainConfig
     from u2tokenizer_torch.models.u2_model import U2CausalLM
-    from u2tokenizer_torch.train.sft import make_trainer
+    from u2tokenizer_torch.train import lora
+    from u2tokenizer_torch.train.sft import make_loss_fn, make_trainer
 
-    cfg = reduced_config(num_chunks=4)
+    cfg = reduced_config(num_chunks=4, base=phi3_config() if qlora else None)
     batch = training_batch(torch, cfg, 384, [384, 300], 280, seed=1)
-    cpu = U2CausalLM(cfg, dtype=torch.float32, device="cpu", seed=1,
-                     remat=True)
+    # μ²Phi-3's 0.66 B parameters are drawn on the card and moved: the
+    # CPU's generator draws them several times slower
+    cpu = U2CausalLM(cfg, dtype=torch.float32,
+                     device="cuda" if qlora else "cpu", seed=1,
+                     remat=True).to("cpu")
     gpu = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=2,
                      remat=True)
+    cpu_train = gpu_train = None
+    if qlora:
+        cpu_train = lora.make_qlora_trainer(
+            cpu, TrainConfig(bf16=False), 1, qlora)[0].train
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for path, p in cpu_train.items():
+                if path.endswith("/lora_b"):
+                    p.normal_(0.0, lora_b_std, generator=g)
+        gpu_train = lora.make_qlora_trainer(gpu, TrainConfig(), 1,
+                                            qlora)[0].train
+        names = {path: name for path, (name, _) in
+                 lora.named_leaves(gpu).items()}
     gpu.load_state_dict(cpu.state_dict())
     weights = {k: v.clone() for k, v in gpu.state_dict().items()}
-    state, step = make_trainer(cpu, TrainConfig(), 1)
-    _, metrics = step(state, batch)
-    loss_cpu = float(metrics["loss"])
-    ref = {n: p.grad.double().flatten() for n, p in cpu.named_parameters()}
-    del cpu, state, step
+
+    def step(model, device_batch, train=None):
+        """(loss, {name: gradient}) of one train step (QLoRA's over
+        ``train``)."""
+        if not qlora:
+            state, train_step = make_trainer(model, TrainConfig(), 1)
+            _, metrics = train_step(state, device_batch)
+            return float(metrics["loss"]), model_grads(model)
+        recorder = GradientRecorder()
+        loss, _, _ = lora.make_qlora_train_step(recorder, make_loss_fn())(
+            train, model, device_batch)
+        return loss.item(), {names[path]: g
+                             for path, g in recorder.grads.items()}
+
+    loss_cpu, grads = step(cpu, batch, cpu_train)
+    ref = {n: g.double().flatten() for n, g in grads.items()}
+    del cpu, cpu_train, grads
     card_batch = {k: v.to("cuda") for k, v in batch.items()}
 
     def card_step(replacements):
         gpu.load_state_dict(weights)
-        state, step = make_trainer(gpu, TrainConfig(), 1)
         with planted(fa, replacements):
-            _, metrics = step(state, card_batch)
-        return float(metrics["loss"]), gradient_readings(torch, gpu, ref)
+            loss, grads = step(gpu, card_batch, gpu_train)
+        return loss, gradient_readings(torch, grads, ref)
 
     loss_gpu, sound = card_step({})
     plain = card_step(plain_attention(fa))[1]
-    faults = {label: card_step(rep)[1]
-              for label, rep in planted_faults(torch, fa).items()}
-    return loss_cpu, loss_gpu, sound, plain, faults
+    wrong = {label: card_step(rep)[1] for label, rep in planted_faults(
+        torch, fa, mha=cfg.llm.num_heads == cfg.llm.num_kv_heads).items()
+        } if faults else {}
+    return loss_cpu, loss_gpu, sound, plain, wrong
 
 
-def check_train_reference(torch, fa):
-    """``train_reference_readings`` held to TRAIN_LOSS_TOL, TRAIN_COS_MIN
-    and TRAIN_NORM_TOL; fails unless the same limits reject every planted
-    fault."""
+def check_train_reference(torch, fa, qlora=None):
+    """``train_reference_readings`` (μ²Qwen3's SFT step, or with ``qlora``
+    μ²Phi-3's QLoRA step, lora_b drawn at QLORA_B_STD) held to
+    TRAIN_LOSS_TOL, TRAIN_COS_MIN and TRAIN_NORM_TOL; fails unless the
+    same limits reject every planted fault."""
     loss_cpu, loss_gpu, sound, plain, faults = train_reference_readings(
-        torch, fa)
+        torch, fa, qlora, QLORA_B_STD)
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     if not rel <= TRAIN_LOSS_TOL:
         raise AssertionError(f"reduced model train step: card vs CPU loss "
@@ -3146,7 +3237,11 @@ def check_train_reference(torch, fa):
                                  f"{worst_leaves(readings)}")
         caught[label] = {**worst_leaves(readings),
                          "leaves_rejected": len(bad)}
-    return {"loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel_err": rel,
+    return {"model": "mu2Phi-3-mini QLoRA " + qlora if qlora
+            else "mu2Qwen3-1.7B", **({"lora_b_std": QLORA_B_STD} if qlora
+                                     else {}),
+            "loss_cpu": loss_cpu, "loss_gpu": loss_gpu,
+            "loss_rel_err": rel,
             "loss_tol": TRAIN_LOSS_TOL, "grad_cos_min": TRAIN_COS_MIN,
             "grad_norm_tol": TRAIN_NORM_TOL,
             "leaves_held": sum(map(judged, sound)), "leaves": len(sound),
@@ -3155,6 +3250,23 @@ def check_train_reference(torch, fa):
                          "plain_attention": left_out_medians(plain)},
             "plain_attention": worst_leaves(plain),
             "planted_faults": caught}
+
+
+def qlora_reference_line(torch, fa, lora_b_std: float) -> dict:
+    """The QLoRA step's readings (``train_reference_readings``, no faults)
+    with lora_b drawn at ``lora_b_std``: the loss's relative error, and
+    for the kernels and the plain attention the worst judged leaves, the
+    median cosine and the leaves the limits reject."""
+    loss_cpu, loss_gpu, sound, plain, _ = train_reference_readings(
+        torch, fa, QLORA_MODE, lora_b_std, faults=False)
+    line = {"lora_b_std": lora_b_std,
+            "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu)}
+    for label, readings in (("kernels", sound), ("plain_attention", plain)):
+        line[label] = {**worst_leaves(readings), "median_cos":
+                       statistics.median(r["cos"] for n, r in
+                                         readings.items() if judged(n)),
+                       "misfits": len(misfits(readings))}
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -3352,7 +3464,7 @@ def step_probe(torch, fa, da, module, name: str, unpack: bool = False,
         step = made[1] if unpack else made
 
         def run(*args):
-            before = read_launches(fa, da)
+            before = read_launches(fa, da, by_dim=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             profile = None
@@ -3361,11 +3473,14 @@ def step_probe(torch, fa, da, module, name: str, unpack: bool = False,
             else:
                 out = step(*args)
             torch.cuda.synchronize()
-            after = read_launches(fa, da)
+            after = read_launches(fa, da, by_dim=True)
+            by_dim = {k: n - before[k] for k, n in after.items()}
             records.append({
                 "s": time.perf_counter() - t0, "profile": profile,
                 "metrics": {k: float(v) for k, v in out[1].items()},
-                "launches": {k: n - before[k] for k, n in after.items()},
+                "launches": by_kernel(by_dim),
+                "launches_by_dim": by_dim,
+                "shape": list(args[-1]["attention_mask"].shape),
                 "lens": args[-1]["attention_mask"].sum(-1).tolist()})
             return out
 
@@ -3389,9 +3504,12 @@ def step_readings(records, skip: int = 1) -> dict:
             "launches_per_step": records[-1]["launches"]}
 
 
-def expect_launches(label: str, records, want: dict) -> None:
+def expect_launches(label: str, records, want: dict,
+                    key: str = "launches") -> None:
+    """Each step's launches (``key``: by kernel, or "launches_by_dim" by
+    kernel and head dim) are ``want``, every other count 0."""
     for i, r in enumerate(records):
-        got = {k: n for k, n in r["launches"].items() if n or k in want}
+        got = {k: n for k, n in r[key].items() if n or k in want}
         if got != want:
             raise AssertionError(f"{label} step {i}: launches {got} != "
                                  f"{want}")
@@ -3838,7 +3956,7 @@ def dpo_reference_readings(torch, fa, tok):
         gpu.load_state_dict(weights)
         with planted(dpo, replacements or {}), planted(fa, attention or {}):
             loss = step(gpu, dpo.frozen_reference(gpu), batch)
-        return loss, gradient_readings(torch, gpu, ref)
+        return loss, gradient_readings(torch, model_grads(gpu), ref)
 
     loss_gpu, sound = card_step(card)
     plain = card_step(card, attention=plain_attention(fa))[1]
@@ -4009,24 +4127,44 @@ PHI_HEADS = {96: (32, 32, 96), 80: (32, 32, 80)}
 # 64), at a 1024-token call; K1 and K2 at both on the tile-edge shape
 # (group 2); K3 at both with groups 2, 4 and 8 and at the first and last
 # steps and a 3-token prompt; K4a-c at D=128 non-causal, a form no path
-# makes (ROADMAP.md queue 2).
+# makes.
 PHI_EDGE_FWD = ([dict(causal=False, b=2, s=PROMPT, h=32, hkv=32, d=d,
                       lens=[PROMPT, RAGGED], fused=False) for d in (80, 96)]
                 + [dict(EDGE_CALLS[1], causal=causal, d=d)
                    for d in (80, 96) for causal in (False, True)])
 BWD_NONCAUSAL_128_CALL = dict(PREFILL_CALL, causal=False, b=2,
                               lens=[PROMPT, RAGGED])
+# K4a-c at D=96 on the QLoRA path's call (``qlora_phase``: B=1, 1024
+# tokens, MHA, the valid length of the case its steps take first; the
+# phase holds its steps' tensors to this shape and checks the other steps'
+# lengths untimed), and at D=80 on a Phi-2-shaped call that no path makes
+# (B=1, 1024 tokens, 900 valid); both timed. Untimed: both dims
+# non-causal at (2, 1024, 32 heads) and both on the tile-edge shape,
+# causal and not.
+QLORA_VALID = 423
+QLORA_CALL = dict(PHI3_PREFILL_CALL, b=1, lens=[QLORA_VALID])
+PHI2_BWD_CALL = dict(PHI2_JUDGE_CALL, b=1, s=PROMPT, lens=[TRAIN_VALID])
+PHI_EDGE_BWD = ([dict(call, causal=False, b=2, lens=[PROMPT, RAGGED])
+                 for call in (QLORA_CALL, PHI2_BWD_CALL)]
+                + [dict(EDGE_CALLS[1], causal=causal, d=d)
+                   for d in (80, 96) for causal in (False, True)])
+# timed forms that no path of this script launches (their launch count is 0)
+NO_PATH_FORMS = ("flash_bwd_lse_d80", "flash_bwd_dq_d80", "flash_bwd_dkv_d80")
 
 
 def phi_kernel_checks(torch, F, fa, da, attn) -> tuple:
     """The Phi forms: K2 at μ²Phi-3's prefill (D=96) and at the Phi-2
     judge's (D=80), K3-int8 and K3-int4 at both (B=4, 32 heads, group 1,
-    step 127 of 1024 + 256 slots), timed; the untimed forms above. Returns
-    (the timed entries, named by form, and every check)."""
+    step 127 of 1024 + 256 slots), K4a-c at the QLoRA call (D=96) and the
+    Phi-2-shaped one (D=80), timed; the untimed forms above. Returns (the timed entries, named by form, and
+    every check)."""
     timed = {"flash_fwd_causal_d96": check_flash(torch, F, fa,
                                                  PHI3_PREFILL_CALL, 40),
              "flash_fwd_causal_d80": check_flash(torch, F, fa,
                                                  PHI2_JUDGE_CALL, 41)}
+    for d, call, seed in ((96, QLORA_CALL, 60), (80, PHI2_BWD_CALL, 61)):
+        for entry in check_flash_bwd(torch, F, fa, call, seed):
+            timed[f"{entry['name']}_d{d}"] = entry
     for d, heads in PHI_HEADS.items():
         for bits in (8, 4):
             timed[f"{da.KERNELS[bits]}_d{d}"] = check_decode(
@@ -4046,6 +4184,8 @@ def phi_kernel_checks(torch, F, fa, da, attn) -> tuple:
                        for hkv in (16, 8, 4)]
     checks += check_flash_bwd(torch, F, fa, BWD_NONCAUSAL_128_CALL, 50,
                               timed=False)
+    for i, call in enumerate(PHI_EDGE_BWD):
+        checks += check_flash_bwd(torch, F, fa, call, 62 + i, timed=False)
     for form, entry in timed.items():
         entry["head_dim"] = int(form[-2:])
         entry["kernel"], entry["name"] = entry["name"], form
@@ -4224,25 +4364,148 @@ def check_decoder_reference(torch, llm_cfg, cache="int8"):
     return logits_line(results, MODEL_NAMES[cfg.model_type], "bf16", cache)
 
 
-def drive_phi(torch, fa, da, volume, tmp: str, preds: str, card: str):
-    """The Phi phase: μ²Phi-3-mini's report from files, its B=4 batches
-    (bf16 weights with the int8 cache; int8 weights with the int4 cache;
-    PHI_NEW tokens), the Phi-2 judge through ``cli green`` on ``preds``,
-    Phi-2's greedy B=4 batches over the int8 and int4 caches, and both
-    reduced-depth checks against the CPU. The launch counters are reset
-    at each part, so that each path's counts are its own: K2 and K3 at
-    D=96 on μ²Phi-3's (K1 at the ViT's D=64), at D=80 on Phi-2's. Returns
-    the launches by path."""
+# μ²Phi-3-mini's stage 1 through ``cli train --qlora`` (``qlora_phase``):
+# QLORA_STEPS steps of B=1 at 1024 tokens from the exported checkpoint, on
+# the stage-2 phase's three cases; step 0 warms, the middle ones are timed,
+# the last is profiled. Each step launches K1 12 (the frozen ViT, forward
+# only), K2 64 at D=96 (32 layers, forward again under remat) and K4a-c 32
+# each at D=96, and nothing at D=64 in the backward.
+QLORA_STEPS, QLORA_MODE = 4, "int8"
+QLORA_LAUNCHES = {"flash_fwd_noncausal_d64": 12, "flash_fwd_causal_d96": 64,
+                  "flash_bwd_lse_d96": 32, "flash_bwd_dq_d96": 32,
+                  "flash_bwd_dkv_d96": 32}
+
+
+def qlora_phase(torch, fa, da, tmp: str) -> tuple:
+    """``cli train --qlora int8`` on μ²Phi-3-mini's exported directory
+    ``tmp/mu2phi3`` with the stage-2 phase's ``tmp/green_dpo/cases.jsonl``:
+    QLORA_STEPS steps (B=1, 1024 tokens, remat), their launches by head dim
+    held to QLORA_LAUNCHES, their batches to QLORA_CALL's shape (the first
+    step's valid length QLORA_VALID), finite losses; the adapters file
+    read back through the port's reader equal to the trained leaves bit
+    for bit; the checkpoint holding the trainable leaves and the optimizer
+    state alone. Returns (the result line, the phase's launches, the
+    steps' valid lengths)."""
+    from u2tokenizer_torch.train import lora
+    from u2tokenizer_torch.train.checkpoint import (STATE_FILE,
+                                                    load_params_msgpack)
+    from u2tokenizer_torch.weights import flatten
+
+    cfg = phi3_config()
+    out = os.path.join(tmp, "qlora")
+    tok = green_tokenizer(cfg.llm.vocab_size)
+    reset_launches(fa, da)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with step_probe(torch, fa, da, lora, "make_qlora_trainer", unpack=True,
+                    profile_at=QLORA_STEPS - 1) as recs:
+        state = cli_run(["train", "--qlora", QLORA_MODE, "--pretrained",
+                         os.path.join(tmp, "mu2phi3"), "--tokenizer", "mock",
+                         "--train-base-path", os.path.join(tmp, "green_dpo"),
+                         "--train-jsonl-path", "cases.jsonl", "--max-steps",
+                         str(QLORA_STEPS), "--batch-size", "1",
+                         "--max-length", str(PROMPT), "--num-workers", "2",
+                         "--output-dir", out], tokenizer=tok)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches(fa, da)
+    expect_launches("qlora", recs, QLORA_LAUNCHES, key="launches_by_dim")
+    readings = step_readings(recs)
+    if not all(math.isfinite(x) for x in readings["loss"]
+               + readings["grad_norm"]):
+        raise AssertionError(f"qlora: {readings}")
+    lens = [r["lens"] for r in recs]
+    # the kernels are checked and timed at QLORA_CALL: the steps' batches
+    # must have its shape (B=1, S=PROMPT; q (1, S, 32, 96)) and the first
+    # its valid length
+    if (any(r["shape"] != [QLORA_CALL["b"], QLORA_CALL["s"]] for r in recs)
+            or lens[0] != QLORA_CALL["lens"]):
+        shapes = [r["shape"] for r in recs]
+        raise AssertionError(f"qlora steps' batches {shapes}, lens {lens}, "
+                             f"not QLORA_CALL's")
+    adapters = os.path.join(out, "qlora_adapters.msgpack")
+    t1 = time.perf_counter()
+    back = flatten(load_params_msgpack(adapters))
+    read_s = time.perf_counter() - t1
+    want = flatten(lora.flax_tree(state.model, state.train))
+    if sorted(back) != sorted(want) or not all(
+            back[k].dtype == want[k].dtype and torch.equal(back[k], want[k])
+            for k in want):
+        raise AssertionError("qlora: the adapters file does not read back "
+                             "as the trained leaves")
+    step_dir = os.path.join(out, "checkpoints", str(QLORA_STEPS))
+    saved = torch.load(os.path.join(step_dir, STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    if set(saved) != {"step", "train", "optimizer"} or \
+            set(saved["train"]) != set(state.train):
+        raise AssertionError("qlora: the checkpoint holds other leaves than "
+                             "the trainable ones")
+    n_train = sum(p.numel() for p in state.train.values())
+    n_all = sum(p.numel() for p in state.model.parameters())
+    dtypes = sorted({str(p.dtype) for p in state.train.values()})
+    line = {**readings, "model": "mu2Phi-3-mini", "qlora": QLORA_MODE,
+            "lora_rank": state.model.cfg.llm.lora_rank,
+            "batch": 1, "seq": PROMPT, "valid_tokens": lens,
+            "remat": True, "trainable_params": n_train,
+            "all_params": n_all, "trainable_dtypes": dtypes,
+            "cli_total_s": total_s, "peak_mem_gb": peak / 1e9,
+            "adapters_file_gb": os.path.getsize(adapters) / 1e9,
+            "adapters_read_s": read_s,
+            "checkpoint_gb": sum(e.stat().st_size for e in
+                                 os.scandir(step_dir)) / 1e9,
+            "profile": recs[-1]["profile"],
+            "launches_per_step": {k: n for k, n in
+                                  recs[-1]["launches_by_dim"].items() if n}}
+    del state, saved, back, want
+    shutil.rmtree(out)
+    return line, launches, sorted({n for row in lens for n in row})
+
+
+def drive_phi(torch, F, fa, da, volume, tmp: str, preds: str, card: str):
+    """The Phi phase: μ²Phi-3-mini's report from files, its stage 1
+    through ``cli train --qlora`` on the same exported directory
+    (``qlora_phase``) and the QLoRA step's reduced-depth check against the
+    CPU, its B=4 batches (bf16 weights with the int8 cache; int8 weights
+    with the int4 cache; PHI_NEW tokens), the Phi-2 judge through ``cli
+    green`` on ``preds``, Phi-2's greedy B=4 batches over the int8 and
+    int4 caches, and both reduced-depth checks against the CPU. The
+    launch counters are reset at each part, so that each path's counts
+    are its own: K2 and K3 at D=96 on μ²Phi-3's (K1 at the ViT's D=64),
+    the QLoRA path's by head dim (K4a-c at D=96), at D=80 on Phi-2's.
+    Returns (the launches by path, the K4 checks at the QLoRA steps' other
+    valid lengths, the QLoRA part's seconds)."""
     counts = {}
     t0 = time.perf_counter()
     cfg = phi3_config()
     _, line = drive_report(torch, fa, da, volume, tmp, cfg, sampled=False,
                            config_json=True)
-    # nothing later reads the checkpoint (about 19 GB in fp32)
-    shutil.rmtree(os.path.join(tmp, "mu2phi3"))
     counts["report_mu2phi3"] = line["launches"]
     line["card"] = card
     print(json.dumps({"report_mu2phi3": line}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    line, counts["qlora_mu2phi3"], lens = qlora_phase(torch, fa, da, tmp)
+    # nothing later reads the checkpoint (about 19 GB in fp32)
+    shutil.rmtree(os.path.join(tmp, "mu2phi3"))
+    line["card"] = card
+    print(json.dumps({"qlora_mu2phi3": line}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_reference_check": check_train_reference(
+        torch, fa, qlora=QLORA_MODE), "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K4a-c at the QLoRA steps' other valid lengths, untimed (the first's,
+    # QLORA_CALL, is timed with the other kernel checks)
+    checks = [e for i, n in enumerate(n for n in lens if n != QLORA_VALID)
+              for e in check_flash_bwd(torch, F, fa,
+                                       dict(QLORA_CALL, lens=[n]), 70 + i,
+                                       timed=False)]
+    for k in checks:
+        print(json.dumps({"kernel_check": k}), flush=True)
+    qlora_s = time.perf_counter() - t1
     for weights, cache in (("bf16", "int8"), ("int8", "int4")):
         counts[f"batch_mu2phi3_{cache}"] = serve_and_check(
             torch, da, PHI_NEW, BATCH, weights, cache, VISION_MICROBATCH,
@@ -4275,9 +4538,10 @@ def drive_phi(torch, fa, da, volume, tmp: str, preds: str, card: str):
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"phi_phase_s": {"mu2phi3": phi3_s,
+                                      "qlora_mu2phi3": qlora_s,
                                       "phi2": time.perf_counter() - t0}}),
           flush=True)
-    return counts
+    return counts, checks, qlora_s
 
 
 
@@ -4287,6 +4551,11 @@ def main() -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="build and check the kernels, then stop "
                         "(no result line)")
+    parser.add_argument("--qlora-reference-at", type=float, nargs="+",
+                        metavar="STD", help="build the kernels, read the "
+                        "2-layer QLoRA step against the CPU with lora_b "
+                        "drawn at each spread, with the kernels and with "
+                        "the plain attention, then stop (no result line)")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -4321,6 +4590,11 @@ def main() -> int:
         text=True).stdout)
     print(json.dumps({"build_s": build_s, "nvcc": nvcc and nvcc.group(1),
                       "ptxas": ptxas}), flush=True)
+    for std in args.qlora_reference_at or ():
+        print(json.dumps({"qlora_reference_readings": qlora_reference_line(
+            torch, fa, std), "card": card}), flush=True)
+    if args.qlora_reference_at:
+        return 0
 
     k1 = check_flash(torch, F, fa, VIT_CALL, 1)
     k2 = check_flash(torch, F, fa, PREFILL_CALL, 2)
@@ -4374,10 +4648,10 @@ def main() -> int:
     print(json.dumps({"decode_calls": decode_summary(
         {f"int8_b{BATCH}": int8, f"int4_b{QUANT_BATCH}": int4,
          f"int4_b{BATCH}": int4_b4}), "card": card}), flush=True)
-    print(json.dumps({"flash_bwd_calls": flash_bwd_summary(
+    # printed after the Phi forms, with the QLoRA path's D=96 call
+    bwd_calls = flash_bwd_summary(
         {"vit": vit_bwd, "decoder": dec_bwd, "decoder_b1": b1_bwd,
-         "decoder_dpo": dpo_bwd}),
-        "card": card}), flush=True)
+         "decoder_dpo": dpo_bwd})
     # one entry per kernel: K1 at the ViT's call with the quantized path's
     # beside it, K2 at the B=4 prefill with the quantized path's, the
     # training path's and the μ²Llama report's beside it, each with the
@@ -4426,10 +4700,15 @@ def main() -> int:
         print(json.dumps({"kernel_check": k}), flush=True)
     print(json.dumps({"phi_calls": {
         "flash_fwd": flash_fwd_summary({f: e for f, e in phi_timed.items()
-                                        if f.startswith("flash")}),
+                                        if f.startswith("flash_fwd")}),
         "decode": decode_summary({f: e for f, e in phi_timed.items()
                                   if f.startswith("decode")})},
         "card": card}), flush=True)
+    bwd_calls.update(flash_bwd_summary(
+        {label: tuple(phi_timed[f"{name}_d{d}"] for name in fa.BWD_KERNELS)
+         for label, d in (("qlora_mu2phi3_d96", 96), ("phi2_shaped_d80", 80))}))
+    print(json.dumps({"flash_bwd_calls": bwd_calls, "card": card}),
+          flush=True)
     for entry in phi_timed.values():
         entry["max_abs_err"] = max(
             [entry["max_abs_err"]] + [c["max_abs_err"] for c in phi_checks
@@ -4479,8 +4758,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        phi_counts = drive_phi(torch, fa, da, volume, tmp, os.path.join(
-            tmp, "green_dpo", "preds.jsonl"), card)
+        phi_counts, qlora_calls, qlora_s = drive_phi(
+            torch, F, fa, da, volume, tmp,
+            os.path.join(tmp, "green_dpo", "preds.jsonl"), card)
         phi_s = time.perf_counter() - t0
     del volume
     gc.collect()
@@ -4523,26 +4803,35 @@ def main() -> int:
     for new in green_calls:
         entry = next(k for k in kernels if k["name"] == new["name"])
         entry["max_abs_err"] = max(entry["max_abs_err"], new["max_abs_err"])
-    family = {96: "mu2phi3", 80: "phi2"}  # the paths of each Phi form
+    # the QLoRA steps' other valid lengths, checked untimed
+    for new in qlora_calls:
+        entry = next(k for k in kernels if k.get("kernel") == new["name"]
+                     and k["head_dim"] == 96)
+        entry["max_abs_err"] = max(entry["max_abs_err"], new["max_abs_err"])
+    # a Phi form's launches are its kernel's on the paths of its head dim,
+    # which run each kernel at that dim alone (the ViT's K1 at D=64 counts
+    # to the D=64 entry); the QLoRA steps are held to it by head dim
+    family = {96: "mu2phi3", 80: "phi2"}
     for k in kernels:
         if "head_dim" in k:
-            by_path = {path: n[k["kernel"]] for path, n in phi_counts.items()
+            by_path = {path: n.get(k["kernel"], 0)
+                       for path, n in phi_counts.items()
                        if family[k["head_dim"]] in path}
         else:
             by_path = {path: n[k["name"]] for path, n in counts.items()}
         if k["name"] == "flash_fwd_noncausal":  # μ²Phi-3's ViT, D=64
-            by_path.update({path: n[k["name"]]
+            by_path.update({path: n.get(k["name"], 0)
                             for path, n in phi_counts.items()})
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-        if not k["launches"]:
+        if not k["launches"] and k["name"] not in NO_PATH_FORMS:
             raise AssertionError(f"{k['name']}: no launch on its paths")
         for key in ("shape", "check", "ref_scale", "plain_rows",
                     "device_ms_traced"):
             k.pop(key, None)
     print(json.dumps({"script_s": time.perf_counter() - t_start,
-                      "green_dpo_phase_s": green_s, "phi_phase_s": phi_s}),
-          flush=True)
+                      "green_dpo_phase_s": green_s, "phi_phase_s": phi_s,
+                      "qlora_phase_s": qlora_s}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ the CPU at the tiny configuration (``--tiny --device cpu``):
 ``green`` (the stub judge) -> ``dpo-convert`` -> ``dpo`` (one step). The
 ``green`` and ``dpo-convert`` files equal the JAX package's commands'
 output on the same predictions, byte for byte. Every subcommand that runs
-a model runs on the GPU by default and raises without one; ``--qlora``,
-meshes and the msgpack checkpoint form raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+a model runs on the GPU by default and raises without one; meshes (with
+``--qlora`` too) and the msgpack checkpoint form raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item (``--qlora``
+itself runs: ``test_torch_qlora_train.py``).
 """
 
 import argparse
@@ -177,8 +178,11 @@ def test_subcommands_need_a_gpu(name, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--qlora", "int8"], "LoRA"), (["--mesh-fsdp", "2"], "parallel/"),
-    (["--mesh-data", "4"], "parallel/")])
+    # --qlora is ported; on a mesh it is refused as every mesh is (the id
+    # is the case's name from when --qlora itself was refused)
+    pytest.param(["--qlora", "int8", "--mesh-fsdp", "2"], "parallel/",
+                 id="extra0-LoRA"),
+    (["--mesh-fsdp", "2"], "parallel/"), (["--mesh-data", "4"], "parallel/")])
 def test_train_refuses_what_is_not_ported(extra, item):
     args = cli.build_parser().parse_args(
         SUBCOMMANDS["train"] + ["--device", "cpu"] + extra)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of it, nor ``chip_smoke.py``,
-imports JAX, flax or the JAX package; its configs copy the JAX package's
+imports JAX, flax, optax, the ``msgpack`` package (the port reads and
+writes flax's msgpack form itself) or the JAX package; its configs copy the JAX package's
 field for field; its entry points refuse to run on a GPU that is absent
 unless the caller asks for the CPU."""
 
@@ -22,7 +23,8 @@ pytestmark = pytest.mark.fast
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = pathlib.Path(u2tokenizer_torch.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "u2tokenizer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+             "u2tokenizer_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

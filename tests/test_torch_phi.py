@@ -314,8 +314,8 @@ def test_cli_green_with_a_phi2_judge(tmp_path, monkeypatch):
 @pytest.mark.parametrize("d", [64, 80, 96, 128, 48, 112])
 def test_kernel_wrappers_take_phi_head_dims(d):
     """The CUDA wrappers' operand checks, made before a launch: the flash
-    forward (K1/K2) and the decode kernel (K3) take D in {64, 80, 96, 128},
-    the flash backward (K4a-c) {64, 128}; any other D raises."""
+    forward (K1/K2), the flash backward (K4a-c) and the decode kernel (K3)
+    take D in {64, 80, 96, 128}; any other D raises."""
     from u2tokenizer_torch.ops import decode_attention as t_dec
     from u2tokenizer_torch.ops import flash_attention as t_flash
 
@@ -329,7 +329,7 @@ def test_kernel_wrappers_take_phi_head_dims(d):
             with pytest.raises(ValueError, match="head dim"):
                 t_flash._check_attention(q, q, q, lens, dims)
     assert t_flash.FWD_HEAD_DIMS == (64, 80, 96, 128)
-    assert t_flash.BWD_HEAD_DIMS == (64, 128)
+    assert t_flash.BWD_HEAD_DIMS == (64, 80, 96, 128)
     cache = torch.zeros(b, h, s, d, dtype=torch.int8)
     scales = torch.zeros(b, h, s, dtype=torch.bfloat16)
     args = (q[:, :1].contiguous(), cache, scales, cache, scales, lens, lens)

@@ -152,10 +152,6 @@ def cmd_train(args, tokenizer=None):
     from .train.loop import MetricLogger, run_training
     from .train.sft import make_trainer
 
-    if args.qlora != "off":
-        raise NotImplementedError(
-            "--qlora needs the JAX package's train/lora.py, which the port "
-            "does not have yet (ROADMAP.md queue 1, LoRA/QLoRA)")
     if max(args.mesh_data, args.mesh_fsdp, args.mesh_tensor) > 1:
         raise NotImplementedError(
             "meshes need the JAX package's parallel/ module, which the "
@@ -191,6 +187,9 @@ def cmd_train(args, tokenizer=None):
                        remat=tcfg.remat)
     if args.pretrained:
         _load_pretrained_into(model, args.pretrained, cfg)
+    if args.qlora != "off":
+        return _run_qlora_training(args, model, tcfg, loader, total,
+                                   steps_per_epoch)
     trainable = None
     if args.freeze_vision_tower:
         trainable = lambda p: "vision_tower" not in p
@@ -200,6 +199,38 @@ def cmd_train(args, tokenizer=None):
                           wandb_project=args.wandb_project)
     state = run_training(tcfg, state, train_step, lambda epoch: iter(loader),
                          steps_per_epoch=steps_per_epoch, logger=logger)
+    print("training complete", file=sys.stderr)
+    return state
+
+
+def _run_qlora_training(args, model, tcfg, loader, total_steps,
+                        steps_per_epoch):
+    """QLoRA SFT on one card (the JAX CLI's ``_run_qlora_training``): the
+    float ``model``'s decoder quantized to ``--qlora`` in place and frozen,
+    fp32 adapters of ``--lora-rank`` / ``--lora-alpha`` on its
+    projections, the μ²tokenizer and projector trained full-rank in bf16
+    (Adafactor), the adapters by AdamW (``lora.make_qlora_trainer``). The
+    frozen base is not checkpointed: resume re-derives it from
+    ``--pretrained`` by the same deterministic quantization, and only the
+    trainable leaves and the optimizer state go into the checkpoints. At
+    the end the trainable tree is written to
+    ``<output_dir>/qlora_adapters.msgpack`` in flax's msgpack form.
+    Returns the ``QLoraState``."""
+    from .train.checkpoint import save_params_msgpack
+    from .train.lora import flax_tree, make_qlora_trainer
+    from .train.loop import MetricLogger, run_training
+
+    state, train_step = make_qlora_trainer(
+        model, tcfg, total_steps, args.qlora, args.lora_rank,
+        args.lora_alpha)
+    logger = MetricLogger(tcfg.output_dir, use_wandb=args.wandb,
+                          wandb_project=args.wandb_project)
+    state = run_training(tcfg, state, train_step, lambda epoch: iter(loader),
+                         steps_per_epoch=steps_per_epoch, logger=logger)
+    out = os.path.join(tcfg.output_dir, "qlora_adapters.msgpack")
+    save_params_msgpack(out, flax_tree(state.model, state.train))
+    print(f"qlora adapters saved to {out} (merge for export with "
+          "train.lora.merge_qlora over the quantized base)", file=sys.stderr)
     print("training complete", file=sys.stderr)
     return state
 

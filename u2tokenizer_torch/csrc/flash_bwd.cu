@@ -55,9 +55,22 @@
 //     65,536 registers):
 //       K4b  D=64   50,200 B  122 / 122  4      D=128   99,352 B  156 / 154  2
 //       K4c  D=64   51,224 B  168 / 161  3      D=128  100,376 B  236 / 230  2
+//       K4b  D=80, D=96   99,352 B  156 / 154  2   (D=128's layout)
+//       K4c  D=80, D=96  100,376 B  236 / 230  2
+//       K4a  58 registers at every D; 25,624 B at D=64, 50,200 B else
 //     where PR 2's fp32 staging (K4c 125,440 / 190,976 B) allowed one K4c
 //     block. K4c at D=128 holds 128 accumulator floats, S^T and dP^T (64)
 //     and the bf16 P^T and dS^T operands (32) a thread.
+//   * Head dims 80 (Phi-2) and 96 (Phi-3) take D=128's tiles (Width), as
+//     the forward does: the TMA maps keep the tensor's own d, so the second
+//     64-column box of a row arrives with its columns past d zeroed (its
+//     bytes still count on the mbarrier), and nothing is padded or copied in
+//     device memory. S = Q K^T and dP = dO V^T (K4c: their transposes) sum
+//     only the d/16 k-steps that hold data; dQ += dS K, dV += P^T dO and
+//     dK += dS^T Q run at N = 128, where the columns past d meet zero K, dO
+//     and Q columns and stay zero; the stores write d columns. The three
+//     N = 128 products do 128/d times the work they need (N = d, which
+//     wgmma allows, is later work).
 //   * Masks: only tiles that cross lens[b], the sequence end or the causal
 //     diagonal test each (query, key) pair; a masked pair gets P = 0. A
 //     K4c block whose keys all lie at or past lens[b] writes zeros without
@@ -105,9 +118,16 @@ namespace {
 
 // ---------------------------------------------------------------- K4a ----
 
+// Tile width: 64 columns at D=64, 128 at D=80, 96 and 128 (Phi-2's and
+// Phi-3's head dims take D=128's tiles, as in flash_fwd.cu).
+template <int D>
+struct Width {
+  static constexpr int value = D <= 64 ? 64 : 128;
+};
+
 template <int D>
 struct LseLayout {
-  static constexpr int tile = Tile<D>::bytes;
+  static constexpr int tile = Tile<Width<D>::value>::bytes;
   static constexpr int q = 0;
   static constexpr int k0 = q + tile;          // K tile t in slot t % 2
   static constexpr int bars = k0 + 2 * tile;   // Q, then one a K slot
@@ -116,11 +136,12 @@ struct LseLayout {
 
 // q and k are read through TMA maps (tensor_map in hopper.cuh).
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS, D == 64 ? 6 : 4)
+__global__ void __launch_bounds__(NTHREADS, Width<D>::value == 64 ? 6 : 4)
 lse_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
            const int* __restrict__ lens, float* __restrict__ lse, int sq, int sk,
            int group, float scale) {
   using L = LseLayout<D>;
+  constexpr int W = Width<D>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned base = aligned_smem(smem);
   const unsigned bar = base + L::bars;
@@ -141,7 +162,7 @@ lse_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
   auto k_bar = [&](int t) { return bar + 8 * (1 + (t & 1)); };
   auto issue_k = [&](int t) {  // by one thread
     mbar_expect(k_bar(t), L::tile);
-    tma_tile<D>(base + L::k0 + (t & 1) * L::tile, k, t * BK, kvh, b, k_bar(t));
+    tma_tile<W>(base + L::k0 + (t & 1) * L::tile, k, t * BK, kvh, b, k_bar(t));
   };
   if (threadIdx.x == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i);
@@ -150,7 +171,7 @@ lse_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
   __syncthreads();
   if (threadIdx.x == 0) {
     mbar_expect(bar, L::tile);
-    tma_tile<D>(base + L::q, q, q0, h, b, bar);
+    tma_tile<W>(base + L::q, q, q0, h, b, bar);
     issue_k(0);
   }
 
@@ -172,7 +193,7 @@ lse_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
     float s[8][4];
     zero(s);  // before the fence: wgmma then reads what these wrote
     wgmma_fence();
-    scores<D>(s, base + L::q, base + L::k0 + (t & 1) * L::tile);  // S = Q K^T
+    scores<W, D / 16>(s, base + L::q, base + L::k0 + (t & 1) * L::tile);  // S = Q K^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -246,7 +267,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 template <int D>
 struct DqLayout {
-  static constexpr int tile = Tile<D>::bytes;
+  static constexpr int tile = Tile<Width<D>::value>::bytes;
   static constexpr int q = 0;
   static constexpr int dout = q + tile;
   static constexpr int stage0 = dout + tile;  // stage s: K at +0, V at +tile
@@ -257,13 +278,14 @@ struct DqLayout {
 
 // q, k, v and dO are read through TMA maps (tensor_map below).
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(NTHREADS, Width<D>::value == 64 ? 3 : 2)
 dq_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
           const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap dout,
           const float* __restrict__ lse, const float* __restrict__ dd,
           const int* __restrict__ lens, bf16* __restrict__ dq, int sq, int sk,
           int group, float scale, Strides dqs) {
   using L = DqLayout<D>;
+  constexpr int W = Width<D>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned base = aligned_smem(smem);
   const unsigned bar = base + L::bars;
@@ -290,13 +312,13 @@ dq_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtenso
     const unsigned st = base + L::stage0 + (t & 1) * L::stage;
     const unsigned full = bar + 8 * (1 + (t & 1));
     mbar_expect(full, 2 * L::tile);
-    tma_tile<D>(st, k, t * BK, kvh, b, full);
-    tma_tile<D>(st + L::tile, v, t * BK, kvh, b, full);
+    tma_tile<W>(st, k, t * BK, kvh, b, full);
+    tma_tile<W>(st + L::tile, v, t * BK, kvh, b, full);
   };
   if (threadIdx.x == 0) {
     mbar_expect(bar, 2 * L::tile);
-    tma_tile<D>(base + L::q, q, q0, h, b, bar);
-    tma_tile<D>(base + L::dout, dout, q0, h, b, bar);
+    tma_tile<W>(base + L::q, q, q0, h, b, bar);
+    tma_tile<W>(base + L::dout, dout, q0, h, b, bar);
     if (n_tiles > 0) issue(0);
   }
 
@@ -311,7 +333,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtenso
     dd_r[i] = qi < sq ? dd[stat] : 0.f;
   }
 
-  float acc[D / 8][4];
+  float acc[W / 8][4];  // columns past d stay zero and are not stored
   zero(acc);
   mbar_wait(bar, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -324,9 +346,9 @@ dq_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtenso
     zero(s);  // before the fence: wgmma then reads what these wrote
     zero(dp);
     wgmma_fence();
-    scores<D>(s, base + L::q, sK);      // S
+    scores<W, D / 16>(s, base + L::q, sK);      // S
     wgmma_commit();
-    scores<D>(dp, base + L::dout, sV);  // dP, in flight while P is formed
+    scores<W, D / 16>(dp, base + L::dout, sV);  // dP, in flight while P is formed
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(s);
@@ -353,7 +375,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtenso
     unsigned ds[4][4];
     to_operand(ds, dp);
     wgmma_fence();
-    accumulate<D>(acc, ds, sK);  // dQ += dS K
+    accumulate<W>(acc, ds, sK);  // dQ += dS K
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -368,7 +390,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtenso
 
 template <int D>
 struct DkvLayout {
-  static constexpr int tile = Tile<D>::bytes;
+  static constexpr int tile = Tile<Width<D>::value>::bytes;
   static constexpr int k = 0;
   static constexpr int v = k + tile;
   static constexpr int stage0 = v + tile;  // stage s: Q at +0, dO at +tile
@@ -380,7 +402,7 @@ struct DkvLayout {
 };
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(NTHREADS, Width<D>::value == 64 ? 3 : 2)
 dkv_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap k,
            const __grid_constant__ CUtensorMap v, const __grid_constant__ CUtensorMap dout,
            const float* __restrict__ lse, const float* __restrict__ dd,
@@ -388,6 +410,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
            bf16* __restrict__ dv, int h, int sq, int sk, int group,
            float scale, Strides dks, Strides dvs) {
   using L = DkvLayout<D>;
+  constexpr int W = Width<D>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned base = aligned_smem(smem);
   const unsigned bar = base + L::bars;
@@ -434,8 +457,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
       const unsigned st = base + L::stage0 + (it & 1) * L::stage;
       const unsigned full = bar + 8 * (1 + (it & 1));
       mbar_expect(full, 2 * L::tile);
-      tma_tile<D>(st, q, q0, hq, b, full);
-      tma_tile<D>(st + L::tile, dout, q0, hq, b, full);
+      tma_tile<W>(st, q, q0, hq, b, full);
+      tma_tile<W>(st + L::tile, dout, q0, hq, b, full);
     }
     if (threadIdx.x < 2 * BQ) {
       const int i = threadIdx.x % BQ;
@@ -447,8 +470,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
   };
   if (threadIdx.x == 0) {
     mbar_expect(bar, 2 * L::tile);
-    tma_tile<D>(base + L::k, k, k0, kvh, b, bar);
-    tma_tile<D>(base + L::v, v, k0, kvh, b, bar);
+    tma_tile<W>(base + L::k, k, k0, kvh, b, bar);
+    tma_tile<W>(base + L::v, v, k0, kvh, b, bar);
   }
   if (n_iter > 0) issue(0);
   cp_async_commit();
@@ -456,7 +479,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
 
   // this lane's key rows of the tile: r0 and r0 + 8
   const int r0 = warp * 16 + lane / 4;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[W / 8][4], dv_acc[W / 8][4];  // columns past d stay zero
   zero(dk_acc);
   zero(dv_acc);
   for (int it = 0; it < n_iter; ++it) {
@@ -474,9 +497,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
     zero(s);  // before the fence: wgmma then reads what these wrote
     zero(dp);
     wgmma_fence();
-    scores<D>(s, base + L::k, sQ);   // S^T
+    scores<W, D / 16>(s, base + L::k, sQ);   // S^T
     wgmma_commit();
-    scores<D>(dp, base + L::v, sO);  // dP^T, in flight while P^T is formed
+    scores<W, D / 16>(dp, base + L::v, sO);  // dP^T, in flight while P^T is formed
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(s);
@@ -498,7 +521,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
     unsigned pa[4][4], da[4][4];
     to_operand(pa, s);
     wgmma_fence();
-    accumulate<D>(dv_acc, pa, sO);  // dV += P^T dO, in flight while dS^T is formed
+    accumulate<W>(dv_acc, pa, sO);  // dV += P^T dO, in flight while dS^T is formed
     wgmma_commit();
     wgmma_wait<1>();  // dP^T
     fence_regs(dp);
@@ -512,7 +535,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtens
     }
     to_operand(da, dp);
     wgmma_fence();
-    accumulate<D>(dk_acc, da, sQ);  // dK += dS^T Q
+    accumulate<W>(dk_acc, da, sQ);  // dK += dS^T Q
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
@@ -594,26 +617,46 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// The launcher F::run<D, CAUSAL> of the call's head dim and mask.
+template <typename F, typename... A>
+int dispatch(int d, int causal, A... a) {
+  switch (d) {
+    case 64: return causal ? F::template run<64, true>(a...) : F::template run<64, false>(a...);
+    case 80: return causal ? F::template run<80, true>(a...) : F::template run<80, false>(a...);
+    case 96: return causal ? F::template run<96, true>(a...) : F::template run<96, false>(a...);
+    case 128: return causal ? F::template run<128, true>(a...) : F::template run<128, false>(a...);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+struct Lse {
+  template <int D, bool CAUSAL, typename... A>
+  static int run(A... a) { return launch_lse<D, CAUSAL>(a...); }
+};
+struct Dq {
+  template <int D, bool CAUSAL, typename... A>
+  static int run(A... a) { return launch_dq<D, CAUSAL>(a...); }
+};
+struct Dkv {
+  template <int D, bool CAUSAL, typename... A>
+  static int run(A... a) { return launch_dkv<D, CAUSAL>(a...); }
+};
+
 }  // namespace
 
 // All entry points: bf16 q (B, Sq, H, D), k/v (B, Sk, Hkv, D), dout like q;
-// fp32 lse/dd (B, H, Sq) contiguous; int32 lens (B,); d in {64, 128};
-// `strides` is host memory holding 3 int64 (batch, sequence, head) strides
-// in elements per tensor, in the order of the tensor arguments.
+// fp32 lse/dd (B, H, Sq) contiguous; int32 lens (B,); d in {64, 80, 96,
+// 128}; `strides` is host memory holding 3 int64 (batch, sequence, head)
+// strides in elements per tensor, in the order of the tensor arguments.
 
 // strides: q, k.
 extern "C" int flash_bwd_lse(const void* q, const void* k, const void* lens,
                              void* lse, int b, int h, int hkv, int sq, int sk,
                              int d, int causal, float scale,
                              const void* strides, void* stream) {
-  const int* l = static_cast<const int*>(lens);
-  const long long* st = static_cast<const long long*>(strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && !causal) return launch_lse<64, false>(q, k, l, lse, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 64 && causal) return launch_lse<64, true>(q, k, l, lse, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 128 && !causal) return launch_lse<128, false>(q, k, l, lse, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 128 && causal) return launch_lse<128, true>(q, k, l, lse, b, h, hkv, sq, sk, scale, st, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<Lse>(d, causal, q, k, static_cast<const int*>(lens), lse, b, h, hkv, sq,
+                       sk, scale, static_cast<const long long*>(strides),
+                       static_cast<cudaStream_t>(stream));
 }
 
 // strides: q, k, v, dout, dq.
@@ -622,14 +665,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* lens, void* dq, int b, int h, int hkv,
                             int sq, int sk, int d, int causal, float scale,
                             const void* strides, void* stream) {
-  const int* l = static_cast<const int*>(lens);
-  const long long* st = static_cast<const long long*>(strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && !causal) return launch_dq<64, false>(q, k, v, dout, lse, dd, l, dq, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 64 && causal) return launch_dq<64, true>(q, k, v, dout, lse, dd, l, dq, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 128 && !causal) return launch_dq<128, false>(q, k, v, dout, lse, dd, l, dq, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 128 && causal) return launch_dq<128, true>(q, k, v, dout, lse, dd, l, dq, b, h, hkv, sq, sk, scale, st, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<Dq>(d, causal, q, k, v, dout, lse, dd, static_cast<const int*>(lens), dq,
+                      b, h, hkv, sq, sk, scale, static_cast<const long long*>(strides),
+                      static_cast<cudaStream_t>(stream));
 }
 
 // strides: q, k, v, dout, dk, dv.
@@ -638,12 +676,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* lens, void* dk, void* dv, int b,
                              int h, int hkv, int sq, int sk, int d, int causal,
                              float scale, const void* strides, void* stream) {
-  const int* l = static_cast<const int*>(lens);
-  const long long* st = static_cast<const long long*>(strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && !causal) return launch_dkv<64, false>(q, k, v, dout, lse, dd, l, dk, dv, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 64 && causal) return launch_dkv<64, true>(q, k, v, dout, lse, dd, l, dk, dv, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 128 && !causal) return launch_dkv<128, false>(q, k, v, dout, lse, dd, l, dk, dv, b, h, hkv, sq, sk, scale, st, s);
-  if (d == 128 && causal) return launch_dkv<128, true>(q, k, v, dout, lse, dd, l, dk, dv, b, h, hkv, sq, sk, scale, st, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<Dkv>(d, causal, q, k, v, dout, lse, dd, static_cast<const int*>(lens), dk,
+                       dv, b, h, hkv, sq, sk, scale, static_cast<const long long*>(strides),
+                       static_cast<cudaStream_t>(stream));
 }

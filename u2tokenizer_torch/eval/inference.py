@@ -83,7 +83,9 @@ class U2InferenceModel:
     when greedy, the same distribution when sampling; ``spec_stats``
     counts its emitted tokens (after the first, which the prefill gives)
     and verify steps, so that their ratio is the mean acceptance.
-    ``lora_path`` is refused until LoRA is ported."""
+    ``lora_path`` is refused: its adapter form (``adapter.msgpack`` and
+    ``adapter_config.json``, merged into the base at load) is not ported
+    yet, where ``train.lora`` is (ROADMAP.md queue 1)."""
 
     def __init__(self, checkpoint_path: str, tokenizer=None,
                  model_config: Optional[U2ModelConfig] = None,
@@ -95,7 +97,9 @@ class U2InferenceModel:
         if speculative is None:
             speculative = bool(do_sample)
         if lora_path is not None:
-            raise NotImplementedError("LoRA adapters are not ported yet")
+            raise NotImplementedError(
+                "lora_path: the LoRA adapter directory form (adapter.msgpack "
+                "+ adapter_config.json) is not ported yet")
         if weights not in WEIGHTS:
             raise ValueError(f"weights must be one of {WEIGHTS}, got "
                              f"{weights!r}")

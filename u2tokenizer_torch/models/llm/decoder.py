@@ -6,8 +6,9 @@ package has them: LayerNorm (``norm_type``), a tanh-GELU MLP ``fc1``/``fc2``
 (``mlp_type``), attention and MLP reading one pre-norm (``parallel_block``),
 RoPE over the leading dims of each head only (``partial_rotary_factor``),
 and biases on the projections and the LM head. Weights are float (bf16 for
-serving) or weight-only int8/int4 (``QDense``, ``models.quantize``); LoRA is
-not ported yet.
+serving) or weight-only int8/int4 (``QDense``, ``models.quantize``), with
+``cfg.lora_rank`` > 0 a low-rank fp32 adapter on every attention and MLP
+projection over any of them (QLoRA, ``train.lora``).
 
 Attention routing mirrors the JAX package's:
   * a prefill (S > 1, ``lens`` given, attending its own fresh K/V) goes to
@@ -144,14 +145,24 @@ class QDense(Dense):
     ``state_dict`` carries them. ``models.quantize.quantize_llm_weights``
     turns a float layer into a quantized one; a layer built quantized
     holds zeros and unit scales until weights are loaded, as the JAX
-    package's init does."""
+    package's init does.
+
+    ``lora_rank`` r > 0 adds the JAX package's low-rank branch over any
+    mode: y += (x @ lora_a @ lora_b) * lora_scale in ``dtype``, before the
+    bias, with fp32 ``lora_a`` (in, r) drawn from N(0, 1/r) and ``lora_b``
+    (r, out) zero, so that the layer starts at its base (``add_lora``
+    attaches the pair to a built layer)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.float32, device=None, quantized=False,
-                 out_tiles: int = 0):
+                 out_tiles: int = 0, lora_rank: int = 0,
+                 lora_scale: float = 1.0):
         super().__init__(in_features, out_features, bias, dtype, device)
         self.out_tiles = out_tiles
         self.mode = None
+        self.lora_rank = 0
+        if lora_rank:
+            self.add_lora(lora_rank, lora_scale)
         mode = quant_mode(quantized)
         if mode == "int4":
             g = int4_group(in_features)
@@ -180,22 +191,47 @@ class QDense(Dense):
             self.weight = nn.Parameter(weight, requires_grad=False)
             self.scale = nn.Parameter(scale, requires_grad=False)
 
+    def add_lora(self, rank: int, scale: float,
+                 generator: Optional[torch.Generator] = None) -> None:
+        """Attach a fresh adapter pair of rank ``rank`` (``lora_a`` drawn
+        from ``generator`` when given, else left for ``reset_parameters``;
+        ``lora_b`` zero)."""
+        in_f = self.weight.shape[1] if self.mode != "int4" else \
+            self.weight.shape[0] * self.weight.shape[1] * 2
+        out_f = self.weight.shape[0] if self.mode != "int4" else \
+            self.weight.shape[2]
+        dev = self.weight.device
+        self.lora_rank, self.lora_scale = rank, scale
+        self.lora_a = nn.Parameter(torch.zeros(in_f, rank, device=dev))
+        self.lora_b = nn.Parameter(torch.zeros(rank, out_f, device=dev))
+        if generator is not None:
+            self._draw_lora(generator)
+
+    @torch.no_grad()
+    def _draw_lora(self, generator: torch.Generator) -> None:
+        self.lora_a.normal_(0.0, self.lora_rank ** -0.5, generator=generator)
+        self.lora_b.zero_()
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         if self.mode is None:
             super().reset_parameters(generator)
-            return
-        self.weight.zero_()
-        self.scale.fill_(1.0)
-        if self.bias is not None:
-            self.bias.zero_()
+        else:
+            self.weight.zero_()
+            self.scale.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+        if self.lora_rank:
+            self._draw_lora(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mode is None:
+        if self.mode is None and not self.lora_rank:
             return super().forward(x)
         dt = self.dtype
         x = x.to(dt)
         tokens = x.numel() // x.shape[-1]
-        if self.mode == "int4":
+        if self.mode is None:
+            y = F.linear(x, self.weight.to(dt))
+        elif self.mode == "int4":
             ng, half, _ = self.weight.shape
             xg = x.reshape(*x.shape[:-1], ng, 2 * half)
             w = unpack_int4(self.weight).to(dt)
@@ -215,6 +251,9 @@ class QDense(Dense):
                 self.scale.chunk(self.out_tiles))], dim=-1)
         else:
             y = F.linear(x, self.weight.to(dt)) * self.scale.to(dt)
+        if self.lora_rank:
+            y = y + (x @ self.lora_a.to(dt) @ self.lora_b.to(dt)) * \
+                torch.tensor(self.lora_scale, dtype=dt)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
@@ -260,10 +299,11 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([apply_rope(x[..., :rot], cos, sin), x[..., rot:]], -1)
 
 
-def _check_supported(cfg: LLMConfig) -> None:
-    if cfg.lora_rank:
-        raise NotImplementedError("LLMConfig options not ported yet: "
-                                  "['lora_rank']")
+def lora_args(cfg: LLMConfig) -> dict:
+    """The adapter arguments of a decoder projection: rank and the scale
+    alpha / r (the JAX package's ``lora_scale``)."""
+    return {"lora_rank": cfg.lora_rank,
+            "lora_scale": cfg.lora_alpha / max(cfg.lora_rank, 1)}
 
 
 class Attention(nn.Module):
@@ -272,13 +312,16 @@ class Attention(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         hd, e = cfg.head_dim, cfg.hidden_size
-        bias, quant = cfg.attention_bias, cfg.quantized_weights
-        self.q_proj = QDense(e, cfg.num_heads * hd, bias, dtype, device, quant)
+        bias, quant, lora = cfg.attention_bias, cfg.quantized_weights, \
+            lora_args(cfg)
+        self.q_proj = QDense(e, cfg.num_heads * hd, bias, dtype, device, quant,
+                             **lora)
         self.k_proj = QDense(e, cfg.num_kv_heads * hd, bias, dtype, device,
-                             quant)
+                             quant, **lora)
         self.v_proj = QDense(e, cfg.num_kv_heads * hd, bias, dtype, device,
-                             quant)
-        self.o_proj = QDense(cfg.num_heads * hd, e, bias, dtype, device, quant)
+                             quant, **lora)
+        self.o_proj = QDense(cfg.num_heads * hd, e, bias, dtype, device, quant,
+                             **lora)
         if cfg.qk_norm:
             self.q_norm = RMSNorm(hd, cfg.rms_norm_eps, dtype, device)
             self.k_norm = RMSNorm(hd, cfg.rms_norm_eps, dtype, device)
@@ -392,15 +435,15 @@ class MLP(nn.Module):
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
         e, m = cfg.hidden_size, cfg.intermediate_size
-        quant = cfg.quantized_weights
+        quant, lora = cfg.quantized_weights, lora_args(cfg)
         self.gelu = cfg.mlp_type == "gelu"
         if self.gelu:
-            self.fc1 = QDense(e, m, cfg.mlp_bias, dtype, device, quant)
-            self.fc2 = QDense(m, e, cfg.mlp_bias, dtype, device, quant)
+            self.fc1 = QDense(e, m, cfg.mlp_bias, dtype, device, quant, **lora)
+            self.fc2 = QDense(m, e, cfg.mlp_bias, dtype, device, quant, **lora)
             return
-        self.gate_proj = QDense(e, m, False, dtype, device, quant)
-        self.up_proj = QDense(e, m, False, dtype, device, quant)
-        self.down_proj = QDense(m, e, False, dtype, device, quant)
+        self.gate_proj = QDense(e, m, False, dtype, device, quant, **lora)
+        self.up_proj = QDense(e, m, False, dtype, device, quant, **lora)
+        self.down_proj = QDense(m, e, False, dtype, device, quant, **lora)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gelu:
@@ -457,7 +500,6 @@ class DecoderModel(nn.Module):
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
                  remat=False):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat_enabled(remat)

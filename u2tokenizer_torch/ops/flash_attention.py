@@ -20,11 +20,12 @@ views.
 differentiable. Its backward computes ``dd = rowsum(dO * O)`` and then
 K4a -> K4b -> K4c, as ``_flash_bwd_raw`` does on the TPU, at every sequence
 length. For CUDA tensors every step launches the hand-written kernel (bf16;
-D in {64, 80, 96, 128} forward, {64, 128} backward) or raises; for CPU
+D in {64, 80, 96, 128}) or raises; for CPU
 tensors it computes the plain version of
 the same function (``flash_attention_reference`` and the three
 ``flash_bwd_*_reference``). ``launches`` counts kernel launches by kernel
-name.
+name and head dim ("flash_bwd_dq_d96"), so that a path's count at one head
+dim cannot pass for another's.
 """
 
 from __future__ import annotations
@@ -39,10 +40,16 @@ from . import _build
 NEG_INF = -1e30
 KERNELS = ("flash_fwd_noncausal", "flash_fwd_causal")
 BWD_KERNELS = ("flash_bwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
-# head dims the CUDA sources instantiate: the forward (csrc/flash_fwd.cu)
-# takes Phi-2's 80 and Phi-3's 96 in D=128's tiles; the backward not yet
-FWD_HEAD_DIMS, BWD_HEAD_DIMS = (64, 80, 96, 128), (64, 128)
-launches = {name: 0 for name in KERNELS + BWD_KERNELS}
+# head dims the CUDA sources instantiate: both the forward
+# (csrc/flash_fwd.cu) and the backward (csrc/flash_bwd.cu) take Phi-2's 80
+# and Phi-3's 96 in D=128's tiles
+FWD_HEAD_DIMS = BWD_HEAD_DIMS = (64, 80, 96, 128)
+launches = {f"{name}_d{d}": 0 for name in KERNELS + BWD_KERNELS
+            for d in FWD_HEAD_DIMS}
+
+
+def _count(name: str, d: int) -> None:
+    launches[f"{name}_d{d}"] += 1
 
 
 def _full_lens(q, k, lens):
@@ -212,7 +219,7 @@ def _flash_cuda(q, k, v, lens, causal: bool, scale: float) -> torch.Tensor:
         out.data_ptr(), b, h, hkv, sq, sk, d, scale,
         ctypes.addressof(strides), _stream(q))
     _build.check(err, name)
-    launches[name] += 1
+    _count(name, d)
     return out
 
 
@@ -228,7 +235,7 @@ def flash_bwd_lse(q, k, lens, *, causal: bool, scale: float) -> torch.Tensor:
         hkv, sq, sk, d, int(causal), scale, ctypes.addressof(strides),
         _stream(q))
     _build.check(err, "flash_bwd_lse")
-    launches["flash_bwd_lse"] += 1
+    _count("flash_bwd_lse", d)
     return lse
 
 
@@ -247,7 +254,7 @@ def flash_bwd_dq(q, k, v, do, lse, dd, lens, *, causal: bool,
         hkv, sq, sk, d, int(causal), scale, ctypes.addressof(strides),
         _stream(q))
     _build.check(err, "flash_bwd_dq")
-    launches["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq", d)
     return dq
 
 
@@ -267,7 +274,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dd, lens, *, causal: bool,
         dv.data_ptr(), b, h, hkv, sq, sk, d, int(causal), scale,
         ctypes.addressof(strides), _stream(q))
     _build.check(err, "flash_bwd_dkv")
-    launches["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv", d)
     return dk, dv
 
 

@@ -4,10 +4,16 @@
 Same interface as the JAX package's orbax manager: ``save_interval_steps``,
 ``save_total_limit``, an idempotent ``save`` with ``force``,
 ``latest_step`` and ``restore``. Each checkpoint is one ``torch.save`` of
-{step, model, optimizer} state dicts in ``<directory>/<step>/state.pt``,
-written under a temporary name and renamed, so a killed save leaves no step
-directory behind. Saves are synchronous: the training loop waits for the
-write, where orbax writes in a background thread.
+the training state's ``state_dict()`` (SFT's {step, model, optimizer};
+QLoRA's {step, trainable leaves, optimizer state}, ``train.lora``) in
+``<directory>/<step>/state.pt``, written under a temporary name and
+renamed, so a killed save leaves no step directory behind. Saves are
+synchronous: the training loop waits for the write, where orbax writes in
+a background thread.
+
+``save_params_msgpack`` and ``load_params_msgpack`` write and read a
+parameter tree in flax's msgpack form (``utils.msgpack``), the JAX
+package's single-file export (the QLoRA adapters file).
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import shutil
 from typing import Any, List, Optional
 
 import torch
+
+from ..utils import msgpack
 
 STATE_FILE = "state.pt"
 
@@ -39,7 +47,7 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: Any, force: bool = False) -> bool:
-        """Write ``state`` (a ``TrainState``) as step ``step`` when the step
+        """Write ``state`` (a ``TrainState`` or ``QLoraState``) as step ``step`` when the step
         is a multiple of ``save_interval_steps`` past the latest one, or
         when ``force``; a step already saved is not written again. Keeps the
         newest ``save_total_limit`` steps."""
@@ -53,9 +61,7 @@ class CheckpointManager:
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save({"step": step, "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict()},
-                   os.path.join(tmp, STATE_FILE))
+        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
         os.replace(tmp, final)
         for old in self.all_steps()[:-self.save_total_limit]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
@@ -70,10 +76,22 @@ class CheckpointManager:
         saved = torch.load(os.path.join(self.directory, str(step),
                                         STATE_FILE),
                            map_location="cpu", weights_only=True)
-        state.model.load_state_dict(saved["model"])
-        state.optimizer.load_state_dict(saved["optimizer"])
-        state.step = saved["step"]
+        state.load_state_dict(saved)
         return state
 
     def close(self) -> None:
         """Nothing is in flight: saves are synchronous."""
+
+
+def save_params_msgpack(path: str, params: Any) -> None:
+    """A nested tree of tensors or numpy arrays as one flax msgpack file
+    (``flax.serialization.to_bytes`` of the same tree)."""
+    with open(path, "wb") as f:
+        f.write(msgpack.to_bytes(params))
+
+
+def load_params_msgpack(path: str) -> Any:
+    """The nested tree of a flax msgpack file, its arrays as CPU tensors
+    (``msgpack.restore``)."""
+    with open(path, "rb") as f:
+        return msgpack.restore(f.read())

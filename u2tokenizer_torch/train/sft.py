@@ -169,6 +169,17 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
 
+    def state_dict(self) -> dict:
+        """What a checkpoint holds: the step, the model's and the
+        optimizer's state dicts."""
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, saved: dict) -> None:
+        self.model.load_state_dict(saved["model"])
+        self.optimizer.load_state_dict(saved["optimizer"])
+        self.step = saved["step"]
+
 
 def make_loss_fn(ce_chunk: int = 0):
     """loss_fn(model, batch) -> (loss, {"loss", "token_accuracy"}).
