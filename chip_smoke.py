@@ -31,11 +31,12 @@ Run from the root of a checkout. It
      μ²Llama SFT call (D=64, causal, group 4), these untimed; the Phi
      forms (``phi_kernel_checks``): K2 at μ²Phi-3-mini's prefill (D=96,
      MHA) and at the Phi-2 judge's (D=80), K3-int8 and K3-int4 at both
-     head dims (B=4, 32 heads, step 127 of 1024 + 256 slots), K4a-c at
+     head dims (B=4, 32 heads, step 15 of 1024 + 32 slots), K4a-c at
      the QLoRA path's call (D=96, B=1, 1024 tokens, 423 valid) and at a
      Phi-2-shaped one (D=80, no path launches it), timed, with a
      ``phi_calls`` line and both K4 calls on the ``flash_bwd_calls`` line;
-     K1 at D=80 and 96 (no path either) on 1024 tokens, K1/K2 at both on
+     K1 at D=80 and 96 (no path either) on 1024 tokens, timed by events
+     beside SDPA alone (``flash_fwd_no_path``); K1/K2 at both on
      the tile edge, K3 at groups 2, 4 and 8, its first and last steps and
      a 3-token prompt, K4a-c at both non-causal and on the tile edge,
      causal and not, and at D=128 non-causal, untimed;
@@ -43,7 +44,7 @@ Run from the root of a checkout. It
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
      tokens and a greedy decode: first bf16 weights, the int8 KV cache, 4
-     volumes and 256 tokens (``--max-new``); then, 768 tokens, the
+     volumes and 128 tokens (``--max-new``); then, 768 tokens, the
      configuration of the JAX package's
      ``bench.py``: decoder weights quantized to int8, the int4 KV cache,
      112 volumes, the ViT over groups of 128 chunks. Each asserts the
@@ -69,7 +70,7 @@ Run from the root of a checkout. It
      ``speculative=False`` report beside it; greedy speculative against
      the report phase's plain greedy tokens under a near-tie rule
      (``TIE_ULPS``) that must reject a planted fault of the verify block;
-     fan-out, one case x 8 sampled samples of 256 tokens, speculative and
+     fan-out, one case x 8 sampled samples of 128 tokens, speculative and
      plain, with every K2 call at the case batch; and ``bench.py``'s forced-content
      speculative configuration (μ²Qwen3-1.7B, int8 weights, int4 cache,
      B=112, FORCED_TOKENS tokens, scripts of
@@ -81,7 +82,7 @@ Run from the root of a checkout. It
      must answer /health and one report; twelve questions one at a time
      through the single-request model ``cli serve`` builds (the reference
      tokens, and the sequential reports/min); the server ``cli serve
-     --slots 8 --max-new-tokens 128`` builds, started by
+     --slots 8 --max-new-tokens 64`` builds, started by
      ``serve_background``: the CT uploaded (ingest on the card), the
      twelve questions from twelve client threads at once and one streamed
      (K1 12 and K2 16 launches a request, K3 none), each report's tokens
@@ -111,6 +112,22 @@ Run from the root of a checkout. It
      whose limits must reject three planted faults, and the packed
      layout against the unpacked; K2 and K4a-c at the DPO call and K2 at
      the judge's;
+ 7b. scores reports through the port's CLI in this process
+     (``drive_eval``) from the stage-2 phase's checkpoint, cases and
+     judge: ``eval --task mrg`` of three cases, 256 greedy tokens each
+     (the users' 768 cut) with the seeded judge (seconds a case and a
+     judged batch, K1 12 and K2 16 a case through ``step_probe``), case
+     0's tokens and first-token logits inside the command against
+     ``MultimodalGenerate`` on the same sample and model, a check that
+     must reject the prompt one token short; ``eval --task vqa`` (one token a case); ``eval-predictions`` on
+     ``eval``'s rows and on ``generate``'s predictions (each row's
+     metrics ``score_report``'s); ``quant-report`` at μ²Qwen3-1.7B, full
+     width and depth, random weights drawn on the card, int8 and int4,
+     32 greedy tokens (the report, each leg's seconds, K1 144 and K2
+     336); and the same command at 2 layers, int4, on the card and on the
+     CPU from one checkpoint, per-layer SNR within 0.01 dB and the forward
+     leg's KL and top-1 within limits that must reject int4 scales of
+     max/8;
   8. drives the Phi phase (``drive_phi``) on the same CT: μ²Phi-3-mini
      (the default μ² stack on the ``phi3_mini`` decoder, 32 heads of 96,
      seeded weights) through ``drive_report``: exported by
@@ -127,7 +144,7 @@ Run from the root of a checkout. It
      CLI's step, lora_b drawn at QLORA_B_STD so that every adapter has a
      gradient; the same limits must reject the planted faults at D=96;
      ``--qlora-reference-at`` reads it alone at other spreads); its B=4
-     batches of 256 tokens, bf16 weights with the int8 cache and int8
+     batches of 32 tokens, bf16 weights with the int8 cache and int8
      weights with the int4 cache (K3 32 a step); the Phi-2 decoder
      (GREEN-RadPhi2's architecture, seeded bf16 weights, an HF Phi-2
      directory) as the judge of ``cli green`` on the stage-2 phase's 16
@@ -223,9 +240,9 @@ PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 768, 4, 8
 # the μ²Llama report and speculative phases decode 256 tokens (the users'
 # 768 cut when the serving phase came, for the script's time)
 REPORT_TOKENS = 256
-# the B=4 bf16 path decodes 256 tokens, the B=112 path 768, so that the
-# script stays near half its time limit on a slow host
-B4_MAX_NEW = 256
+# the B=4 bf16 path decodes 128 tokens (256 until the evaluation phase
+# came), the B=112 path 768, for the script's time on a slow host
+B4_MAX_NEW = 128
 RAGGED = 900               # the last row's prompt length
 QUESTION = 64              # question tokens, the μ²tokenizer's text condition
 # The serving configuration of the JAX package's bench.py: int8 decoder
@@ -498,14 +515,16 @@ def sdpa_mask(torch, lens_t, s: int, causal: bool):
 
 
 def check_flash(torch, F, fa, call: dict, seed: int, timed: bool = True,
-                held: int = 0):
+                held: int = 0, profiled: bool = True):
     """K1 (a non-causal ``call``) or K2 (a causal one) on the batch of
     ``attention_inputs``, held against its plain version, whose mask the
     same limits must tell from one with lens[-1] one key off (a shift
     past the sequence leaves the mask as it is and is not made). With
     ``held`` only the batch's last ``held`` rows are held, and the plain
     version is timed on those. With ``timed`` False only the check runs
-    and the times are None."""
+    and the times are None; with ``profiled`` False only the kernel and
+    SDPA are timed (``time_ms``), not its device time nor the plain
+    version."""
     causal = call["causal"]
     q, k, v, lens, lens_t, _ = attention_inputs(torch, call, seed)
     b, s, h, d = q.shape
@@ -532,10 +551,11 @@ def check_flash(torch, F, fa, call: dict, seed: int, timed: bool = True,
     if timed:
         ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lens_t,
                                                        causal=causal))
-        dev_ms, traced = device_ms(torch, lambda: fa.flash_attention(
-            q, k, v, lens_t, causal=causal), "flash_fwd_kernel")
-        plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(
-            hq, hk, hv, hl, causal=causal), reps=3)
+        if profiled:
+            dev_ms, traced = device_ms(torch, lambda: fa.flash_attention(
+                q, k, v, lens_t, causal=causal), "flash_fwd_kernel")
+            plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(
+                hq, hk, hv, hl, causal=causal), reps=3)
         mask = sdpa_mask(torch, lens_t, s, causal)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -570,7 +590,8 @@ def flash_fwd_summary(calls: dict) -> dict:
                     "device_ms": e["device_ms"],
                     "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
                     "share_of_bound": e["bound_ms"] / e["ms"],
-                    "device_share_of_bound": e["bound_ms"] / e["device_ms"],
+                    "device_share_of_bound": (e["bound_ms"] / e["device_ms"]
+                                              if e["device_ms"] else None),
                     "sdpa_ms": e["library_ms"],
                     "over_sdpa": e["ms"] / e["library_ms"],
                     "shape": e["shape"]}
@@ -865,7 +886,8 @@ def decode_summary(calls: dict) -> dict:
                     "ms": e["ms"], "device_ms": e["device_ms"],
                     "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
                     "share_of_bound": e["bound_ms"] / e["ms"],
-                    "device_share_of_bound": e["bound_ms"] / e["device_ms"],
+                    "device_share_of_bound": (e["bound_ms"] / e["device_ms"]
+                                              if e["device_ms"] else None),
                     "shape": e["shape"]}
             for label, e in calls.items()}
 
@@ -1515,11 +1537,14 @@ def drive_report(torch, fa, da, volume, tmp: str, cfg=None,
 # Speculative decoding phase (``drive_speculative``).
 SPEC_BLOCK = 8             # the verify block, as make_spec_generate_fn's
 FANOUT = 8                 # samples a case, pred_then_green's protocol
-FANOUT_TOKENS = 256        # the fan-out phase's depth (the users' 768 cut)
+# the fan-out phase's depth (the users' 768 cut; 256 until the evaluation
+# phase came)
+FANOUT_TOKENS = 128
 SCRIPT_SEED = 7            # bench.py's report scripts
 # the forced-content phase's depth (bench.py's 768 cut for the script's
-# time; it launches no K3, so the B=112 path's K3 checks stay at 768)
-FORCED_TOKENS = 256
+# time, to 256 when the Phi phase came and to 128 when the evaluation
+# phase came; it launches no K3, so the B=112 path's K3 checks stay at 768)
+FORCED_TOKENS = 128
 # Greedy speculative decoding against plain greedy on the card. A verify
 # block's logits come from other GEMM shapes than a single step's, so the
 # two bf16 computations of one position may order a near tie differently.
@@ -1977,8 +2002,9 @@ def drive_speculative(torch, fa, da, volume, tmp: str, plain_greedy,
 # builds them, with concurrent requests.
 SERVING_SLOTS = 8
 # cli serve --max-new-tokens (the users' 768; 256 before the Phi phase
-# came, cut for the script's time; the serving paths launch no K3)
-SERVING_TOKENS = 128
+# came, 128 before the evaluation phase, cut for the script's time; the
+# serving paths launch no K3)
+SERVING_TOKENS = 64
 SUBPROCESS_TOKENS = 16     # the subprocess server's one report
 LLM_TOKENS = 128           # serve-llm's requests
 LOGIT_STEPS = 8            # decode steps whose logits are held to B=1's
@@ -3448,14 +3474,23 @@ def cli_run(argv, **kw):
     return args.fn(args, **kw)
 
 
+def train_record(args, out) -> dict:
+    """A train step's metrics and its batch's shape and valid lengths."""
+    return {"metrics": {k: float(v) for k, v in out[1].items()},
+            "shape": list(args[-1]["attention_mask"].shape),
+            "lens": args[-1]["attention_mask"].sum(-1).tolist()}
+
+
 @contextlib.contextmanager
 def step_probe(torch, fa, da, module, name: str, unpack: bool = False,
-               profile_at=None):
-    """``module.<name>``, a factory of train steps (returning the step, or
-    (state, step) with ``unpack``), wrapped inside the block so that every
-    step it makes is timed (host clock around a synchronize), and its
-    metrics, kernel launches and batch kept; with ``profile_at`` that
-    step is run under ``profile_call``. Yields the list of records."""
+               profile_at=None, record=train_record):
+    """``module.<name>``, a factory of steps (returning the step, or
+    (state, step) with ``unpack``): train steps, or with another
+    ``record`` any callable such as ``make_multimodal_generate_fn``'s,
+    wrapped inside the block so that every step it makes is timed (host
+    clock around a synchronize), and its kernel launches and ``record(step
+    arguments, output)`` kept; with ``profile_at`` that step is run under
+    ``profile_call``. Yields the list of records."""
     make = getattr(module, name)
     records = []
 
@@ -3477,11 +3512,8 @@ def step_probe(torch, fa, da, module, name: str, unpack: bool = False,
             by_dim = {k: n - before[k] for k, n in after.items()}
             records.append({
                 "s": time.perf_counter() - t0, "profile": profile,
-                "metrics": {k: float(v) for k, v in out[1].items()},
                 "launches": by_kernel(by_dim),
-                "launches_by_dim": by_dim,
-                "shape": list(args[-1]["attention_mask"].shape),
-                "lens": args[-1]["attention_mask"].sum(-1).tolist()})
+                "launches_by_dim": by_dim, **record(args, out)})
             return out
 
         return (made[0], run) if unpack else run
@@ -4036,8 +4068,8 @@ def drive_green_dpo(torch, F, fa, da, tmp: str, card: str) -> tuple:
     judge, ``dpo-convert``, ``dpo`` (plain, ``--ce-chunk``, a repeated
     pair); the reduced-depth DPO step against the CPU; K2 and K4a-c at the
     DPO call and K2 at the judge's as this run made them (untimed). One
-    printed line each; returns (the
-    launches of the phase by path, the kernel checks at its calls)."""
+    printed line each; returns (the launches of the phase by path, the
+    kernel checks at its calls, the tokenizer)."""
     cfg = released_config()
     ckpt = os.path.join(tmp, "mu2llama")
     tok = green_tokenizer(cfg.llm.vocab_size)
@@ -4108,8 +4140,421 @@ def drive_green_dpo(torch, F, fa, da, tmp: str, card: str) -> tuple:
                           32, timed=False)]
     for k in checks:
         print(json.dumps({"kernel_check": k}), flush=True)
-    return counts, checks
+    return counts, checks, tok
 
+
+
+# The evaluation phase (``drive_eval``, after the stage-2 phase): the
+# stage-2 phase's μ²Llama-3.2-1B checkpoint, its three cases, its seeded
+# judge and its predictions, scored through the port's CLI in this process
+# (``eval --task mrg`` with the judge, ``eval --task vqa``,
+# ``eval-predictions``), and ``quant-report`` at μ²Qwen3-1.7B, bench.py's
+# model. Scores of seeded weights mean only that the machinery runs.
+EVAL_CASES, EVAL_TOKENS = 3, 256   # the users' 768 cut for the script's time
+EVAL_FAULT_TOKENS = 32             # the planted prompt-length fault's steps
+QR_GREEDY_TOKENS = 32              # quant-report's greedy leg
+# depth chunks of its reduced-depth check: 4 x 256 projected tokens, as the
+# μ²tokenizer's top-k of 1024 needs
+QR_CHUNKS = 4
+# ``quant-report`` at the reduced config on the card and on the CPU, both
+# bf16 compute from one fp32 checkpoint. The weights leg quantizes the same
+# fp32 weights with the same fp32 arithmetic and sums the squared errors in
+# fp64 in another order, so each layer's SNR, rounded to 0.01 dB, agrees
+# within one rounding step (QR_SNR_TOL; the 1e-9 absorbs the decimal's
+# binary representation). The forward leg compares two bf16 stacks on each
+# device, whose products round in other orders on the card and the CPU:
+# its mean KL (~1e-2 for int4 on seeded weights) may part by a few per
+# cent (QR_KL_RTOL) plus a floor (QR_KL_ATOL), and its
+# top-1 match, over 272 positions, by the positions whose float and
+# quantized top two lie within the devices' rounding (QR_TOP1_TOL). The
+# same limits must reject int4 scales of max/8 in place of max/7.
+QR_SNR_TOL, QR_KL_RTOL, QR_KL_ATOL, QR_TOP1_TOL = 0.01, 0.05, 2e-5, 0.05
+
+
+def same_report(torch, a, b) -> bool:
+    """Two greedy reports (tokens, the prefill's first-token logits) are
+    the same bit for bit. A random-weight model's greedy tokens may not
+    depend on the prompt's last token at all (its reports settle on one
+    repeated token), so the first token's logits are held too."""
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def report_diff(a, b) -> dict:
+    """Where two greedy reports part: the first differing token (None
+    when the tokens agree) and the logits' largest difference."""
+    diff = (a[0] != b[0]).nonzero()
+    return {"first_token_diff": int(diff[0, 0]) if len(diff) else None,
+            "first_logits_max_abs_diff": (a[1] - b[1]).abs().max().item()}
+
+
+def generate_record(args, out) -> dict:
+    """A ``MultimodalGenerate`` call's prompt length and tokens (B=1)."""
+    return {"prompt_len": int(args[3][0]), "tokens": out[0].clone()}
+
+
+def eval_mrg_phase(torch, fa, da, tok, data: str, ckpt: str,
+                   judge_dir: str) -> tuple:
+    """``cli eval --task mrg`` of EVAL_CASES cases, EVAL_TOKENS greedy
+    tokens each, with the stage-2 phase's judge: every case's launches (K1
+    12, K2 16) and seconds through ``step_probe``, every judge batch's (K2
+    16); then case 0's tokens and first-token logits, as
+    ``ReportGenerator`` took them inside the command, against
+    ``MultimodalGenerate`` driven directly on the same ``FusedDataset``
+    sample and model (``same_report``), a check that must reject the
+    prompt length one short. Returns (the line, the launches, the rows
+    file)."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.config import GenerationConfig
+    from u2tokenizer_torch.data.datasets import FusedDataset
+    from u2tokenizer_torch.eval import green
+    from u2tokenizer_torch.models import generate
+
+    loaded, judged, first_logits = [], [], []
+    load, tokens_of = cli._init_or_load, green.TorchJudge.batch_tokens
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        model = load(*a, **kw)
+        torch.cuda.synchronize()
+        loaded.append((model, time.perf_counter() - t0))
+        # the prefill's logits of each call's first token (the decode
+        # steps take the decoder's own head)
+        lm_logits = model.lm_logits
+        model.lm_logits = lambda h: first_logits.append(
+            lm_logits(h).clone()) or first_logits[-1]
+        return model
+
+    def timed_tokens(judge, ids, lens, split):
+        before = read_launches(fa, da)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tokens_of(judge, ids, lens, split)
+        torch.cuda.synchronize()
+        after = read_launches(fa, da)
+        judged.append({"s": time.perf_counter() - t0, "lens": lens.tolist(),
+                       "launches": {k: n - before[k] for k, n in after.items()
+                                    if n - before[k]}})
+        return out
+
+    out = os.path.join(data, "eval_mrg.json")
+    reset_launches(fa, da)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with planted(cli, {"_init_or_load": timed_load}), \
+            planted(green.TorchJudge, {"batch_tokens": timed_tokens}), \
+            step_probe(torch, fa, da, generate, "make_multimodal_generate_fn",
+                       record=generate_record) as cases:
+        result = cli_run(["eval", "--task", "mrg", "--checkpoint", ckpt,
+                          "--tokenizer", "mock", "--base-path", data,
+                          "--jsonl-path", "cases.jsonl", "--output", out,
+                          "--max-cases", str(EVAL_CASES), "--max-new-tokens",
+                          str(EVAL_TOKENS), "--judge", judge_dir],
+                         tokenizer=tok, judge_tokenizer=tok)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("eval mrg case", cases, {"flash_fwd_noncausal": 12,
+                                             "flash_fwd_causal": 16})
+    if len(cases) != EVAL_CASES or len(result.rows) != EVAL_CASES:
+        raise AssertionError(f"eval mrg: {len(cases)} cases generated, "
+                             f"{len(result.rows)} rows")
+    for b in judged:
+        if b["launches"] != {"flash_fwd_causal": 16}:
+            raise AssertionError(f"eval judge batch launches {b['launches']}")
+    if not ({"green_mean", "green_std"} <= set(result.metrics)
+            and all("green" in r for r in result.rows)):
+        raise AssertionError(f"eval mrg without GREEN: {result.metrics}")
+
+    # case 0 again, outside the command: the same sample and model
+    (model, load_s), = loaded
+    cfg = model.cfg
+    sample = FusedDataset(
+        data, "cases.jsonl", tok, max_length=1024,
+        image_tokens_num=cfg.proj_out_num, data_type="validation",
+        num_chunks=cfg.num_chunks, chunk_depth=cfg.vision.input_spatial[0],
+        target_size=cfg.vision.input_spatial[1], device="cuda")[0]
+    args = [sample[k][None].cuda() for k in ("input_id", "image",
+                                             "question_ids")]
+    plen = sample["attention_mask"].sum()[None].to("cuda", torch.int32)
+    gen = GenerationConfig(max_new_tokens=EVAL_TOKENS, do_sample=False,
+                           eos_token_id=tok.eos_token_id,
+                           pad_token_id=tok.pad_token_id or 0)
+    fn = generate.make_multimodal_generate_fn(model, gen)
+    inside = (cases[0]["tokens"], first_logits[0])
+    direct = (fn(*args, plen)[0], first_logits[-1])
+    if not (cases[0]["prompt_len"] == int(plen)
+            and same_report(torch, inside, direct)):
+        raise AssertionError(f"eval's case 0 differs from MultimodalGenerate "
+                             f"on its sample: {report_diff(inside, direct)}")
+    # the fault, one prompt token short, over the same cache (the stages
+    # of the same call) for its first EVAL_FAULT_TOKENS steps
+    short = plen - 1
+    kv, tok0, done0, _ = fn.prefill_stage(fn.embeds(*args), short)
+    _, _, rest = fn.decode_steps(kv, tok0, done0, short,
+                                 range(EVAL_FAULT_TOKENS - 1))
+    faulty = (torch.cat([tok0[:, None], rest], 1)[0], first_logits[-1])
+    head = (inside[0][:EVAL_FAULT_TOKENS], inside[1])
+    if same_report(torch, head, faulty):
+        raise AssertionError("the check does not reject a prompt one token "
+                             "short")
+    fault = report_diff(head, faulty)
+    del loaded, model, fn, kv, first_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = os.path.join(data, "eval_mrg_rows.jsonl")
+    with open(rows, "w") as f:
+        for row in result.rows:
+            f.write(json.dumps(row) + "\n")
+    return {"cases": EVAL_CASES, "max_new_tokens": EVAL_TOKENS,
+            "cli_total_s": total_s, "load_s": load_s,
+            "s_per_case": statistics.median(c["s"] for c in cases),
+            "case_s": [c["s"] for c in cases],
+            "prompt_lens": [c["prompt_len"] for c in cases],
+            "launches_per_case": cases[-1]["launches"],
+            "judge_batches": len(judged),
+            "judge_s_per_batch": statistics.median(b["s"] for b in judged),
+            "judge_batch_s": [b["s"] for b in judged],
+            "judge_prompt_lens": [b["lens"] for b in judged],
+            "metrics": result.metrics, "green": [r["green"]
+                                                 for r in result.rows],
+            "words": [len(r["prediction"].split()) for r in result.rows],
+            "case0_equal_direct": True,
+            "planted_prompt_one_short": {"rejected": True, **fault},
+            "peak_mem_gb": peak / 1e9}, launches, rows
+
+
+def eval_vqa_phase(torch, fa, da, tok, data: str, ckpt: str) -> tuple:
+    """``cli eval --task vqa`` on the same cases: one greedy token a case
+    (K1 12, K2 16), its first letter against the answer's."""
+    out = os.path.join(data, "eval_vqa.json")
+    reset_launches(fa, da)
+    t0 = time.perf_counter()
+    result = cli_run(["eval", "--task", "vqa", "--checkpoint", ckpt,
+                      "--tokenizer", "mock", "--base-path", data,
+                      "--jsonl-path", "cases.jsonl", "--output", out,
+                      "--max-cases", str(EVAL_CASES)], tokenizer=tok)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    want = {name: 0 for name in launches}
+    want.update({"flash_fwd_noncausal": 12 * EVAL_CASES,
+                 "flash_fwd_causal": 16 * EVAL_CASES})
+    if launches != want:
+        raise AssertionError(f"eval vqa launches {launches} != {want}")
+    if not (len(result.rows) == EVAL_CASES and all(
+            len(r["prediction"].split()) <= 1 for r in result.rows)):
+        raise AssertionError(f"eval vqa rows {result.rows}")
+    return {"cases": EVAL_CASES, "cli_total_s": total_s,
+            "accuracy": result.metrics["accuracy"],
+            "predictions": [r["prediction"] for r in result.rows]}, launches
+
+
+def eval_predictions_phase(torch, fa, da, data: str, rows: str) -> dict:
+    """``cli eval-predictions`` on ``cli eval``'s rows (written as jsonl)
+    and on the stage-2 phase's ``generate`` predictions; no card. Each row
+    of the first run keeps ``cli eval``'s reference and prediction, and
+    its BLEU-1, ROUGE-1/2/L and METEOR are ``score_report``'s of them."""
+    from u2tokenizer_torch.eval.metrics import score_report
+
+    line = {}
+    reset_launches(fa, da)
+    for name, preds in (("eval_rows", rows),
+                        ("generate_preds",
+                         os.path.join(data, "preds.jsonl"))):
+        t0 = time.perf_counter()
+        result = cli_run(["eval-predictions", "--predictions", preds,
+                          "--output", os.path.join(data, f"{name}.json")])
+        line[name] = {"rows": len(result.rows), "s": time.perf_counter() - t0,
+                      "metrics": result.metrics}
+        if name == "eval_rows":
+            want = [json.loads(x) for x in open(rows)]
+            for got, row in zip(result.rows, want):
+                if ((got["reference"], got["prediction"])
+                        != (row["reference"], row["prediction"])
+                        or {k: got[k] for k in score_report("", "")}
+                        != score_report(row["reference"], row["prediction"])):
+                    raise AssertionError(f"eval-predictions row {got} for "
+                                         f"{row}")
+            if len(result.rows) != len(want):
+                raise AssertionError("eval-predictions dropped rows")
+    if any(read_launches(fa, da).values()):
+        raise AssertionError("eval-predictions launched a kernel")
+    return line
+
+
+def timed_legs(torch, module, names, legs: dict) -> dict:
+    """Replacements of ``module``'s functions ``names`` that append each
+    call's seconds (host clock around a synchronize) to ``legs[name]``."""
+    def wrap(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            legs.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return run
+    return {name: wrap(name, getattr(module, name)) for name in names}
+
+
+def int4_scales_of_eighths(torch):
+    """The planted fault of ``quantize_kernel_int4``: group scales of
+    max/8 in place of max/7 (the values still clipped to [-7, 7])."""
+    from u2tokenizer_torch.models.llm.decoder import int4_group, pack_int4
+
+    def quantize(kernel, group: int = 128, eps: float = 1e-8):
+        in_f, out = kernel.shape
+        g = int4_group(in_f, group)
+        k = kernel.float().reshape(in_f // g, g, out)
+        scale = torch.clamp(k.abs().amax(dim=1, keepdim=True) / 8.0, min=eps)
+        q = torch.clamp(torch.round(k / scale), -7, 7).to(torch.int8)
+        return pack_int4(q), scale[:, 0, :]
+    return quantize
+
+
+def quant_agreement(got: dict, ref: dict) -> dict:
+    """Per mode of ``got``: its per-layer SNR, forward mean KL and top-1
+    match against ``ref``'s, each within its limit."""
+    out = {}
+    for mode in (m for m in ("int8", "int4") if m in got):
+        g, r = got[mode], ref[mode]
+        layers = r["weights"]["layers"]
+        snr_err = max(abs(g["weights"]["layers"][p]["snr_db"]
+                          - layers[p]["snr_db"]) for p in layers)
+        kl, kl_ref = g["forward"]["mean_kl"], r["forward"]["mean_kl"]
+        kl_limit = QR_KL_RTOL * kl_ref + QR_KL_ATOL
+        top1_err = abs(g["forward"]["top1_match"]
+                       - r["forward"]["top1_match"])
+        holds = {"snr": bool(snr_err <= QR_SNR_TOL + 1e-9),
+                 "kl": bool(abs(kl - kl_ref) <= kl_limit),
+                 "top1": bool(top1_err <= QR_TOP1_TOL)}
+        out[mode] = {"snr_db_max_err": float(snr_err),
+                     "mean_kl": [kl, kl_ref],
+                     "kl_limit": kl_limit, "top1_match": [
+                         g["forward"]["top1_match"],
+                         r["forward"]["top1_match"]],
+                     "limits_hold": holds, "holds": all(holds.values())}
+    return out
+
+
+def quant_report_phase(torch, fa, da) -> tuple:
+    """``cli quant-report`` at ``U2ModelConfig()`` (μ²Qwen3-1.7B) with
+    random weights drawn on the card, both modes, the greedy leg at
+    QR_GREEDY_TOKENS: the report, each leg's seconds and the launches
+    (K1 12 and K2 28 a forward or a greedy prefill)."""
+    from u2tokenizer_torch.eval import quant_report as qr
+
+    legs = {}
+    names = ("layer_quant_report", "quantized_copy", "forward_agreement",
+             "greedy_agreement")
+    reset_launches(fa, da)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with planted(qr, timed_legs(torch, qr, names, legs)):
+        report = cli_run(["quant-report", "--modes", "int8,int4",
+                          "--greedy-tokens", str(QR_GREEDY_TOKENS)])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    peak = torch.cuda.max_memory_allocated()
+    # a mode: 2 batches x 2 stacks forward, 2 greedy prefills
+    want = {name: 0 for name in launches}
+    want.update({"flash_fwd_noncausal": 2 * 6 * 12,
+                 "flash_fwd_causal": 2 * 6 * 28})
+    if launches != want:
+        raise AssertionError(f"quant-report launches {launches} != {want}")
+    for mode in ("int8", "int4"):
+        entry = report[mode]
+        if not (entry["decision"]["complete"]
+                and not entry["decision"]["decision_grade"]
+                and entry["greedy"]["new_tokens"] == QR_GREEDY_TOKENS
+                and all(math.isfinite(v) for v in entry["forward"].values()
+                        if not isinstance(v, str))):
+            raise AssertionError(f"quant-report {mode}: {entry}")
+    return {"model": MODEL_NAMES["qwen3"], "weights": "random, seed 0",
+            "cli_total_s": total_s, "leg_s": legs,
+            "peak_mem_gb": peak / 1e9, "report": report}, launches
+
+
+def quant_report_check(torch, tmp: str) -> dict:
+    """``cli quant-report`` at the reduced config (2 ViT, 1 μ²tokenizer and
+    2 decoder layers, QR_CHUNKS chunks) on one seeded fp32 checkpoint,
+    ``--rehearsal --per-layer --num-batches 1 --modes int4``, on the card
+    and with ``--device cpu``, held by ``quant_agreement``, whose limits
+    must reject int4 scales of max/8 planted in the quantizer. int4 mode
+    quantizes the embedding table int8 per row too; int8 mode is left
+    out of the check for time (its CPU run took ~30 s of bf16 products
+    on the card's host)."""
+    from u2tokenizer_torch.eval import quant_report as qr
+    from u2tokenizer_torch.models import quantize
+    from u2tokenizer_torch.models.hf_export import save_hf_checkpoint
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.weights import flax_params
+
+    ckpt = os.path.join(tmp, "mu2qwen3_reduced")
+    cfg = reduced_config(QR_CHUNKS)
+    model = U2CausalLM(cfg, dtype=torch.float32, device="cuda", seed=0)
+    save_hf_checkpoint(ckpt, flax_params(model), cfg)
+    del model
+    argv = ["quant-report", "--checkpoint", ckpt, "--rehearsal",
+            "--per-layer", "--num-batches", "1", "--modes", "int4"]
+    runs, seconds = {}, {}
+    for name, extra in (("gpu", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        runs[name] = cli_run(argv + extra)
+        seconds[name] = time.perf_counter() - t0
+    eighths = int4_scales_of_eighths(torch)
+    t0 = time.perf_counter()
+    with planted(quantize, {"quantize_kernel_int4": eighths}), \
+            planted(qr, {"quantize_kernel_int4": eighths}):
+        faulty = cli_run(argv)
+    seconds["gpu_fault"] = time.perf_counter() - t0
+    shutil.rmtree(ckpt)
+    sound = quant_agreement(runs["gpu"], runs["cpu"])
+    fault = quant_agreement(faulty, runs["cpu"])
+    if not all(m["holds"] for m in sound.values()):
+        raise AssertionError(f"quant-report, card against CPU: {sound}")
+    if fault["int4"]["holds"]:
+        raise AssertionError("the quant-report check does not reject int4 "
+                             f"scales of max/8: {fault}")
+    return {"model": f"{MODEL_NAMES['qwen3']}, 2 layers, {QR_CHUNKS} "
+                     "chunks", "s": seconds,
+            "limits": {"snr_db": QR_SNR_TOL, "kl_rtol": QR_KL_RTOL,
+                       "kl_atol": QR_KL_ATOL, "top1": QR_TOP1_TOL},
+            "card_vs_cpu": sound, "planted_int4_eighths": fault}
+
+
+def drive_eval(torch, fa, da, tmp: str, tok, card: str) -> dict:
+    """The evaluation phase: ``eval_mrg_phase``, ``eval_vqa_phase`` and
+    ``eval_predictions_phase`` on the stage-2 phase's files
+    (``tmp/mu2llama``, ``tmp/green_dpo``, ``tmp/judge``) with its closed
+    ``green_tokenizer`` ``tok``, then ``quant_report_phase`` and
+    ``quant_report_check``. One printed line each; returns the launches by
+    path."""
+    data = os.path.join(tmp, "green_dpo")
+    ckpt = os.path.join(tmp, "mu2llama")
+    counts = {}
+    mrg, counts["eval_mrg"], rows = eval_mrg_phase(
+        torch, fa, da, tok, data, ckpt, os.path.join(tmp, "judge"))
+    vqa, counts["eval_vqa"] = eval_vqa_phase(torch, fa, da, tok, data, ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"eval_mu2llama": {
+        "mrg": mrg, "vqa": vqa,
+        "eval_predictions": eval_predictions_phase(torch, fa, da, data, rows),
+        "note": "seeded weights: the scores show only that the machinery "
+                "runs", "card": card}}), flush=True)
+    full, counts["quant_report"] = quant_report_phase(torch, fa, da)
+    print(json.dumps({"quant_report": full, "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"quant_report_check": quant_report_check(torch, tmp),
+                      "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # The Phi phase (``drive_phi``): the paper's μ²Phi-3-mini backbone
@@ -4119,15 +4564,17 @@ def drive_green_dpo(torch, F, fa, da, tmp: str, card: str) -> tuple:
 # LayerNorm, GELU, parallel blocks, biases), full width and depth with
 # seeded weights (no Phi weights are in the repository); the kernels' D=96
 # and D=80 forms on their paths.
-PHI_NEW = 256              # tokens of the B=4 batches: 1024 + 256 slots
+# tokens of the B=4 batches: 1024 + 32 slots (256 until the evaluation
+# phase came, cut for the script's time); K3's Phi forms are checked there
+PHI_NEW = 32
 PHI3_PREFILL_CALL = dict(PREFILL_CALL, h=32, hkv=32, d=96)
 PHI2_JUDGE_CALL = dict(JUDGE_CALL, hkv=32, d=80)
 PHI_HEADS = {96: (32, 32, 96), 80: (32, 32, 80)}
-# Untimed: K1 at D=80 and 96, which no path launches (the ViT's heads are
-# 64), at a 1024-token call; K1 and K2 at both on the tile-edge shape
-# (group 2); K3 at both with groups 2, 4 and 8 and at the first and last
-# steps and a 3-token prompt; K4a-c at D=128 non-causal, a form no path
-# makes.
+# K1 at D=80 and 96, which no path launches (the ViT's heads are 64), at a
+# 1024-token call, timed by events beside SDPA only; untimed: K1 and K2 at
+# both on the tile-edge shape (group 2); K3 at both with groups 2, 4 and 8
+# and at the first and last steps and a 3-token prompt; K4a-c at D=128
+# non-causal, a form no path makes.
 PHI_EDGE_FWD = ([dict(causal=False, b=2, s=PROMPT, h=32, hkv=32, d=d,
                       lens=[PROMPT, RAGGED], fused=False) for d in (80, 96)]
                 + [dict(EDGE_CALLS[1], causal=causal, d=d)
@@ -4155,7 +4602,7 @@ NO_PATH_FORMS = ("flash_bwd_lse_d80", "flash_bwd_dq_d80", "flash_bwd_dkv_d80")
 def phi_kernel_checks(torch, F, fa, da, attn) -> tuple:
     """The Phi forms: K2 at μ²Phi-3's prefill (D=96) and at the Phi-2
     judge's (D=80), K3-int8 and K3-int4 at both (B=4, 32 heads, group 1,
-    step 127 of 1024 + 256 slots), K4a-c at the QLoRA call (D=96) and the
+    step 15 of 1024 + 32 slots), K4a-c at the QLoRA call (D=96) and the
     Phi-2-shaped one (D=80), timed; the untimed forms above. Returns (the timed entries, named by form, and
     every check)."""
     timed = {"flash_fwd_causal_d96": check_flash(torch, F, fa,
@@ -4170,7 +4617,9 @@ def phi_kernel_checks(torch, F, fa, da, attn) -> tuple:
             timed[f"{da.KERNELS[bits]}_d{d}"] = check_decode(
                 torch, da, attn, bits, BATCH, (PHI_NEW - 1) // 2,
                 heads=heads, new=PHI_NEW)
-    checks = [check_flash(torch, F, fa, call, 42 + i, timed=False)
+    # K1 at D=80 and 96 (the first two) timed by events alone, beside SDPA
+    checks = [check_flash(torch, F, fa, call, 42 + i, timed=i < 2,
+                          profiled=False)
               for i, call in enumerate(PHI_EDGE_FWD)]
     for d in PHI_HEADS:
         for bits in (8, 4):
@@ -4702,7 +5151,11 @@ def main() -> int:
         "flash_fwd": flash_fwd_summary({f: e for f, e in phi_timed.items()
                                         if f.startswith("flash_fwd")}),
         "decode": decode_summary({f: e for f, e in phi_timed.items()
-                                  if f.startswith("decode")})},
+                                  if f.startswith("decode")}),
+        "flash_fwd_no_path": flash_fwd_summary(
+            {f"flash_fwd_noncausal_d{c['shape']['q'][-1]}": c
+             for c in phi_checks if c["name"] == "flash_fwd_noncausal"
+             and c["ms"] is not None})},
         "card": card}), flush=True)
     bwd_calls.update(flash_bwd_summary(
         {label: tuple(phi_timed[f"{name}_d{d}"] for name in fa.BWD_KERNELS)
@@ -4751,10 +5204,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        green_counts, green_calls = drive_green_dpo(torch, F, fa, da, tmp,
-                                                    card)
+        green_counts, green_calls, tok = drive_green_dpo(torch, F, fa, da,
+                                                         tmp, card)
         green_s = time.perf_counter() - t0
         counts.update(green_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        counts.update(drive_eval(torch, fa, da, tmp, tok, card))
+        eval_s = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -4830,7 +5288,8 @@ def main() -> int:
                     "device_ms_traced"):
             k.pop(key, None)
     print(json.dumps({"script_s": time.perf_counter() - t_start,
-                      "green_dpo_phase_s": green_s, "phi_phase_s": phi_s,
+                      "green_dpo_phase_s": green_s, "eval_phase_s": eval_s,
+                      "phi_phase_s": phi_s,
                       "qlora_phase_s": qlora_s}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -197,7 +197,7 @@ def test_msgpack_checkpoint_is_refused(tmp_path):
 
     model = U2CausalLM(U2ModelConfig.tiny(), dtype=torch.float32,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         cli._load_pretrained_into(model, str(tmp_path), model.cfg)
 
 

@@ -49,11 +49,12 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-# beside torch and numpy the port needs the standard library only; the
-# exceptions, imported inside U2InferenceModel when no tokenizer is passed
-# and inside the CLI's tokenizer loader when a tokenizer directory is named
+# beside torch and numpy the port needs the standard library only (its
+# metrics take neither nltk nor bert_score); the exceptions, imported
+# inside U2InferenceModel when no tokenizer is passed and inside the CLI's
+# tokenizer loader when a tokenizer directory is named
 OTHERS = ("scipy", "safetensors", "transformers", "sklearn",
-          "sentence_transformers")
+          "sentence_transformers", "nltk", "bert_score")
 LAZY = {("u2tokenizer_torch/eval/inference.py", "transformers"),
         ("u2tokenizer_torch/cli.py", "transformers")}
 
@@ -77,7 +78,10 @@ def test_port_imports_without_jax():
             "u2tokenizer_torch.utils.mock_tokenizer, "
             "u2tokenizer_torch.models.slot_serving, u2tokenizer_torch.serve, "
             "u2tokenizer_torch.data.datasets, u2tokenizer_torch.train.dpo, "
-            "u2tokenizer_torch.eval.green, u2tokenizer_torch.cli; "
+            "u2tokenizer_torch.eval.green, u2tokenizer_torch.cli, "
+            "u2tokenizer_torch.eval.metrics, "
+            "u2tokenizer_torch.eval.evaluators, "
+            "u2tokenizer_torch.eval.quant_report; "
             "sys.exit(any(m.split('.')[0] in %r for m in sys.modules))"
             % (FORBIDDEN + OTHERS,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -8,6 +8,14 @@
                                               samples of a predictions jsonl
   python -m u2tokenizer_torch.cli dpo-convert greened jsonl -> DPO pairs
   python -m u2tokenizer_torch.cli dpo         stage-2 DPO on those pairs
+  python -m u2tokenizer_torch.cli eval        MRG / VQA evaluation of a
+                                              model over a jsonl of cases
+  python -m u2tokenizer_torch.cli eval-predictions
+                                              the metric battery over any
+                                              model's predictions jsonl
+  python -m u2tokenizer_torch.cli quant-report
+                                              int8/int4 serving-quality
+                                              gate against the float model
   python -m u2tokenizer_torch.cli serve --checkpoint DIR [--slots 8]
       HTTP report serving (``serve.py``: POST /v1/report, /v1/upload,
       OpenAI chat); ``--slots`` > 1 serves concurrent requests from one
@@ -125,7 +133,7 @@ def _load_pretrained_into(model, path, cfg):
         raise NotImplementedError(
             "the JAX package's u2_params.msgpack checkpoint form comes with "
             "its convert-checkpoint subcommand, which the port does not "
-            "have yet (ROADMAP.md queue 1, item 12); pass an HF-layout "
+            "have yet (ROADMAP.md queue 1, item 7); pass an HF-layout "
             "checkpoint directory")
     from .eval.inference import load_state_dict
     from .models.hf_weights import convert_u2_checkpoint
@@ -505,6 +513,134 @@ def cmd_dpo_convert(args):
 
 
 # ---------------------------------------------------------------------------
+# eval / eval-predictions / quant-report
+# ---------------------------------------------------------------------------
+
+def _green_scorer(args, tokenizer=None):
+    """The GREEN scorer of ``--judge`` (``_build_judge``, no summary), or
+    None without one."""
+    if args.judge is None:
+        return None
+    from .eval.green import GreenScorer
+
+    return GreenScorer(_build_judge(args, tokenizer),
+                       compute_summary_stats=False, judge_name=args.judge)
+
+
+def cmd_eval(args, tokenizer=None, judge_tokenizer=None):
+    """MRG / VQA evaluation (eval/mrg.py, eval/vqa.py parity): greedy
+    reports of the first ``--max-cases`` cases, one at a time, scored
+    with GREEN when ``--judge`` names a judge (MRG), or the first token
+    against the answer choice (VQA). ``judge_tokenizer`` replaces the
+    judge directory's tokenizer. Returns the ``EvalResult``."""
+    from .config import GenerationConfig
+    from .data.datasets import FusedDataset
+    from .eval.evaluators import ReportGenerator, evaluate_mrg, evaluate_vqa
+    from .models.generate import make_multimodal_generate_fn
+    from .models.u2_model import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = _config_for(args, args.checkpoint)
+    tokenizer = tokenizer or _load_tokenizer(args.tokenizer)
+    ds = FusedDataset(
+        args.base_path, args.jsonl_path, tokenizer,
+        max_length=args.max_length, image_tokens_num=cfg.proj_out_num,
+        data_type="validation", num_chunks=cfg.num_chunks,
+        chunk_depth=cfg.vision.input_spatial[0],
+        target_size=cfg.vision.input_spatial[1], device=dev)
+    max_new = 1 if args.task == "vqa" else args.max_new_tokens
+    gen = GenerationConfig(max_new_tokens=max_new, do_sample=False,
+                           eos_token_id=tokenizer.eos_token_id,
+                           pad_token_id=tokenizer.pad_token_id or 0)
+    model = _init_or_load(args, cfg, dev)
+    generator = ReportGenerator(model, tokenizer,
+                                make_multimodal_generate_fn(model, gen),
+                                pad_id=gen.pad_token_id,
+                                eos_id=tokenizer.eos_token_id)
+    if args.task == "vqa":
+        result = evaluate_vqa(ds, generator, max_cases=args.max_cases)
+    else:
+        result = evaluate_mrg(ds, generator,
+                              _green_scorer(args, judge_tokenizer),
+                              max_cases=args.max_cases)
+    with open(args.output, "w") as f:
+        f.write(result.to_json())
+    print(json.dumps(result.metrics))
+    print(f"wrote {args.output}", file=sys.stderr)
+    return result
+
+
+def cmd_eval_predictions(args, tokenizer=None):
+    """Score an external predictions jsonl (any model's outputs) with the
+    full metric battery: the generic replacement for the reference's
+    per-model comparative scripts (evalscipt/m3d_*.py, radfm_*.py,
+    CT-CHAT_ctrate.py). Runs on the host; only ``--judge`` takes the
+    card. ``tokenizer`` is the judge's. Returns the ``EvalResult``."""
+    from .data.datasets import load_jsonl
+    from .eval.evaluators import evaluate_predictions
+
+    result = evaluate_predictions(load_jsonl(args.predictions),
+                                  _green_scorer(args, tokenizer),
+                                  compute_bertscore=not args.no_bertscore)
+    with open(args.output, "w") as f:
+        f.write(result.to_json())
+    print(json.dumps(result.metrics))
+    print(f"wrote {args.output}", file=sys.stderr)
+    return result
+
+
+def cmd_quant_report(args):
+    """Quantization-quality gate (``eval/quant_report.py``): per-layer
+    weight round-trip SNR, teacher-forced logit agreement and optional
+    greedy-decode agreement between the float model (fp32 parameters,
+    bf16 compute) and its int8/int4 serving copies, with ``decide``'s
+    verdict a mode. Without ``--checkpoint`` the model is random, drawn
+    from seed 0 at the config's geometry, and the verdict is not
+    decision grade; nor is it with ``--rehearsal``. Prints the report as
+    one JSON line and returns it."""
+    import torch
+
+    from .eval.quant_report import (decide, forward_agreement,
+                                    greedy_agreement, layer_quant_report,
+                                    quantized_copy, synthetic_batches,
+                                    trace_rss)
+    from .models.u2_model import U2CausalLM, resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = _config_for(args, args.checkpoint)
+    batches = synthetic_batches(cfg, num_batches=args.num_batches,
+                                seq_extra=args.seq_extra, device=dev)
+    model = U2CausalLM(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    if args.checkpoint:
+        _load_pretrained_into(model, args.checkpoint, cfg)
+    trace_rss("params loaded")
+    report = {"checkpoint": args.checkpoint or "random-init"}
+    decision_grade = bool(args.checkpoint) and not args.rehearsal
+    for mode in args.modes.split(","):
+        weights = layer_quant_report(model, mode)
+        trace_rss(f"weights leg [{mode}]")
+        if not args.per_layer:
+            weights = {k: v for k, v in weights.items() if k != "layers"}
+        entry = {"weights": weights}
+        if not args.weights_only:
+            qmodel = quantized_copy(model, mode)
+            trace_rss(f"quantized copy [{mode}]")
+            entry["forward"] = forward_agreement(model, batches, mode,
+                                                 qmodel=qmodel)
+            if args.greedy_tokens:
+                entry["greedy"] = greedy_agreement(
+                    model, batches[0], mode,
+                    max_new_tokens=args.greedy_tokens, qmodel=qmodel)
+                trace_rss(f"greedy leg [{mode}]")
+            del qmodel
+        entry["decision"] = decide(entry, mode,
+                                   decision_grade=decision_grade)
+        report[mode] = entry
+    print(json.dumps(report))
+    return report
+
+
+# ---------------------------------------------------------------------------
 # serve
 # ---------------------------------------------------------------------------
 
@@ -712,6 +848,59 @@ def build_parser() -> argparse.ArgumentParser:
     dc.add_argument("--greened", required=True)
     dc.add_argument("--output", required=True)
     dc.set_defaults(fn=cmd_dpo_convert)
+
+    ev = sub.add_parser("eval")
+    _add_common(ev)
+    ev.add_argument("--task", choices=["mrg", "vqa"], default="mrg")
+    ev.add_argument("--tokenizer", default=None)
+    ev.add_argument("--base-path", dest="base_path", required=True)
+    ev.add_argument("--jsonl-path", dest="jsonl_path", required=True)
+    ev.add_argument("--checkpoint", default=None)
+    ev.add_argument("--judge", default=None,
+                    help="HF checkpoint dir of the GREEN judge (MRG)")
+    ev.add_argument("--judge-weights", dest="judge_weights",
+                    default="bf16", choices=["bf16", "int8"])
+    ev.add_argument("--output", required=True)
+    ev.add_argument("--max-length", type=int, default=1024)
+    ev.add_argument("--max-new-tokens", type=int, default=768)
+    ev.add_argument("--max-cases", type=int, default=100)
+    _add_device(ev)
+    ev.set_defaults(fn=cmd_eval)
+
+    qr = sub.add_parser("quant-report",
+                        help="int8/int4 serving-quality gate: per-layer "
+                             "SNR + logit/greedy agreement vs float")
+    _add_common(qr)
+    qr.add_argument("--checkpoint", default=None,
+                    help="HF-layout μ² checkpoint directory; default "
+                         "random-init at the config geometry")
+    qr.add_argument("--modes", default="int8,int4",
+                    help="comma-separated: int8, int4")
+    qr.add_argument("--num-batches", type=int, default=2)
+    qr.add_argument("--seq-extra", type=int, default=16,
+                    help="text tokens past the image block per probe batch")
+    qr.add_argument("--greedy-tokens", type=int, default=0,
+                    help="also greedy-decode n tokens with both stacks")
+    qr.add_argument("--weights-only", action="store_true",
+                    help="skip the forward comparison")
+    qr.add_argument("--per-layer", action="store_true",
+                    help="include the per-layer SNR table")
+    qr.add_argument("--rehearsal", action="store_true",
+                    help="mark the checkpoint as fake/synthetic: the "
+                         "go/no-go decision is computed but flagged "
+                         "non-decision-grade")
+    _add_device(qr)
+    qr.set_defaults(fn=cmd_quant_report)
+
+    ep = sub.add_parser("eval-predictions")
+    ep.add_argument("--predictions", required=True)
+    ep.add_argument("--output", required=True)
+    ep.add_argument("--judge", default=None)
+    ep.add_argument("--judge-weights", dest="judge_weights",
+                    default="bf16", choices=["bf16", "int8"])
+    ep.add_argument("--no-bertscore", action="store_true")
+    _add_device(ep)
+    ep.set_defaults(fn=cmd_eval_predictions)
 
     sv = sub.add_parser("serve")
     sv.add_argument("--slots", type=int, default=1,
