@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--max-new N] [--kernels-only]
                           [--qlora-reference-at STD [STD ...]]
+                          [--serving-repeats N]
 
 Run from the root of a checkout. It
 
@@ -16,7 +17,7 @@ Run from the root of a checkout. It
      same function, that call (CUDA events, median of 7), with the
      kernel's own device time beside (torch.profiler, ``device_ms``) and a
      bound that counts FLOPs, bytes and exponentials (``bound_ms``); K3 at
-     steps 0, 383 and 767 of both serving paths, with a 3-token prompt in
+     steps 0, 255 and 511 of both serving paths, with a 3-token prompt in
      the batch and at B=1, each also called twice for the same bits, with
      a ``decode_calls`` line of its split counts and times; the flash
      forward K1/K2 and backward K4a-c at every call the paths make (K1
@@ -44,8 +45,8 @@ Run from the root of a checkout. It
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
      tokens and a greedy decode: first bf16 weights, the int8 KV cache, 4
-     volumes and 128 tokens (``--max-new``); then, 768 tokens, the
-     configuration of the JAX package's
+     volumes and 128 tokens (``--max-new``); then, 512 tokens (its 768
+     cut for the script's time), the configuration of the JAX package's
      ``bench.py``: decoder weights quantized to int8, the int4 KV cache,
      112 volumes, the ViT over groups of 128 chunks. Each asserts the
      output and that every kernel ran on its path the expected number of
@@ -100,7 +101,7 @@ Run from the root of a checkout. It
      augmentations on the card), ``generate --do-sample --num-samples 8``
      (256 tokens, the users' 768 cut for the script's time) on two cases,
      ``green`` with a judge directory (the Llama-3.2-1B preset, seeded
-     bf16 weights: 16 prompts in batches of 4 padded to 2048, 600 greedy
+     bf16 weights: 16 prompts in batches of 4 padded to 2048, 256 greedy
      tokens, speculative with the shared prefix), one batch held to the
      plain judge under the near-tie rule, which must reject a shared
      prefix one bucket too long, and one batch with ``--judge-weights
@@ -114,7 +115,7 @@ Run from the root of a checkout. It
      the judge's;
  7b. scores reports through the port's CLI in this process
      (``drive_eval``) from the stage-2 phase's checkpoint, cases and
-     judge: ``eval --task mrg`` of three cases, 256 greedy tokens each
+     judge: ``eval --task mrg`` of three cases, 128 greedy tokens each
      (the users' 768 cut) with the seeded judge (seconds a case and a
      judged batch, K1 12 and K2 16 a case through ``step_probe``), case
      0's tokens and first-token logits inside the command against
@@ -167,7 +168,20 @@ Run from the root of a checkout. It
      CPU from the same weights and compares the loss and each parameter's
      gradient; shows that the same limits reject planted faults of the
      flash backward's wiring;
- 12. prints one JSON line per kernel table, the card line, and last
+ 12. drives the paper's stage-1 ablation matrix (``drive_ablation``) from
+     the stage-2 phase's files and CT: ``cli train --attn-type rope`` at
+     the released μ²Llama-3.2-1B config (2 steps, K1 12, K2 32 and K4a-c
+     28 a step), its fp32 export and ``cli demo --attention`` on it (K1
+     24, K2 16), the answer's tokens held to ``make_multimodal_generate_fn``
+     driven here, the capture's image tokens to ``encode_vision``'s, every
+     map's rows summing to 1 and the PNG's size; then the vanilla, LinVT
+     (one chunk, no μ²tokenizer), sequence-pool and linear-projector
+     variants at full width with a 4-layer decoder, each trained 2 steps
+     through ``sft.make_trainer`` with a 32-token report, held to the same
+     model in fp32 with the plain attention on the card (prefill logits,
+     loss, gradients) and rejecting a planted fault of its own module; and
+     'rma' over the linear projector's 2048 tokens raising;
+ 13. prints one JSON line per kernel table, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full fp32 (TF32 off for matmuls and cuDNN).
@@ -181,12 +195,14 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -236,12 +252,14 @@ TOL = {"flash_fwd_noncausal": (4e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_lse": (1e-4, 1e-5, 0.0),
        "flash_bwd_dq": (1e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_dkv": (1e-3, 1e-2, 2.0 ** -8)}
-PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 768, 4, 8
+# the B=112 path decodes MAX_NEW tokens (bench.py's 768 until the ablation
+# phase came, cut for the script's time), and K3 is checked at its steps
+PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 512, 4, 8
 # the μ²Llama report and speculative phases decode 256 tokens (the users'
 # 768 cut when the serving phase came, for the script's time)
 REPORT_TOKENS = 256
 # the B=4 bf16 path decodes 128 tokens (256 until the evaluation phase
-# came), the B=112 path 768, for the script's time on a slow host
+# came), for the script's time on a slow host
 B4_MAX_NEW = 128
 RAGGED = 900               # the last row's prompt length
 QUESTION = 64              # question tokens, the μ²tokenizer's text condition
@@ -892,12 +910,12 @@ def decode_summary(calls: dict) -> dict:
             for label, e in calls.items()}
 
 
-# K3's untimed checks beside the three timed calls (step 383 at int8 and
-# int4 B=4 and int4 B=112): the first and last decode steps at each; a
-# batch with a 3-token prompt, whose (row, kv head)s are not split (fewer
-# visible rows than csrc/decode_attention.cu's EXACT_ROWS), so that the
-# other blocks of their grid columns find no rows, at steps 0 and 383;
-# and B=1. Each is (bits, batch, step, prompt).
+# K3's untimed checks beside the three timed calls (step (MAX_NEW - 1) // 2
+# at int8 and int4 B=4 and int4 B=112): the first and last decode steps at
+# each; a batch with a 3-token prompt, whose (row, kv head)s are not split
+# (fewer visible rows than csrc/decode_attention.cu's EXACT_ROWS), so that
+# the other blocks of their grid columns find no rows, at steps 0 and
+# (MAX_NEW - 1) // 2; and B=1. Each is (bits, batch, step, prompt).
 DECODE_EDGE_CALLS = (
     [(bits, b, step, None) for bits, b in ((8, BATCH), (4, BATCH),
                                             (4, QUANT_BATCH))
@@ -1263,14 +1281,19 @@ def synthetic_ct(shape=CT_SHAPE, seed: int = 0):
     body = (x * x + y * y) <= 1.0
     vol = np.where(body, rng.normal(40.0, 15.0, shape).astype(np.float32),
                    np.float32(-1000.0))
-    z = np.arange(nz)[None, None, :]
     for _ in range(4):
         cx, cy = rng.uniform(-0.2, 0.2, 2) * (nx, ny) + (nx / 2, ny / 2)
         cz, r = rng.uniform(0.2, 0.8) * nz, rng.uniform(15, 30)
-        blob = ((np.arange(nx)[:, None, None] - cx) ** 2
-                + (np.arange(ny)[None, :, None] - cy) ** 2
-                + (z - cz) ** 2) <= r * r
-        vol[blob] = 700.0 + rng.normal(0.0, 30.0, int(blob.sum()))
+        # the ball's voxels, in the volume's order, from its bounding box
+        lo = [max(int(c - r) - 1, 0) for c in (cx, cy, cz)]
+        hi = [min(int(c + r) + 2, n) for c, n in ((cx, nx), (cy, ny),
+                                                  (cz, nz))]
+        box = vol[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        blob = ((np.arange(lo[0], hi[0])[:, None, None] - cx) ** 2
+                + (np.arange(lo[1], hi[1])[None, :, None] - cy) ** 2
+                + (np.arange(lo[2], hi[2])[None, None, :] - cz) ** 2
+                ) <= r * r
+        box[blob] = 700.0 + rng.normal(0.0, 30.0, int(blob.sum()))
     return vol.astype(np.int16)
 
 
@@ -1543,7 +1566,8 @@ FANOUT_TOKENS = 128
 SCRIPT_SEED = 7            # bench.py's report scripts
 # the forced-content phase's depth (bench.py's 768 cut for the script's
 # time, to 256 when the Phi phase came and to 128 when the evaluation
-# phase came; it launches no K3, so the B=112 path's K3 checks stay at 768)
+# phase came; it launches no K3, so the B=112 path's K3 checks stay at
+# MAX_NEW)
 FORCED_TOKENS = 128
 # Greedy speculative decoding against plain greedy on the card. A verify
 # block's logits come from other GEMM shapes than a single step's, so the
@@ -2096,9 +2120,38 @@ def serve_args(ckpt: str, *extra):
          str(SERVING_TOKENS), "--host", "127.0.0.1", "--port", "0", *extra])
 
 
+class NoReply(AssertionError):
+    """A request to one of the script's servers that got no reply in its
+    time."""
+
+
+def thread_stacks(depth: int = 4) -> str:
+    """The innermost ``depth`` frames of every other thread of this
+    process, identical stacks counted once: where an in-process server
+    that does not reply is waiting. The whole dump goes to stderr."""
+    import collections
+    import faulthandler
+    import threading
+    import traceback
+
+    faulthandler.dump_traceback(sys.stderr, all_threads=True)
+    me = threading.get_ident()
+    stacks = collections.Counter()
+    for ident, frame in sys._current_frames().items():
+        if ident != me:
+            stacks[" < ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                for f in reversed(traceback.extract_stack(frame)[-depth:]))] \
+                += 1
+    return "; ".join(f"{n} x [{s}]" for s, n in stacks.items())
+
+
 def http(url: str, payload=None, data=None, headers=None, timeout=300):
     """(status, body bytes) of a GET, or a POST of ``payload`` as JSON or
-    of raw ``data``; an HTTP error's status is returned, not raised."""
+    of raw ``data``; an HTTP error's status is returned, not raised. No
+    reply in ``timeout`` seconds raises ``NoReply`` with this process's
+    threads' stacks. The servers are local: no proxy of the environment is
+    asked."""
     import urllib.error
     import urllib.request
 
@@ -2106,11 +2159,17 @@ def http(url: str, payload=None, data=None, headers=None, timeout=300):
         data = json.dumps(payload).encode()
         headers = {"Content-Type": "application/json"}
     req = urllib.request.Request(url, data=data, headers=headers or {})
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
     try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
+        with opener.open(req, timeout=timeout) as resp:
             return resp.status, resp.read()
     except urllib.error.HTTPError as e:
         return e.code, e.read()
+    except (TimeoutError, urllib.error.URLError) as e:
+        if not isinstance(getattr(e, "reason", e), TimeoutError):
+            raise
+        raise NoReply(f"{url}: no reply in {timeout} s; threads here: "
+                      f"{thread_stacks()}") from e
 
 
 def http_ok(url: str, payload=None, **kw) -> dict:
@@ -2253,9 +2312,12 @@ def cli_subprocess_check(ckpt: str, ct_path: str, log_path: str) -> dict:
            "--max-new-tokens", str(SUBPROCESS_TOKENS), "--host",
            "127.0.0.1", "--port", str(port)]
     t0 = time.perf_counter()
+    # a server that does not reply is stopped with SIGABRT, and Python's
+    # fault handler writes its threads' stacks into the log
+    env = dict(os.environ, PYTHONFAULTHANDLER="1")
     with open(log_path, "w") as log_file:
         proc = subprocess.Popen(cmd, stdout=log_file,
-                                stderr=subprocess.STDOUT,
+                                stderr=subprocess.STDOUT, env=env,
                                 cwd=os.path.dirname(os.path.abspath(
                                     __file__)))
         try:
@@ -2268,7 +2330,7 @@ def cli_subprocess_check(ckpt: str, ct_path: str, log_path: str) -> dict:
                 try:
                     if http(url + "/health", timeout=5)[0] == 200:
                         break
-                except OSError:
+                except (OSError, NoReply):
                     pass
                 time.sleep(0.5)
             up_s = time.perf_counter() - t0
@@ -2277,11 +2339,21 @@ def cli_subprocess_check(ckpt: str, ct_path: str, log_path: str) -> dict:
                                                "question": REPORT_QUESTION},
                           timeout=120)
             report_s = time.perf_counter() - t1
-        except Exception:
+        except Exception as e:
+            if isinstance(e, NoReply) and proc.poll() is None:
+                proc.send_signal(signal.SIGABRT)
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    pass
             proc.kill()
             proc.wait()
             with open(log_path) as f:
-                log(f.read()[-3000:])
+                tail = f.read()[-3000:]
+            log(tail)
+            if isinstance(e, NoReply):
+                raise NoReply(f"cli serve: {e}; its log ends: "
+                              f"{tail[-1500:]!r}") from e
             raise
         proc.terminate()
         try:
@@ -2798,6 +2870,21 @@ def drive_serving(torch, fa, da, volume, tmp: str, card: str) -> dict:
     return counts
 
 
+def serving_repeats(torch, fa, da, card: str, n: int) -> int:
+    """The serving phase ``n`` times over one report phase's checkpoint
+    and CT, each pass's seconds printed: a search for a server that stops
+    replying (``NoReply`` names it). No result line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _, volume = check_ingest(torch, tmp)
+        drive_report(torch, fa, da, volume, tmp)
+        for i in range(n):
+            t0 = time.perf_counter()
+            drive_serving(torch, fa, da, volume, tmp, card)
+            print(json.dumps({"serving_pass": i,
+                              "s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
 def nucleus_readings(torch, row, draws: int, generator):
     """``draws`` draws of ``nucleus_sample`` from one fixed row on its
     device, SAMPLE_ROWS at a time, against the exact renormalised nucleus
@@ -3084,17 +3171,20 @@ def planted(fa, replacements):
 
 
 def model_grads(model) -> dict:
-    """{name: gradient} of every parameter of ``model`` (after a step)."""
-    return {name: p.grad for name, p in model.named_parameters()}
+    """{name: gradient} of every parameter of ``model`` (after a step;
+    zeros where it has none)."""
+    return {name: p.grad if p.grad is not None else p.detach() * 0
+            for name, p in model.named_parameters()}
 
 
 def gradient_readings(torch, grads, ref):
     """Per parameter of ``grads`` ({name: gradient}): the cosine of its
-    gradient to ``ref``'s (flat fp64) and the ratio of their norms, summed
-    in fp64."""
+    gradient to ``ref``'s (flat fp64, on the host or the card) and the
+    ratio of their norms, summed in fp64 where ``ref`` lies."""
     out = {}
     for name, grad in grads.items():
-        g, r = grad.double().flatten().cpu(), ref[name]
+        r = ref[name]
+        g = grad.double().flatten().to(r.device)
         gn, rn = g.norm().item(), r.norm().item()
         if gn == rn == 0:  # no path to the loss (the top-k's score net)
             out[name] = {"cos": 1.0, "norm_ratio": 1.0}
@@ -3140,11 +3230,13 @@ def worst_leaves(readings, judge=judged):
 
 def left_out_medians(readings, rule=left_out,
                      groups=("key_bias", "aggregator")):
-    """Per group of ``rule``: its size and the median cosine and norm
-    ratio of its parameters' gradients."""
+    """Per group of ``rule`` that has parameters: its size and the median
+    cosine and norm ratio of its parameters' gradients."""
     out = {}
     for group in groups:
         some = [r for n, r in readings.items() if rule(n) == group]
+        if not some:
+            continue
         out[group] = {"leaves": len(some), "median_cos": statistics.median(
             r["cos"] for r in some), "median_norm_ratio": statistics.median(
             r["norm_ratio"] for r in some)}
@@ -3304,15 +3396,17 @@ def qlora_reference_line(torch, fa, lora_b_std: float) -> dict:
 # takes TRAIN_FILE_STEPS steps; ``generate`` samples GEN_SAMPLES reports
 # of GEN_TOKENS tokens for the first GEN_CASES cases (the users' 768 tokens
 # cut for the script's time); the judge scores them in batches of
-# JUDGE_BATCH prompts padded to JUDGE_LENGTH, JUDGE_TOKENS greedy tokens
-# each (TorchJudge's defaults, the JAX package's); ``dpo`` takes DPO_STEPS
-# steps at the JAX defaults, and again with ``--ce-chunk`` DPO_CE_CHUNK;
+# JUDGE_BATCH prompts padded to JUDGE_LENGTH (TorchJudge's defaults, the
+# JAX package's), JUDGE_TOKENS greedy tokens each (TorchJudge's 600 cut
+# when the ablation phase came, for the script's time); ``dpo`` takes
+# DPO_STEPS steps at the JAX defaults, and again with ``--ce-chunk``
+# DPO_CE_CHUNK;
 # a repeated pair at SEPARATE_LR, the JAX default, must separate (the
 # first update, at lr 0, leaves the policy; the second moves it).
 GREEN_CT_SEEDS = (0, 1, 2)
 TRAIN_FILE_STEPS = 3
 GEN_CASES, GEN_SAMPLES, GEN_TOKENS = 2, 8, 256
-JUDGE_BATCH, JUDGE_LENGTH, JUDGE_TOKENS = 4, 2048, 600
+JUDGE_BATCH, JUDGE_LENGTH, JUDGE_TOKENS = 4, 2048, 256
 DPO_STEPS, DPO_CE_CHUNK = 4, 256
 SEPARATE_LR, SEPARATE_STEPS = 4e-6, 4
 # step 0 of DPO is an identity (policy = reference): the sigmoid loss is
@@ -3715,6 +3809,8 @@ def green_judge_phase(torch, fa, da, tok, data: str, tmp: str,
     def timed_build(*a, **kw):
         t0 = time.perf_counter()
         built.append(build(*a, **kw))
+        built[-1].gen_cfg = dataclasses.replace(
+            built[-1].gen_cfg, max_new_tokens=JUDGE_TOKENS)
         torch.cuda.synchronize()
         built[-1].build_s = time.perf_counter() - t0
         return built[-1]
@@ -3773,8 +3869,9 @@ def green_judge_phase(torch, fa, da, tok, data: str, tmp: str,
     # the plain judge on the same prompts
     chunk = [green_chat_format(green.make_green_prompt(
         rows[0]["answer"], p), "</s>") for p in rows[0]["predictions"][:4]]
-    plain_judge = green.TorchJudge(judge.model, tok, speculative=False,
-                                   share_prefix=False)
+    plain_judge = green.TorchJudge(judge.model, tok,
+                                   max_new_tokens=JUDGE_TOKENS,
+                                   speculative=False, share_prefix=False)
     p_ids, p_lens, _ = plain_judge.batch_inputs(chunk)
     if not (torch.equal(p_ids, ids) and torch.equal(p_lens, lens)):
         raise AssertionError("the two judges padded the batch differently")
@@ -4150,7 +4247,9 @@ def drive_green_dpo(torch, F, fa, da, tmp: str, card: str) -> tuple:
 # (``eval --task mrg`` with the judge, ``eval --task vqa``,
 # ``eval-predictions``), and ``quant-report`` at μ²Qwen3-1.7B, bench.py's
 # model. Scores of seeded weights mean only that the machinery runs.
-EVAL_CASES, EVAL_TOKENS = 3, 256   # the users' 768 cut for the script's time
+# the users' 768 tokens cut for the script's time (256 until the ablation
+# phase came)
+EVAL_CASES, EVAL_TOKENS = 3, 128
 EVAL_FAULT_TOKENS = 32             # the planted prompt-length fault's steps
 QR_GREEDY_TOKENS = 32              # quant-report's greedy leg
 # depth chunks of its reduced-depth check: 4 x 256 projected tokens, as the
@@ -4211,6 +4310,13 @@ def eval_mrg_phase(torch, fa, da, tok, data: str, ckpt: str,
 
     loaded, judged, first_logits = [], [], []
     load, tokens_of = cli._init_or_load, green.TorchJudge.batch_tokens
+    build = cli._build_judge
+
+    def judge_of(*a, **kw):  # JUDGE_TOKENS a reply, as the stage-2 phase's
+        judge = build(*a, **kw)
+        judge.gen_cfg = dataclasses.replace(judge.gen_cfg,
+                                            max_new_tokens=JUDGE_TOKENS)
+        return judge
 
     def timed_load(*a, **kw):
         t0 = time.perf_counter()
@@ -4240,7 +4346,8 @@ def eval_mrg_phase(torch, fa, da, tok, data: str, ckpt: str,
     reset_launches(fa, da)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with planted(cli, {"_init_or_load": timed_load}), \
+    with planted(cli, {"_init_or_load": timed_load,
+                       "_build_judge": judge_of}), \
             planted(green.TorchJudge, {"batch_tokens": timed_tokens}), \
             step_probe(torch, fa, da, generate, "make_multimodal_generate_fn",
                        record=generate_record) as cases:
@@ -4675,6 +4782,8 @@ def phi2_judge_phase(torch, fa, da, tmp: str, preds: str) -> tuple:
 
     def judge_of(*a, **kw):
         built.append(build(*a, **kw))
+        built[-1].gen_cfg = dataclasses.replace(
+            built[-1].gen_cfg, max_new_tokens=JUDGE_TOKENS)
         return built[-1]
 
     def timed_tokens(judge, ids, lens, split):
@@ -4994,6 +5103,549 @@ def drive_phi(torch, F, fa, da, volume, tmp: str, preds: str, card: str):
 
 
 
+# ---------------------------------------------------------------------------
+# The paper's stage-1 ablation matrix and ``cli demo`` (``drive_ablation``)
+# ---------------------------------------------------------------------------
+
+# The users' leg: ``cli train --attn-type rope`` at the released
+# μ²Llama-3.2-1B widths and depth on the stage-2 phase's files, exported by
+# ``save_hf_checkpoint`` (fp32), then ``cli demo --attention`` on it, a
+# DEMO_TOKENS answer. The matrix: each variant of the reference's stage-1
+# scripts at full width, the ViT, projector and μ²tokenizer at full depth
+# and the decoder cut to ABLATION_LAYERS layers (the variants change only
+# the vision side), with weights drawn on the card: ABLATION_STEPS SFT
+# steps of B=1 over a 1024-token row and an ABLATION_TOKENS greedy report
+# from a bf16 cache, held to the same model in fp32 on the card with the
+# plain attention (prefill logits within LOGIT_TOL, the loss within
+# TRAIN_LOSS_TOL, each gradient that ``ablation_judged`` holds within
+# TRAIN_COS_MIN and TRAIN_NORM_TOL), and rejecting one planted fault of
+# its own module by the same limits.
+ABLATION_STEPS, ABLATION_LAYERS, ABLATION_TOKENS, DEMO_TOKENS = 2, 4, 32, 64
+# each captured map is an fp32 softmax: its rows sum to 1 within this
+MAP_SUM_TOL = 1e-3
+# Left out of the matrix's gradient check, beside ``dpo_left_out``'s
+# groups: the parameters of the SVR's attention scores past its first
+# layer (query and key projections, relative-bias tables). The SVR stacks
+# its attentions with no residual or norm, so its scores grow layer by
+# layer and its softmaxes saturate; the gradients through them are small
+# in fp32 and rounding noise in bf16 (at the vanilla and sequence-pool
+# variants their median cosines are about 0, their norms 26 and 91 times
+# fp32's). They run in plain PyTorch, not through a kernel, in both runs.
+# The reduced checks, whose μ²tokenizer has one layer, hold them.
+ABLATION_LEFT_OUT = DPO_LEFT_OUT + ("svr_scores",)
+ABLATION_FAULTS = {"vanilla": "output projection skipped",
+                   "linvt": "image tokens spliced one row late",
+                   "sequence_pool": "pooled in the declared grid's order",
+                   "linear_projector": "RoPE on q only"}
+
+
+def ablation_left_out(name: str):
+    """``dpo_left_out``, and "svr_scores" for the score parameters of the
+    SVR's attentions past its first layer (see ABLATION_LEFT_OUT)."""
+    m = re.match(r"u2tokenizer\.svt_module\.layers\.(\d+)\.\w+_attention\."
+                 r"(w[qk]\.|relative_bias)", name)
+    if m and int(m.group(1)) > 0 and dpo_left_out(name) is None:
+        return "svr_scores"
+    return dpo_left_out(name)
+
+
+def ablation_judged(name: str) -> bool:
+    return ablation_left_out(name) is None
+
+
+def ablation_configs() -> dict:
+    """The matrix: the released config with the decoder cut to
+    ABLATION_LAYERS and one change each. LinVT is the reference's
+    ``LinearVolumeTransform`` baseline (one 32x256x256 chunk, no
+    μ²tokenizer); the linear projector hands the μ²tokenizer all 2048
+    tokens of a chunk, past the 'rma' table (known difference 15), so it
+    takes 'rope'. Each gives the decoder 256 image tokens."""
+    base = released_config()
+    base = dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, num_layers=ABLATION_LAYERS))
+    u2t = lambda **kw: dataclasses.replace(base.u2t, **kw)
+    proj = lambda **kw: dataclasses.replace(base.projector, **kw)
+    return {"vanilla": dataclasses.replace(base, u2t=u2t(attn_type="vanilla")),
+            "linvt": dataclasses.replace(base, num_chunks=1,
+                                         u2t=u2t(enable=False)),
+            "sequence_pool": dataclasses.replace(
+                base, projector=proj(pooling_type="sequence")),
+            "linear_projector": dataclasses.replace(
+                base, projector=proj(projector_type="linear"),
+                u2t=u2t(attn_type="rope"))}
+
+
+@contextlib.contextmanager
+def ablation_fault(torch, name: str, cfg):
+    """ABLATION_FAULTS[name] planted inside the block: the vanilla
+    attention without its output projection; the image tokens over prompt
+    rows [2, 2 + n); the 'sequence' pool taken over the declared 3D grid
+    (the same count of tokens, other values); RoPE on q alone."""
+    from u2tokenizer_torch.models import projector, u2_model
+    from u2tokenizer_torch.models.u2tok import attention
+    from u2tokenizer_torch.ops.attention import sdpa
+    from u2tokenizer_torch.ops.pooling import spatial_pool_3d
+    from u2tokenizer_torch.ops.rotary import apply_rope, rope_cos_sin
+
+    def attend_no_dense(self, q, k, value, bias=None,
+                        capture_attention=False):
+        v = attention._split_heads(self.wv(value), self.num_heads)
+        return attention._merge_heads(sdpa(q, k, v, bias=bias))
+
+    def splice_late(self, input_ids, image_features):
+        embeds = self.llm.embed_tokens(input_ids)
+        img = image_features.to(embeds.dtype)
+        return torch.cat([embeds[:, :2], img,
+                          embeds[:, 2 + img.shape[1]:]], dim=1)
+
+    def rope_q_only(self, query, key, value, capture_attention=False):
+        q = attention._split_heads(self.wq(query), self.num_heads)
+        k = attention._split_heads(self.wk(key), self.num_heads)
+        cos, sin = rope_cos_sin(torch.arange(q.shape[1], device=q.device),
+                                q.shape[-1], self.theta)
+        return self.attend(apply_rope(q, cos, sin), k, value, None,
+                           capture_attention)
+
+    grid = cfg.projector.grid_pre(cfg.vision.image_size,
+                                  cfg.vision.patch_size)
+    owner, replacements = {
+        "vanilla": (attention.VanillaMultiheadAttention,
+                    {"attend": attend_no_dense}),
+        "linvt": (u2_model.U2CausalLM, {"splice_embeds": splice_late}),
+        "sequence_pool": (projector, {"sequence_pool": lambda x, pool:
+                                      spatial_pool_3d(x, grid, pool)}),
+        "linear_projector": (attention.RotaryMultiheadAttention,
+                             {"forward": rope_q_only})}[name]
+    with planted(owner, replacements):
+        yield
+
+
+def prefill_report(torch, model, batch, cache_dtype, steps: int):
+    """The report path's prefill of ``batch`` (its valid tokens the prompt)
+    and ``steps`` greedy tokens from a ``cache_dtype`` cache: (the prefill's
+    last logits in fp32, the tokens)."""
+    from u2tokenizer_torch.config import GenerationConfig
+    from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
+
+    fn = make_multimodal_generate_fn(
+        model, GenerationConfig(max_new_tokens=steps, eos_token_id=-2),
+        cache_dtype)
+    plen = batch["attention_mask"].sum(-1).to(torch.int32)
+    embeds = fn.embeds(batch["input_ids"], batch["images"],
+                       batch["question_ids"])
+    kv, tok0, done0, last = fn.prefill_stage(embeds, plen)
+    with torch.inference_mode():
+        logits = model.lm_logits(last)[:, 0].float()
+    _, _, rest = fn.decode_steps(kv, tok0, done0, plen, range(steps - 1))
+    return logits, torch.cat([tok0[:, None], rest], dim=1)
+
+
+def loss_and_grads(torch, model, batch):
+    """(loss, {name: gradient}) of the SFT loss, every parameter's gradient
+    materialised (zeros where no path reaches it)."""
+    from u2tokenizer_torch.train.sft import make_loss_fn
+
+    names, params = zip(*model.named_parameters())
+    loss, _ = make_loss_fn()(model, batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                materialize_grads=True)
+    return loss.item(), dict(zip(names, grads))
+
+
+def ablation_variant(torch, fa, da, name: str, cfg) -> tuple:
+    """One variant of the matrix (``ablation_configs``): its fp32 plain
+    reference on the card (prefill logits, loss, gradients), then the bf16
+    model with the kernels (an ABLATION_TOKENS greedy report, launches K1
+    once per ViT layer and K2 once per decoder layer; ABLATION_STEPS steps
+    of ``sft.make_trainer``, each K1 12, K2 2 x ABLATION_LAYERS under
+    remat, K4a-c 12 + ABLATION_LAYERS, the first's gradients held to the
+    reference's), then its planted fault from the same weights, which
+    the same limits must reject. Returns (the line, the launches)."""
+    from u2tokenizer_torch.config import TrainConfig
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.train import sft
+
+    batch = {k: v.cuda() for k, v in training_batch(
+        torch, cfg, PROMPT, [TRAIN_VALID], TRAIN_PROMPT, seed=5).items()}
+    t0 = time.perf_counter()
+    model = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=5,
+                       remat=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    plain = U2CausalLM(cfg, dtype=torch.float32, device="cuda", seed=5,
+                       remat=True)
+    plain.load_state_dict(weights)
+    with planted(fa, plain_attention(fa)):
+        ref_logits, _ = prefill_report(torch, plain, batch, torch.float32, 1)
+        ref_loss, grads = loss_and_grads(torch, plain, batch)
+    ref = {n: g.double().flatten() for n, g in grads.items()}
+    del plain, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reference_s = time.perf_counter() - t0
+
+    rel = lambda out: ((out - ref_logits).abs().max()
+                       / ref_logits.abs().max()).item()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa, da)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, tokens = prefill_report(torch, model, batch, torch.bfloat16,
+                                    ABLATION_TOKENS)
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    report_launches = read_launches(fa, da)
+    want = {name: 0 for name in report_launches}
+    want.update({"flash_fwd_noncausal": cfg.vision.num_layers,
+                 "flash_fwd_causal": cfg.llm.num_layers})
+    if report_launches != want:
+        raise AssertionError(f"ablation {name} report launches "
+                             f"{report_launches} != {want}")
+    vocab = cfg.llm.vocab_size
+    if not (tokens.shape == (1, ABLATION_TOKENS)
+            and ((tokens >= 0) & (tokens < vocab)).all()):
+        raise AssertionError(f"ablation {name} report tokens {tokens}")
+    with step_probe(torch, fa, da, sft, "make_trainer", unpack=True) as recs:
+        state, step = sft.make_trainer(model, TrainConfig(), ABLATION_STEPS)
+        state, _ = step(state, batch)
+        sound = gradient_readings(torch, model_grads(model), ref)
+        for _ in range(ABLATION_STEPS - 1):
+            state, _ = step(state, batch)
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(f"ablation {name} train", recs, {
+        "flash_fwd_noncausal": cfg.vision.num_layers,
+        "flash_fwd_causal": 2 * cfg.llm.num_layers,
+        **{k: cfg.vision.num_layers + cfg.llm.num_layers
+           for k in ("flash_bwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}})
+    readings = step_readings(recs)
+    launches = {k: n + sum(r["launches"][k] for r in recs)
+                for k, n in report_launches.items()}
+    del state, step
+    card_loss = readings["loss"][0]
+    line = {"params": n_params, "decoder_layers": cfg.llm.num_layers,
+            "chunks": cfg.num_chunks, "attn_type": cfg.u2t.attn_type,
+            "u2tokenizer": cfg.u2t.enable,
+            "projector": cfg.projector.projector_type,
+            "pooling": cfg.projector.pooling_type,
+            "model_build_s": build_s, "fp32_reference_s": reference_s,
+            "report_s": report_s, "report_tokens": ABLATION_TOKENS,
+            **readings, "peak_mem_gb": peak / 1e9,
+            "report_launches": report_launches,
+            "logits_rel_err": rel(logits), "logits_tol": LOGIT_TOL,
+            "loss_fp32": ref_loss,
+            "loss_rel_err": abs(card_loss - ref_loss) / abs(ref_loss),
+            "leaves_held": sum(map(ablation_judged, sound)),
+            "leaves": len(sound), "held": worst_leaves(sound, ablation_judged),
+            "left_out": left_out_medians(sound, ablation_left_out,
+                                         ABLATION_LEFT_OUT)}
+    bad = misfits(sound, ablation_judged)
+    if not (line["logits_rel_err"] <= LOGIT_TOL
+            and line["loss_rel_err"] <= TRAIN_LOSS_TOL and not bad):
+        raise AssertionError(f"ablation {name} against its fp32 plain "
+                             f"reference: {line}, rejected leaves {bad}")
+
+    model.load_state_dict(weights)
+    with ablation_fault(torch, name, cfg):
+        fault_logits, _ = prefill_report(torch, model, batch,
+                                         torch.bfloat16, 1)
+        _, grads = loss_and_grads(torch, model, batch)
+    wrong = gradient_readings(torch, grads, ref)
+    fault = {"fault": ABLATION_FAULTS[name],
+             "logits_rel_err": rel(fault_logits),
+             "leaves_rejected": len(misfits(wrong, ablation_judged)),
+             **worst_leaves(wrong, ablation_judged)}
+    if not (fault["logits_rel_err"] > LOGIT_TOL or fault["leaves_rejected"]):
+        raise AssertionError(f"ablation {name}: the limits do not reject "
+                             f"the planted fault: {fault}")
+    line["planted_fault"] = fault
+    del model, weights, ref, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def rma_linear_raises(torch, cfg) -> dict:
+    """'rma' over the linear projector's 2048 tokens a chunk: the SVR's
+    spatial attention spans past the bias table's max_seq_len (known
+    difference 15), so the μ²tokenizer raises before it forms an index,
+    and the card goes on."""
+    from u2tokenizer_torch.models.layers import init_weights
+    from u2tokenizer_torch.models.u2tok.u2tokenizer import U2Tokenizer
+
+    e = cfg.llm.hidden_size
+    u2t = dataclasses.replace(cfg.u2t, attn_type="rma", num_layers=1)
+    module = U2Tokenizer(e, u2t, torch.bfloat16, "cuda")
+    init_weights(module, 0)
+    tokens = torch.randn(1, cfg.num_chunks, 2048, e, device="cuda",
+                         dtype=torch.bfloat16)
+    text = torch.randn(1, QUESTION, e, device="cuda", dtype=torch.bfloat16)
+    try:
+        module(tokens, text)
+    except ValueError as err:
+        message = str(err)
+    else:
+        raise AssertionError("'rma' over 2048 tokens a chunk did not raise")
+    ok = torch.ones(4, device="cuda").sum().item() == 4.0
+    torch.cuda.synchronize()
+    return {"raised": "ValueError", "message": message,
+            "card_answers_after": ok}
+
+
+def png_size(path: str) -> tuple:
+    """(height, width) of an 8-bit RGB PNG whose image data zlib decodes
+    to one filter byte and 3 bytes a pixel a row."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, body = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body[tag] = body.get(tag, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, colour = struct.unpack(">IIBB", body[b"IHDR"][:10])
+    if (depth, colour) != (8, 2) or len(zlib.decompress(body[b"IDAT"])) \
+            != h * (1 + 3 * w):
+        raise AssertionError(f"{path}: {depth}-bit colour type {colour}, "
+                             f"image data not {h} rows of {w} RGB pixels")
+    return h, w
+
+
+def demo_prompt(torch, tok, cfg, question: str, max_length: int = 1024):
+    """``cli demo``'s inputs for ``question``, written here from its
+    recipe: the chat template over the image placeholders and the
+    question, padded to ``max_length``; the question's ids padded to 64;
+    the prompt length."""
+    ids = tok(tok.apply_chat_template([{"role": "user", "content":
+                                        "<im_patch>" * cfg.proj_out_num
+                                        + question}]))["input_ids"]
+    q = tok(question)["input_ids"]
+    row = lambda x, n: torch.tensor([x + [0] * (n - len(x))],
+                                    device="cuda")
+    return (row(ids, max_length), row(q, 64),
+            torch.tensor([len(ids)], dtype=torch.int32, device="cuda"))
+
+
+def ablation_cli_leg(torch, fa, da, tok, data: str, volume,
+                     tmp: str) -> tuple:
+    """``cli train --config <released> --attn-type rope`` for
+    ABLATION_STEPS steps from the stage-2 phase's files (no
+    ``--pretrained``: an 'rma' checkpoint's bias tables have no place in
+    a rope model), each step K1 12, K2 32 and K4a-c 28; the trained state
+    exported by ``save_hf_checkpoint`` (fp32); then ``cli demo
+    --checkpoint --attention`` on one question, timed by stage (load,
+    capture, answer), K1 24 and K2 16 in all. Held: the answer's tokens
+    and text those of ``make_multimodal_generate_fn`` driven here, stage
+    by stage, on inputs built here and the demo's model; the capture's
+    image tokens ``encode_vision``'s bit for bit; every map's rows sum to
+    1; the PNG decodes to ``png_layout``'s size. Returns (the line, the
+    train launches, the demo launches)."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.config import GenerationConfig
+    from u2tokenizer_torch.eval import attention_viz
+    from u2tokenizer_torch.models import generate
+    from u2tokenizer_torch.models.hf_export import save_hf_checkpoint
+    from u2tokenizer_torch.train import sft
+    from u2tokenizer_torch.weights import flax_params
+
+    config_path = os.path.join(tmp, "released_config.json")
+    with open(config_path, "w") as f:
+        f.write(released_config().to_json())
+    out = os.path.join(tmp, "sft_rope")
+    reset_launches(fa, da)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with step_probe(torch, fa, da, sft, "make_trainer", unpack=True) as recs:
+        state = cli_run(["train", "--config", config_path, "--attn-type",
+                         "rope", "--tokenizer", "mock", "--train-base-path",
+                         data, "--train-jsonl-path", "cases.jsonl",
+                         "--max-steps", str(ABLATION_STEPS), "--batch-size",
+                         "1", "--max-length", "1024", "--num-workers", "2",
+                         "--output-dir", out], tokenizer=tok)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches(fa, da)
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("train --attn-type rope", recs, {
+        "flash_fwd_noncausal": 12, "flash_fwd_causal": 32,
+        "flash_bwd_lse": 28, "flash_bwd_dq": 28, "flash_bwd_dkv": 28})
+    readings = step_readings(recs)
+    if not all(math.isfinite(x) for x in readings["loss"]
+               + readings["grad_norm"]):
+        raise AssertionError(f"train --attn-type rope: {readings}")
+    model = state.model
+    cfg = model.cfg
+    if cfg.u2t.attn_type != "rope" or any(
+            n.endswith("relative_bias") for n, _ in model.named_parameters()):
+        raise AssertionError(f"train --attn-type rope built {cfg.u2t}")
+    ckpt_gb = sum(e.stat().st_size for e in os.scandir(
+        os.path.join(out, "checkpoints", str(ABLATION_STEPS)))) / 1e9
+    shutil.rmtree(out)
+    ckpt = os.path.join(tmp, "mu2llama_rope")
+    gc.collect()
+    t0 = time.perf_counter()
+    save_hf_checkpoint(ckpt, flax_params(model), cfg)
+    export_s = time.perf_counter() - t0
+    export_gb = sum(e.stat().st_size for e in os.scandir(ckpt)) / 1e9
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    loaded, captured = [], []
+    load, capture = cli._init_or_load, attention_viz.capture_attention_maps
+
+    def timed(fn, into):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into.append((result, time.perf_counter() - t0))
+            return result
+        return call
+
+    record = lambda args, out: {"args": [a.clone() for a in args[:4]],
+                                "tokens": out[0].clone()}
+    png = os.path.join(tmp, "attention.png")
+    question = GREEN_QUESTIONS[0]
+    printed = io.StringIO()
+    reset_launches(fa, da)
+    t0 = time.perf_counter()
+    with planted(cli, {"_init_or_load": timed(load, loaded)}), \
+            planted(attention_viz, {"capture_attention_maps":
+                                    timed(capture, captured)}), \
+            step_probe(torch, fa, da, generate,
+                       "make_multimodal_generate_fn",
+                       record=record) as answers, \
+            contextlib.redirect_stdout(printed):
+        texts = cli_run(["demo", "--checkpoint", ckpt, "--tokenizer", "mock",
+                         "--image", os.path.join(tmp, "ct.nii"),
+                         "--question", question, "--attention", png,
+                         "--max-new-tokens", str(DEMO_TOKENS)],
+                        tokenizer=tok)
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    demo_launches = read_launches(fa, da)
+    want = {k: 0 for k in demo_launches}
+    want.update({"flash_fwd_noncausal": 24, "flash_fwd_causal": 16})
+    if demo_launches != want:
+        raise AssertionError(f"cli demo launches {demo_launches} != {want}")
+    (model, load_s), = loaded
+    (maps, capture_s), = captured
+    answer, = answers
+    if printed.getvalue().splitlines() != texts or len(texts) != 1:
+        raise AssertionError(f"cli demo printed {printed.getvalue()!r}, "
+                             f"returned {texts}")
+    if model.cfg.u2t.attn_type != "rope":
+        raise AssertionError(f"cli demo built {model.cfg.u2t}")
+
+    # the answer again, outside the command: inputs built here, the
+    # demo's model, stage by stage
+    ids, qids, plen = demo_prompt(torch, tok, model.cfg, question)
+    images = volume.float()[None]
+    for got, mine, what in zip(answer["args"], (ids, images, qids, plen),
+                               ("ids", "volume", "question ids",
+                                "prompt length")):
+        if not torch.equal(got, mine):
+            raise AssertionError(f"cli demo's {what} differ from the "
+                                 "recipe's")
+    gen = GenerationConfig(max_new_tokens=DEMO_TOKENS, do_sample=False,
+                           eos_token_id=tok.eos_token_id,
+                           pad_token_id=tok.pad_token_id or 0)
+    fn = generate.make_multimodal_generate_fn(model, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embeds = fn.embeds(ids, images, qids)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kv, tok0, done0, _ = fn.prefill_stage(embeds, plen)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _, _, rest = fn.decode_steps(kv, tok0, done0, plen,
+                                 range(DEMO_TOKENS - 1))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    direct = torch.cat([tok0[:, None], rest], dim=1)[0]
+    text = tok.decode([t for t in direct.tolist()
+                       if t not in (gen.pad_token_id, tok.eos_token_id)])
+    if not (torch.equal(answer["tokens"], direct) and text == texts[0]):
+        diff = (answer["tokens"] != direct).nonzero()[:, 0].tolist()
+        raise AssertionError(f"cli demo's answer differs from "
+                             f"make_multimodal_generate_fn's at {diff[:8]}")
+    with torch.inference_mode():
+        plain_tokens = model.encode_vision(images, qids)
+        captured_tokens = model.encode_vision_with_attention(images, qids)
+    if not torch.equal(plain_tokens, captured_tokens):
+        raise AssertionError("attention capture changed the image tokens")
+    keys = ("svr_spatial", "svr_temporal", "tta_self", "tta_cross_visual",
+            "tta_cross_text")
+    sums = {k: float(abs(maps[k].sum(-1) - 1).max()) for k in keys}
+    if set(maps) != set(keys) or not max(sums.values()) <= MAP_SUM_TOL:
+        raise AssertionError(f"captured maps {sorted(maps)}: rows sum to 1 "
+                             f"within {sums}")
+    size = png_size(png)
+    if size != attention_viz.png_layout(model.cfg.num_chunks):
+        raise AssertionError(f"attention PNG of {size}")
+    del model, fn, kv, embeds, plain_tokens, captured_tokens, loaded
+    shutil.rmtree(ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"model": "mu2Llama-3.2-1B, attn_type rope",
+            "train": {**readings, "cli_total_s": train_s,
+                      "valid_tokens": [r["lens"] for r in recs],
+                      "checkpoint_gb": ckpt_gb, "peak_mem_gb": peak / 1e9},
+            "export": {"s": export_s, "gb": export_gb,
+                       "form": "save_hf_checkpoint, fp32"},
+            "demo": {"cli_total_s": demo_s, "load_s": load_s,
+                     "capture_s": capture_s, "answer_s": answer["s"],
+                     "answer_vision_s": t1 - t0, "answer_prefill_s": t2 - t1,
+                     "answer_decode_s": t3 - t2,
+                     "decode_ms_per_step": 1e3 * (t3 - t2) / (DEMO_TOKENS - 1),
+                     "max_new_tokens": DEMO_TOKENS, "prompt_len": int(plen),
+                     "launches": {k: n for k, n in demo_launches.items()
+                                  if n},
+                     "tokens_equal_direct": True,
+                     "map_shapes": {k: list(maps[k].shape) for k in keys},
+                     "map_row_sum_err": sums, "png": list(size),
+                     "answer_words": len(texts[0].split())}}
+    return line, train_launches, demo_launches
+
+
+def drive_ablation(torch, fa, da, volume, tmp: str, card: str) -> dict:
+    """The stage-1 ablation phase, from the stage-2 phase's files and the
+    report phase's CT ``tmp/ct.nii`` (``volume`` its transform): the CLI
+    leg (``ablation_cli_leg``), each variant of ``ablation_configs``
+    (``ablation_variant``), and 'rma' over the linear projector's tokens
+    (``rma_linear_raises``). One printed line each; returns the launches
+    by path."""
+    tok = green_tokenizer(released_config().llm.vocab_size)
+    counts = {}
+    line, counts["ablation_cli_train"], counts["ablation_cli_demo"] = \
+        ablation_cli_leg(torch, fa, da, tok, os.path.join(tmp, "green_dpo"),
+                         volume, tmp)
+    line["card"] = card
+    print(json.dumps({"ablation_cli_rope": line}), flush=True)
+    matrix = {}
+    for name, cfg in ablation_configs().items():
+        t0 = time.perf_counter()
+        matrix[name], counts[f"ablation_{name}"] = ablation_variant(
+            torch, fa, da, name, cfg)
+        matrix[name]["variant_s"] = time.perf_counter() - t0
+    matrix["rma_with_linear_projector"] = rma_linear_raises(
+        torch, ablation_configs()["linear_projector"])
+    print(json.dumps({"ablation_matrix": matrix, "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--max-new", type=int, default=B4_MAX_NEW)
@@ -5005,6 +5657,10 @@ def main() -> int:
                         "2-layer QLoRA step against the CPU with lora_b "
                         "drawn at each spread, with the kernels and with "
                         "the plain attention, then stop (no result line)")
+    parser.add_argument("--serving-repeats", type=int, metavar="N",
+                        help="build the kernels, run the report phase, "
+                        "then the serving phase N times, then stop (no "
+                        "result line)")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -5044,6 +5700,8 @@ def main() -> int:
             torch, fa, std), "card": card}), flush=True)
     if args.qlora_reference_at:
         return 0
+    if args.serving_repeats:
+        return serving_repeats(torch, fa, da, card, args.serving_repeats)
 
     k1 = check_flash(torch, F, fa, VIT_CALL, 1)
     k2 = check_flash(torch, F, fa, PREFILL_CALL, 2)
@@ -5220,6 +5878,11 @@ def main() -> int:
             torch, F, fa, da, volume, tmp,
             os.path.join(tmp, "green_dpo", "preds.jsonl"), card)
         phi_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        counts.update(drive_ablation(torch, fa, da, volume, tmp, card))
+        ablation_s = time.perf_counter() - t0
     del volume
     gc.collect()
     torch.cuda.empty_cache()
@@ -5290,7 +5953,8 @@ def main() -> int:
     print(json.dumps({"script_s": time.perf_counter() - t_start,
                       "green_dpo_phase_s": green_s, "eval_phase_s": eval_s,
                       "phi_phase_s": phi_s,
-                      "qlora_phase_s": qlora_s}), flush=True)
+                      "qlora_phase_s": qlora_s,
+                      "ablation_phase_s": ablation_s}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

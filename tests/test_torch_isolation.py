@@ -50,11 +50,12 @@ def test_no_jax_imports(path):
 
 
 # beside torch and numpy the port needs the standard library only (its
-# metrics take neither nltk nor bert_score); the exceptions, imported
+# metrics take neither nltk nor bert_score, its attention PNG no
+# matplotlib, which the card's machine lacks); the exceptions, imported
 # inside U2InferenceModel when no tokenizer is passed and inside the CLI's
 # tokenizer loader when a tokenizer directory is named
 OTHERS = ("scipy", "safetensors", "transformers", "sklearn",
-          "sentence_transformers", "nltk", "bert_score")
+          "sentence_transformers", "nltk", "bert_score", "matplotlib")
 LAZY = {("u2tokenizer_torch/eval/inference.py", "transformers"),
         ("u2tokenizer_torch/cli.py", "transformers")}
 
@@ -81,7 +82,8 @@ def test_port_imports_without_jax():
             "u2tokenizer_torch.eval.green, u2tokenizer_torch.cli, "
             "u2tokenizer_torch.eval.metrics, "
             "u2tokenizer_torch.eval.evaluators, "
-            "u2tokenizer_torch.eval.quant_report; "
+            "u2tokenizer_torch.eval.quant_report, "
+            "u2tokenizer_torch.eval.attention_viz; "
             "sys.exit(any(m.split('.')[0] in %r for m in sys.modules))"
             % (FORBIDDEN + OTHERS,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -16,6 +16,10 @@
   python -m u2tokenizer_torch.cli quant-report
                                               int8/int4 serving-quality
                                               gate against the float model
+  python -m u2tokenizer_torch.cli demo        one CT volume -> report text
+                                              (one question, or a REPL);
+                                              --attention draws the
+                                              μ²tokenizer's maps to a PNG
   python -m u2tokenizer_torch.cli serve --checkpoint DIR [--slots 8]
       HTTP report serving (``serve.py``: POST /v1/report, /v1/upload,
       OpenAI chat); ``--slots`` > 1 serves concurrent requests from one
@@ -25,8 +29,9 @@
 
 Every subcommand that runs a model runs it on the GPU unless ``--device
 cpu`` is given. The model subcommands take the μ²tokenizer ablation flags
-of the JAX package's CLI (--attn-type, --enable-diffts, --enable-dmtp,
---no-multi-scale, --disable-u2tokenizer, --top-k, --num-query-tokens) over
+of the JAX package's CLI (--attn-type rma|rope|vanilla, --enable-diffts,
+--enable-dmtp, --no-multi-scale, --disable-u2tokenizer, --top-k,
+--num-query-tokens) over
 ``--config`` (a ``U2ModelConfig`` JSON file) or ``--tiny``; without either
 the checkpoint's own config is read, and without a checkpoint the
 published μ²Qwen3-1.7B config is built. ``--pretrained`` and
@@ -641,6 +646,101 @@ def cmd_quant_report(args):
 
 
 # ---------------------------------------------------------------------------
+# demo
+# ---------------------------------------------------------------------------
+
+def cmd_demo(args, tokenizer=None):
+    """One CT volume to report text (src/demo/demo.py:29-91): the answer to
+    ``--question``, or a REPL on stdin; with ``--attention`` the
+    μ²tokenizer's first-layer attention maps drawn over the volume into a
+    PNG first (the reference's demo_show.ipynb). The volume is a NIfTI
+    file through the validation transform, or a preprocessed ``.npy``.
+    Returns the answers it printed."""
+    import numpy as np
+    import torch
+
+    from .config import GenerationConfig
+    from .data.transforms import U2VolumeTransform
+    from .eval.attention_viz import (capture_attention_maps,
+                                     render_attention_png)
+    from .models.generate import make_multimodal_generate_fn
+    from .models.u2_model import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = _config_for(args, args.checkpoint)
+    tokenizer = tokenizer or _load_tokenizer(args.tokenizer)
+    if args.image.endswith(".npy"):
+        image = np.load(args.image).astype(np.float32)
+        if image.ndim == 4 and image.shape[0] == 1:  # one chunk, linear mode
+            image = np.repeat(image, cfg.num_chunks, axis=0)
+        image = torch.from_numpy(image).to(dev)
+    else:
+        image = U2VolumeTransform(
+            data_type="validation", target_size=cfg.vision.input_spatial[1],
+            chunk_depth=cfg.vision.input_spatial[0],
+            num_chunks=cfg.num_chunks, device=dev)(args.image)
+    gen = GenerationConfig(
+        max_new_tokens=args.max_new_tokens, do_sample=args.do_sample,
+        top_p=args.top_p, eos_token_id=tokenizer.eos_token_id,
+        pad_token_id=tokenizer.pad_token_id or 0)
+    model = _init_or_load(args, cfg, dev)
+    gen_fn = make_multimodal_generate_fn(model, gen)
+    generator = torch.Generator(dev).manual_seed(0)
+    pad = gen.pad_token_id
+
+    def encode(question: str):
+        """(ids (1, max_length), question ids (1, 64), prompt length (1,))
+        on the device: the image placeholders, then the question, in the
+        tokenizer's chat template where it has one."""
+        prompt = "<im_patch>" * cfg.proj_out_num + question
+        if hasattr(tokenizer, "apply_chat_template"):
+            prompt = tokenizer.apply_chat_template(
+                [{"role": "user", "content": prompt}], tokenize=False,
+                add_generation_prompt=True)
+        ids = tokenizer(prompt, add_special_tokens=False)["input_ids"][
+            :args.max_length]
+        qids = tokenizer(question, add_special_tokens=False)["input_ids"][:64]
+        row = lambda x, n: torch.tensor([x + [pad] * (n - len(x))],
+                                        dtype=torch.long, device=dev)
+        return (row(ids, args.max_length), row(qids, 64),
+                torch.tensor([len(ids)], dtype=torch.int32, device=dev))
+
+    def answer(question: str) -> str:
+        ids, q, plen = encode(question)
+        toks = gen_fn(ids, image[None], q, plen, generator)
+        return tokenizer.decode([t for t in toks[0].tolist()
+                                 if t not in (pad, tokenizer.eos_token_id)],
+                                skip_special_tokens=True)
+
+    if args.attention:
+        _, q, _ = encode(args.question or "Describe the findings.")
+        maps = capture_attention_maps(model, image[None], q)
+        gp = cfg.projector.grid_post(cfg.vision.image_size,
+                                     cfg.vision.patch_size)
+        render_attention_png(maps, image, args.attention,
+                             grid_hw=(gp[0], gp[1] * gp[2]))
+        print(f"wrote {args.attention}", file=sys.stderr)
+        if not args.question:
+            return []
+    if args.question:
+        answers = [answer(args.question)]
+        print(answers[0])
+        return answers
+    print("u2 demo — type a question (empty line to exit)", file=sys.stderr)
+    answers = []
+    while True:
+        try:
+            question = input("> ").strip()
+        except EOFError:
+            break
+        if not question:
+            break
+        answers.append(answer(question))
+        print(answers[-1])
+    return answers
+
+
+# ---------------------------------------------------------------------------
 # serve
 # ---------------------------------------------------------------------------
 
@@ -779,7 +879,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "logits; same numbers as the plain loss")
     t.add_argument("--pretrained", default=None)
     t.add_argument("--qlora", default="off", choices=["off", "int8", "int4"],
-                   help="quantized-base LoRA (not ported yet)")
+                   help="QLoRA: the decoder quantized and frozen, LoRA "
+                        "adapters of --lora-rank on its projections")
     t.add_argument("--lora-rank", type=int, default=16)
     t.add_argument("--lora-alpha", type=float, default=32.0)
     t.add_argument("--wandb", action="store_true")
@@ -901,6 +1002,22 @@ def build_parser() -> argparse.ArgumentParser:
     ep.add_argument("--no-bertscore", action="store_true")
     _add_device(ep)
     ep.set_defaults(fn=cmd_eval_predictions)
+
+    dm = sub.add_parser("demo")
+    _add_common(dm)
+    dm.add_argument("--tokenizer", default=None)
+    dm.add_argument("--image", required=True, help=".nii/.nii.gz/.npy volume")
+    dm.add_argument("--checkpoint", default=None)
+    dm.add_argument("--question", default=None, help="one-shot; omit for REPL")
+    dm.add_argument("--max-length", type=int, default=1024)
+    dm.add_argument("--max-new-tokens", type=int, default=256)
+    dm.add_argument("--do-sample", action="store_true")
+    dm.add_argument("--top-p", type=float, default=0.9)
+    dm.add_argument("--attention", default=None, metavar="OUT_PNG",
+                    help="draw the μ²tokenizer's attention maps into this "
+                         "PNG (demo_show.ipynb's)")
+    _add_device(dm)
+    dm.set_defaults(fn=cmd_demo)
 
     sv = sub.add_parser("serve")
     sv.add_argument("--slots", type=int, default=1,

@@ -139,8 +139,8 @@ class LLMConfig:
     mlp_bias: bool = False
     lm_head_bias: bool = False
     # Weight-only quantization (int8, int4) and lm_head tiling are served
-    # (models/quantize.py); LoRA is carried for config compatibility and
-    # refused by the decoder (not ported yet).
+    # (models/quantize.py); lora_rank > 0 gives each decoder projection
+    # (QDense, float or quantized) its LoRA branch (train/lora.py).
     quantized_weights: "bool | str" = False
     lora_rank: int = 0
     lora_alpha: float = 32.0

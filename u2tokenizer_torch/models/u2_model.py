@@ -1,9 +1,11 @@
 """μ²LLM, the full multimodal causal LM (counterpart of
 ``u2tokenizer_tpu/models/u2_model.py``).
 
-3D ViT per depth chunk -> SPP projector -> μ²tokenizer (with the question
-tokens' embeddings as text condition) -> image tokens spliced over prompt
-rows [1, 1 + n_img) -> decoder.
+3D ViT per depth chunk -> projector (SPP, linear or none) -> μ²tokenizer
+(with the question tokens' embeddings as text condition), or with
+``cfg.u2t.enable`` off the chunks' tokens concatenated (the LinVT-style
+baseline) -> image tokens spliced over prompt rows [1, 1 + n_img) ->
+decoder.
 """
 
 from __future__ import annotations
@@ -71,10 +73,9 @@ class U2CausalLM(nn.Module):
         self.vision_tower = ViT3DTower(cfg.vision, dtype, device)
         self.mm_projector = build_projector(cfg.projector, cfg.vision,
                                             cfg.llm.hidden_size, dtype, device)
-        if not cfg.u2t.enable:
-            raise NotImplementedError("the port needs the μ²tokenizer enabled")
-        self.u2tokenizer = U2Tokenizer(cfg.llm.hidden_size, cfg.u2t, dtype,
-                                       device)
+        if cfg.u2t.enable:
+            self.u2tokenizer = U2Tokenizer(cfg.llm.hidden_size, cfg.u2t,
+                                           dtype, device)
         self.llm = CausalLM(cfg.llm, dtype, device, remat)
         init_weights(self, seed)
 
@@ -85,8 +86,13 @@ class U2CausalLM(nn.Module):
     # --- vision ---
 
     def encode_images(self, images: torch.Tensor) -> torch.Tensor:
-        """(N, 1, D, H, W) chunks -> (N, proj_out_num, llm_hidden)."""
-        return self.mm_projector(self.vision_tower(images))
+        """(N, 1, D, H, W) chunks -> (N, tokens, llm_hidden): proj_out_num
+        tokens through SPP, every patch token through 'linear' or
+        'identity'."""
+        feats = self.vision_tower(images)
+        if self.mm_projector is not None:
+            feats = self.mm_projector(feats)
+        return feats
 
     def encode_vision(self, images: torch.Tensor,
                       question_ids: torch.Tensor) -> torch.Tensor:
@@ -98,16 +104,29 @@ class U2CausalLM(nn.Module):
 
     def fuse_vision(self, v_tokens: torch.Tensor,
                     question_ids: torch.Tensor) -> torch.Tensor:
-        """(B, T, N, E) per-chunk features -> (B, n_img, E) image tokens."""
+        """(B, T, N, E) per-chunk features -> (B, n_img, E) image tokens:
+        the μ²tokenizer's, or without it the flat concat (B, T·N, E)."""
+        if not self.cfg.u2t.enable:
+            b, t, n, e = v_tokens.shape
+            return v_tokens.reshape(b, t * n, e)
         return self.u2tokenizer(v_tokens, self.llm.embed_tokens(question_ids))
 
     def splice_embeds(self, input_ids: torch.Tensor,
                       image_features: torch.Tensor) -> torch.Tensor:
         """Prompt embeddings with rows [1, 1 + n_img) overwritten by the
-        image tokens, whatever the token ids there."""
+        image tokens, whatever the token ids there. Raises when the prompt
+        has fewer rows after its first than image tokens, where the JAX
+        package's splice lengthens the sequence past the prompt."""
         embeds = self.llm.embed_tokens(input_ids)
         img = image_features.to(embeds.dtype)
         n = img.shape[1]
+        if 1 + n > embeds.shape[1]:
+            raise ValueError(
+                f"{n} image tokens do not fit a prompt of "
+                f"{embeds.shape[1]} tokens after its first: the image rows "
+                f"[1, {1 + n}) must lie inside it (without the μ²tokenizer "
+                f"each of the {self.cfg.num_chunks} chunks gives all its "
+                "tokens; give the prompt that many rows, or fewer chunks)")
         return torch.cat([embeds[:, :1], img, embeds[:, 1 + n:]], dim=1)
 
     def prepare_inputs_embeds(self, input_ids, images, question_ids):
@@ -115,6 +134,25 @@ class U2CausalLM(nn.Module):
             return self.llm.embed_tokens(input_ids)
         return self.splice_embeds(input_ids,
                                   self.encode_vision(images, question_ids))
+
+    def encode_vision_with_attention(self, images: torch.Tensor,
+                                     question_ids: torch.Tensor
+                                     ) -> torch.Tensor:
+        """``encode_vision`` with the μ²tokenizer's attention capture: the
+        first SVR and TTA layers' maps are left on their modules' ``attn``
+        (``eval/attention_viz.capture_attention_maps`` reads them); maps of
+        an earlier capture are cleared first."""
+        if not self.cfg.u2t.enable:
+            raise ValueError("attention capture reads the μ²tokenizer's "
+                             "maps; this model has none")
+        for module in self.u2tokenizer.modules():
+            if hasattr(module, "attn"):
+                module.attn = None
+        b, t = images.shape[:2]
+        feats = self.encode_images(images.reshape(b * t, 1, *images.shape[2:]))
+        return self.u2tokenizer(feats.reshape(b, t, *feats.shape[-2:]),
+                                self.llm.embed_tokens(question_ids),
+                                capture_attention=True)
 
     # --- language model ---
 

@@ -5,7 +5,9 @@ Per layer, tokens attend spatially within each chunk (over N) and then
 temporally across chunks (over T), with no residuals or norms (the
 reference's quirk, kept for parity). Then token selection, hard top-k or
 DiffTS's soft selection (``enable_diffts``), and multi-scale pooling, fixed
-or gated (DMTP, ``enable_dmtp``).
+or gated (DMTP, ``enable_dmtp``). ``attn_type`` picks the attention of
+both axes ('rma', 'rope' or 'vanilla'); ``capture_attention`` keeps the
+first layer's maps on its modules (``attention.py``).
 """
 
 from __future__ import annotations
@@ -30,12 +32,14 @@ class SpatioTemporalAttentionLayer(nn.Module):
         self.temporal_attention = make_self_attention(
             attn_type, embed_size, num_heads, max_seq_len, dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                capture_attention: bool = False) -> torch.Tensor:
         b, t, n, e = x.shape
         xs = x.reshape(b * t, n, e)
-        x = self.spatial_attention(xs, xs, xs).reshape(b, t, n, e)
+        x = self.spatial_attention(xs, xs, xs, capture_attention).reshape(
+            b, t, n, e)
         xt = x.transpose(1, 2).reshape(b * n, t, e)
-        xt = self.temporal_attention(xt, xt, xt)
+        xt = self.temporal_attention(xt, xt, xt, capture_attention)
         return xt.reshape(b, n, t, e).transpose(1, 2)
 
 
@@ -119,9 +123,11 @@ class SpatioTemporalVisualTokenRefiner(nn.Module):
             self.dynamic_pool = DynamicMultiScalePooling(embed_size, scales,
                                                          device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.layers:
-            x = layer(x)
+    def forward(self, x: torch.Tensor,
+                capture_attention: bool = False) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            # the reference captures the first layer's maps only
+            x = layer(x, capture_attention and i == 0)
         x = self.token_selection(x)
         if hasattr(self, "dynamic_pool"):
             x = self.dynamic_pool(x)

@@ -5,6 +5,7 @@ Per layer: query self-attention (+residual, LN), cross-attention to the
 refined visual tokens (+residual, LN), cross-attention to the question-token
 embeddings (+residual, LN). A final compressing cross-attention projects
 the queries onto the raw visual values (no value or output projection).
+``capture_attention`` keeps the first layer's three maps on its modules.
 """
 
 from __future__ import annotations
@@ -30,11 +31,15 @@ class TextConditionTokenAttMap(nn.Module):
         self.norm_cross_v = LayerNorm(d_model, dtype=dtype, device=device)
         self.norm_cross_t = LayerNorm(d_model, dtype=dtype, device=device)
 
-    def forward(self, visual_query, visual_value, text_value):
-        x = self.self_attention(visual_query, visual_query, visual_query)
+    def forward(self, visual_query, visual_value, text_value,
+                capture_attention: bool = False):
+        x = self.self_attention(visual_query, visual_query, visual_query,
+                                capture_attention)
         x = self.norm_self(visual_query + x)
-        x = self.norm_cross_v(x + self.visual_cross_attention(x, visual_value))
-        return self.norm_cross_t(x + self.text_cross_attention(x, text_value))
+        x = self.norm_cross_v(x + self.visual_cross_attention(
+            x, visual_value, capture_attention))
+        return self.norm_cross_t(x + self.text_cross_attention(
+            x, text_value, capture_attention))
 
 
 class LinearAggregation(nn.Module):
@@ -59,7 +64,10 @@ class TextConditionTokenAggregator(nn.Module):
             for _ in range(num_layers))
         self.layer_linagg = LinearAggregation(d_model, num_heads, dtype, device)
 
-    def forward(self, query, visual_value, text_value):
-        for layer in self.layers_vt:
-            query = layer(query, visual_value, text_value)
+    def forward(self, query, visual_value, text_value,
+                capture_attention: bool = False):
+        for i, layer in enumerate(self.layers_vt):
+            # the reference captures the first layer's maps only
+            query = layer(query, visual_value, text_value,
+                          capture_attention and i == 0)
         return self.layer_linagg(query, visual_value)

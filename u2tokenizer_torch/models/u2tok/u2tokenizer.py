@@ -1,7 +1,9 @@
 """μ²Tokenizer top module (counterpart of
 ``u2tokenizer_tpu/models/u2tok/u2tokenizer.py``): SVR refinement, then TTA
 aggregation of learned queries. (B, T, N, E) visual tokens and (B, S_text, E)
-question-token embeddings -> (B, num_query_tokens, E) image tokens."""
+question-token embeddings -> (B, num_query_tokens, E) image tokens. With
+``capture_attention`` the first SVR and TTA layers keep their attention
+maps (``eval/attention_viz.capture_attention_maps`` reads them)."""
 
 from __future__ import annotations
 
@@ -36,9 +38,9 @@ class U2Tokenizer(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.query_tokens.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, v_token: torch.Tensor,
-                t_token: torch.Tensor) -> torch.Tensor:
+    def forward(self, v_token: torch.Tensor, t_token: torch.Tensor,
+                capture_attention: bool = False) -> torch.Tensor:
         b = v_token.shape[0]
         query = self.query_tokens.to(self.dtype).expand(b, -1, -1)
-        v_token = self.svt_module(v_token)
-        return self.tta_module(query, v_token, t_token)
+        v_token = self.svt_module(v_token, capture_attention)
+        return self.tta_module(query, v_token, t_token, capture_attention)

@@ -80,7 +80,15 @@ def gqa_sdpa_headmajor(q, k, v, *, mask=None, scale: Optional[float] = None):
 def relative_position_bias(table: torch.Tensor, seq_len: int,
                            max_seq_len: int) -> torch.Tensor:
     """Learned relative-position bias: ``table`` (2*max_seq_len - 1, H);
-    entry (i, j) is table[j - i + max_seq_len - 1]. Returns (1, H, S, S)."""
+    entry (i, j) is table[j - i + max_seq_len - 1]. Returns (1, H, S, S).
+    Raises when ``seq_len`` exceeds ``max_seq_len``: the table holds no
+    offset past it (the JAX package's lookup fills those entries with
+    NaN)."""
+    if seq_len > max_seq_len:
+        raise ValueError(
+            f"relative position bias over {seq_len} positions: the table "
+            f"holds offsets for at most max_seq_len = {max_seq_len}; use "
+            "attn_type 'rope' or 'vanilla' for longer sequences")
     pos = torch.arange(seq_len, device=table.device)
     rel = pos[None, :] - pos[:, None] + (max_seq_len - 1)
     return table[rel].permute(2, 0, 1)[None]

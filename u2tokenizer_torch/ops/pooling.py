@@ -1,5 +1,6 @@
 """Pooling ops: multi-scale token pooling (fixed, or gated as DMTP) and the
-SPP 3D average pool."""
+SPP projector's two pools, 3D over the declared grid and 1D over the
+sequence."""
 
 from __future__ import annotations
 
@@ -52,3 +53,9 @@ def spatial_pool_3d(x: torch.Tensor, grid: Tuple[int, int, int],
     x = x.reshape(b, g0, g1, g2, e)[:, :o0 * pool, :o1 * pool, :o2 * pool]
     x = x.reshape(b, o0, pool, o1, pool, o2, pool, e)
     return x.mean(dim=(2, 4, 6)).reshape(b, o0 * o1 * o2, e)
+
+
+def sequence_pool(x: torch.Tensor, pool: int) -> torch.Tensor:
+    """The SPP projector's 'sequence' pooling: a 1-D average pool of (B, S,
+    E) tokens in sequence order with kernel = stride = ``pool ** 3``."""
+    return avg_pool_tokens(x, pool ** 3)

@@ -37,29 +37,18 @@ from .config import GenerationConfig
 from .models.generate import make_fanout_generate_fn, make_generate_fn
 from .models.speculative import make_spec_generate_fn
 from .models.u2_model import resolve_model_device
+from .utils.png import encode_png
 
 
 def encode_gray_png(img) -> bytes:
-    """Minimal 8-bit grayscale PNG encoder (zlib only) of a 2-D array or
-    tensor, min-max scaled: the web page's slice viewer."""
-    import struct
-    import zlib
-
+    """8-bit grayscale PNG of a 2-D array or tensor, min-max scaled: the
+    web page's slice viewer."""
     if torch.is_tensor(img):
         img = img.detach().float().cpu().numpy()
     arr = np.asarray(img, np.float32)
     lo, hi = float(arr.min()), float(arr.max())
-    arr = ((arr - lo) / (hi - lo + 1e-8) * 255.0).astype(np.uint8)
-    h, w = arr.shape
-    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data +
-                struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)  # 8-bit grayscale
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) +
-            chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+    return encode_png(((arr - lo) / (hi - lo + 1e-8) * 255.0).astype(
+        np.uint8))
 
 
 class U2Server:
@@ -621,11 +610,18 @@ def make_handler(server: U2Server):
     return Handler
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # clients of the slot pool connect in bursts (every slot's request,
+    # streams beside them, telemetry polls): a listen backlog of 128, not
+    # socketserver's 5, so that the kernel drops none of their connections
+    request_queue_size = 128
+
+
 def serve(inference_model, host: str = "0.0.0.0", port: int = 8088,
           transform=None) -> ThreadingHTTPServer:
     """Start the server (blocking)."""
     srv = U2Server(inference_model, transform)
-    httpd = ThreadingHTTPServer((host, port), make_handler(srv))
+    httpd = _HTTPServer((host, port), make_handler(srv))
     httpd.serve_forever()
     return httpd
 
@@ -636,7 +632,7 @@ def serve_background(inference_model, host: str = "127.0.0.1",
     takes a free port: ``httpd.server_address[1]``); ``httpd.shutdown()``
     stops it."""
     srv = U2Server(inference_model, transform)
-    httpd = ThreadingHTTPServer((host, port), make_handler(srv))
+    httpd = _HTTPServer((host, port), make_handler(srv))
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
     t.start()
     return httpd
