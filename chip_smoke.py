@@ -17,7 +17,7 @@ Run from the root of a checkout. It
      same function, that call (CUDA events, median of 7), with the
      kernel's own device time beside (torch.profiler, ``device_ms``) and a
      bound that counts FLOPs, bytes and exponentials (``bound_ms``); K3 at
-     steps 0, 255 and 511 of both serving paths, with a 3-token prompt in
+     steps 0, 127 and 255 of both serving paths, with a 3-token prompt in
      the batch and at B=1, each also called twice for the same bits, with
      a ``decode_calls`` line of its split counts and times; the flash
      forward K1/K2 and backward K4a-c at every call the paths make (K1
@@ -36,6 +36,11 @@ Run from the root of a checkout. It
      the QLoRA path's call (D=96, B=1, 1024 tokens, 423 valid) and at a
      Phi-2-shaped one (D=80, no path launches it), timed, with a
      ``phi_calls`` line and both K4 calls on the ``flash_bwd_calls`` line;
+     the μ²Qwen3-8B forms (``qwen8b_kernel_checks``, D=128 at a GQA
+     group of 4): K2 at its B=16 prefill, K3-int4 at its B=16 decode
+     (1024 + 128 slots, timed at step 63, checked at 0 and 127) and K4a-c
+     at its QLoRA call (B=1, 423 valid), timed, with a ``qwen3_8b_calls``
+     line;
      K1 at D=80 and 96 (no path either) on 1024 tokens, timed by events
      beside SDPA alone (``flash_fwd_no_path``); K1/K2 at both on
      the tile edge, K3 at groups 2, 4 and 8, its first and last steps and
@@ -45,7 +50,7 @@ Run from the root of a checkout. It
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
      tokens and a greedy decode: first bf16 weights, the int8 KV cache, 4
-     volumes and 128 tokens (``--max-new``); then, 512 tokens (its 768
+     volumes and 128 tokens (``--max-new``); then, 256 tokens (its 768
      cut for the script's time), the configuration of the JAX package's
      ``bench.py``: decoder weights quantized to int8, the int4 KV cache,
      112 volumes, the ViT over groups of 128 chunks. Each asserts the
@@ -135,10 +140,11 @@ Run from the root of a checkout. It
      ``save_hf_checkpoint`` (fp32, as users write it) and read through
      its config.json alone by ``U2InferenceModel``, one greedy report
      (K1 12, K2 32) bit for bit the exported model's; its stage 1 on the
-     same directory, ``cli train --qlora int8`` (``qlora_phase``: 4 steps
-     of B=1 at 1024 tokens on the stage-2 phase's cases, remat; each
-     step's launches by head dim K1 12 at D=64, K2 64 and K4a-c 32 each
-     at D=96, none at D=64 in the backward; one step profiled; the
+     same directory, ``cli train --qlora int8`` (``qlora_phase``: the
+     decoder cut to 8 of its 32 layers by ``--config``, 4 steps of B=1
+     at 1024 tokens on the stage-2 phase's cases, remat; each step's
+     launches by head dim K1 12 at D=64, K2 16 and K4a-c 8 each at D=96,
+     none at D=64 in the backward; one step profiled; the
      adapters file read back bit for bit; a checkpoint of the trainable
      leaves and the optimizer state), and its QLoRA step cut to 2 layers
      against the CPU (``check_train_reference(..., qlora="int8")``: the
@@ -181,6 +187,23 @@ Run from the root of a checkout. It
      model in fp32 with the plain attention on the card (prefill logits,
      loss, gradients) and rejecting a planted fault of its own module; and
      'rma' over the linear projector's 2048 tokens raising;
+ 12b. drives μ²Qwen3-8B (``drive_qwen3_8b``, the ``qwen3_8b`` decoder
+     under the default μ² stack, seeded weights, full width and depth):
+     ``bench.py``'s 8B serving configuration (int8 weights, the int4
+     cache, B=16, 1024-token prompts, the last 900, 128 greedy tokens,
+     bench.py's 768 cut; K1 12, K2 36 and K3-int4 36 a step) and its
+     2-layer model against the CPU's fp32; ``cli train --qlora int4
+     --freeze-vision-tower --remat dots_no_batch`` (the head in 8 tiles,
+     3 steps of B=1 at 1024 tokens; K1 12, K2 72 and K4a-c 36 a step;
+     the adapters file read back bit for bit); the remat policies
+     'nothing', 'dots_no_batch' and 'dots' on one step of the same model
+     at 4 decoder layers (gradients within cosine 0.99999 and a norm
+     ratio of 1e-4 of 'nothing''s, the same launches); then, on the report
+     phase's μ²Llama-3.2-1B export, ``cli convert-checkpoint`` and ``cli
+     generate`` from the converted directory (128 tokens equal to the HF
+     directory's) and ``U2InferenceModel(lora_path=)`` (equal bit for
+     bit to the adapters folded by hand, off the base, and an
+     ``adapter_config.json`` with alpha = r rejected);
  13. prints one JSON line per kernel table, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -252,9 +275,10 @@ TOL = {"flash_fwd_noncausal": (4e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_lse": (1e-4, 1e-5, 0.0),
        "flash_bwd_dq": (1e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_dkv": (1e-3, 1e-2, 2.0 ** -8)}
-# the B=112 path decodes MAX_NEW tokens (bench.py's 768 until the ablation
-# phase came, cut for the script's time), and K3 is checked at its steps
-PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 512, 4, 8
+# the B=112 path decodes MAX_NEW tokens (bench.py's 768, cut for the
+# script's time to 512 when the ablation phase came and to 256 when the
+# μ²Qwen3-8B phase came), and K3 is checked at its steps
+PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 256, 4, 8
 # the μ²Llama report and speculative phases decode 256 tokens (the users'
 # 768 cut when the serving phase came, for the script's time)
 REPORT_TOKENS = 256
@@ -322,23 +346,40 @@ def time_ms(torch, fn, inner: int = 1, reps: int = 7, warmup: int = 2):
     return statistics.median(times)
 
 
+def card_trace(host_ops: bool = False):
+    """torch.profiler over the card's kernels (CUPTI); ``device_time``
+    reads it. Without ``host_ops`` no host op is recorded, so that the
+    trace of a step of tens of thousands of launches is read in seconds;
+    a window of a few short launches needs them, as the tracer starts to
+    record the card a moment after the window opens (a trace of the card
+    alone caught one and none of 7 launches of K4b at B=1 on the H100)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    return profile(activities=activities)
+
+
+# traces ``device_ms`` may take of one call before it gives up
+DEVICE_MS_TRACES = 4
+
+
 def device_ms(torch, fn, kernel: str, calls: int = 7):
     """The median device time (ms) of the kernel whose ``__global__`` name
     is ``kernel`` over ``calls`` calls of ``fn`` (after one unprofiled),
-    from torch.profiler's trace of the card; each call launches it once.
-    The trace may miss a launch at the end of the window (seen on the H100
-    with 4 ms launches), so it must hold at least half of them; a trace
-    that holds fewer (twice on the H100: none and one of 7 launches of
-    K2, each in a kernel check) is taken once more. Returns the time and
-    each trace's count of launches, which the kernel checks print."""
-    from torch.profiler import ProfilerActivity, profile
-
+    from torch.profiler's trace of the card and the host; each call
+    launches it once. The trace may miss a launch at the end of the window
+    (seen on the H100 with 4 ms launches), so it must hold at least half of
+    them; a trace that holds fewer (seen on the H100: none and one of 7
+    launches of K2 and of K4b, each in a kernel check) is taken again, up
+    to DEVICE_MS_TRACES traces. Returns the time and each trace's count of
+    launches, which the kernel checks print."""
     traced = []
-    for _ in range(2):
+    for _ in range(DEVICE_MS_TRACES):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with card_trace(host_ops=True) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -349,7 +390,7 @@ def device_ms(torch, fn, kernel: str, calls: int = 7):
         if calls // 2 <= len(times) <= calls:
             return statistics.median(times) / 1e3, traced
     raise AssertionError(f"device_ms: {traced} launches of {kernel} in "
-                         f"two traces of {calls} calls")
+                         f"{len(traced)} traces of {calls} calls")
 
 
 def ptxas_summary(report: str) -> dict:
@@ -973,6 +1014,7 @@ def drive_main_path(torch, max_new: int, batch: int, weights: str,
         quantize_llm_weights(model, weights)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
     weight_gb = sum(p.numel() * p.element_size()
                     for p in model.parameters()) / 1e9
 
@@ -1018,13 +1060,14 @@ def drive_main_path(torch, max_new: int, batch: int, weights: str,
     assert tokens.dtype == torch.int64
     assert ((tokens >= 0) & (tokens < vocab)).all(), "token out of range"
     total = t3 - t0
-    return {"model": MODEL_NAMES[cfg.llm.model_type], "batch": batch,
+    return {"model": model_label(cfg.llm), "batch": batch,
             "prompt": PROMPT,
             "prompt_len": f"{PROMPT} x{batch - 1}, {RAGGED}",
             "question_tokens": QUESTION, "max_new_tokens": max_new,
             "cache": cache, "weights": weights, "weight_gb": weight_gb,
             "vision_microbatch": vision_microbatch,
-            "model_build_s": build_s, "vision_s": t1 - t0,
+            "model_build_s": build_s, "build_peak_gb": build_peak / 1e9,
+            "vision_s": t1 - t0,
             "prefill_s": t2 - t1, "decode_s": t3 - t2, "total_s": total,
             "reports_per_min": 60.0 * batch / total,
             "decode_ms_per_step": 1e3 * (t3 - t2) / max(max_new - 1, 1),
@@ -1081,14 +1124,11 @@ def profile_decode(torch, generate, embeds, prompt_len, steps: int = 8):
     """torch.profiler over ``steps`` decode steps (after 2 unprofiled
     ones): the card's busy share of the wall clock, kernels launched per
     step, and the kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     cache, tok, done, _ = generate.prefill_stage(embeds, prompt_len)
     tok, done, _ = generate.decode_steps(cache, tok, done, prompt_len,
                                          range(2))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_trace() as prof:
         t0 = time.perf_counter()
         generate.decode_steps(cache, tok, done, prompt_len,
                               range(2, 2 + steps))
@@ -1123,6 +1163,14 @@ MODEL_NAMES = {"qwen3": "mu2Qwen3-1.7B", "llama": "mu2Llama-3.2-1B",
                "phi3": "mu2Phi-3-mini", "phi2": "Phi-2"}
 
 
+def model_label(llm) -> str:
+    """The model a decoder config belongs to: MODEL_NAMES by family, the
+    Qwen3 family's 4096-wide decoder μ²Qwen3-8B."""
+    if llm.model_type == "qwen3" and llm.hidden_size == 4096:
+        return "mu2Qwen3-8B"
+    return MODEL_NAMES[llm.model_type]
+
+
 def check_reference(torch, weights: str = "bf16", cache="int8", base=None,
                     variant=None):
     """Full-width model (``base``, μ²Qwen3-1.7B by default) cut to 2 ViT,
@@ -1146,7 +1194,10 @@ def check_reference(torch, weights: str = "bf16", cache="int8", base=None,
 
     cfg = reduced_config(num_chunks=4, base=base)
     b, s = 2, 384
-    cpu = U2CausalLM(cfg, dtype=torch.float32, device="cpu", seed=1)
+    # drawn on the card and moved: the CPU's generator draws the 8B
+    # widths' 2.4 B parameters several times slower
+    cpu = U2CausalLM(cfg, dtype=torch.float32, device="cuda",
+                     seed=1).to("cpu")
     gpu = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
                                         device="cuda", seed=2))
     if weights != "bf16":  # the card's model takes the quantized layout
@@ -1189,7 +1240,7 @@ def check_reference(torch, weights: str = "bf16", cache="int8", base=None,
             block = verify_block_logits(torch, model, kv, args[3], s,
                                         src[:, :VERIFY_BLOCK])
         results[name] = (logits, tokens, block)
-    return logits_line(results, MODEL_NAMES[cfg.llm.model_type], weights,
+    return logits_line(results, model_label(cfg.llm), weights,
                        cache, variant)
 
 
@@ -1431,7 +1482,7 @@ def drive_report(torch, fa, da, volume, tmp: str, cfg=None,
     from u2tokenizer_torch.weights import flax_params
 
     cfg = cfg or released_config()
-    model_name = MODEL_NAMES[cfg.llm.model_type]
+    model_name = model_label(cfg.llm)
     t0 = time.perf_counter()
     model = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     torch.cuda.synchronize()
@@ -2502,8 +2553,6 @@ def profile_slots(torch, im, volume) -> dict:
     """torch.profiler over 8 decode dispatches of an 8-slot engine with
     every slot busy (after 8 admissions and 2 unprofiled dispatches): the
     card's busy share, kernels a dispatch, the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     from u2tokenizer_torch.models.slot_serving import Engine
 
     eng = Engine(im.model, im.gen_cfg, num_slots=SERVING_SLOTS,
@@ -2517,8 +2566,7 @@ def profile_slots(torch, im, volume) -> dict:
     torch.cuda.synchronize()
     if len(eng._by_slot) != SERVING_SLOTS:
         raise AssertionError("profiled dispatches with idle slots")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_trace() as prof:
         t0 = time.perf_counter()
         for _ in range(8):
             eng.step()
@@ -3066,12 +3114,9 @@ def profile_call(torch, fa, fn):
     shares of the flash forward and backward (their kernels matched by
     their ``__global__`` names); raises if either share reads 0 while the
     step launched its kernels. Returns (fn's result, the readings)."""
-    from torch.profiler import ProfilerActivity, profile
-
     before = read_launches(fa)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_trace() as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -4919,93 +4964,101 @@ def check_decoder_reference(torch, llm_cfg, cache="int8"):
         _, _, rest = fn.decode_steps(kv, tok0, done0, plen.to(dev), range(4))
         results[name] = (logits, torch.cat([tok0[:, None], rest], 1).cpu(),
                          None)
-    return logits_line(results, MODEL_NAMES[cfg.model_type], "bf16", cache)
+    return logits_line(results, model_label(cfg), "bf16", cache)
 
 
 # μ²Phi-3-mini's stage 1 through ``cli train --qlora`` (``qlora_phase``):
 # QLORA_STEPS steps of B=1 at 1024 tokens from the exported checkpoint, on
-# the stage-2 phase's three cases; step 0 warms, the middle ones are timed,
-# the last is profiled. Each step launches K1 12 (the frozen ViT, forward
-# only), K2 64 at D=96 (32 layers, forward again under remat) and K4a-c 32
-# each at D=96, and nothing at D=64 in the backward.
-QLORA_STEPS, QLORA_MODE = 4, "int8"
-QLORA_LAUNCHES = {"flash_fwd_noncausal_d64": 12, "flash_fwd_causal_d96": 64,
-                  "flash_bwd_lse_d96": 32, "flash_bwd_dq_d96": 32,
-                  "flash_bwd_dkv_d96": 32}
+# the stage-2 phase's three cases, the decoder cut to QLORA_LAYERS of its 32
+# layers (``--config``; the 8B phase takes the full-width QLoRA path at
+# full depth); step 0 warms, the middle ones are timed, the last is
+# profiled. Each step launches K1 12 (the frozen ViT, forward only), K2 16
+# at D=96 (8 layers, forward again under remat) and K4a-c 8 each at D=96,
+# and nothing at D=64 in the backward.
+QLORA_STEPS, QLORA_MODE, QLORA_LAYERS = 4, "int8", 8
+QLORA_LAUNCHES = {"flash_fwd_noncausal_d64": 12, "flash_fwd_causal_d96": 16,
+                  "flash_bwd_lse_d96": 8, "flash_bwd_dq_d96": 8,
+                  "flash_bwd_dkv_d96": 8}
 
 
-def qlora_phase(torch, fa, da, tmp: str) -> tuple:
-    """``cli train --qlora int8`` on μ²Phi-3-mini's exported directory
-    ``tmp/mu2phi3`` with the stage-2 phase's ``tmp/green_dpo/cases.jsonl``:
-    QLORA_STEPS steps (B=1, 1024 tokens, remat), their launches by head dim
-    held to QLORA_LAUNCHES, their batches to QLORA_CALL's shape (the first
-    step's valid length QLORA_VALID), finite losses; the adapters file
-    read back through the port's reader equal to the trained leaves bit
-    for bit; the checkpoint holding the trainable leaves and the optimizer
-    state alone. Returns (the result line, the phase's launches, the
-    steps' valid lengths)."""
+def qlora_cli_leg(torch, fa, da, tmp: str, cfg, mode: str, steps: int,
+                  want: dict, call: dict, extra=(), tok=None) -> tuple:
+    """``cli train --qlora mode --config <cfg>`` (``extra`` its other
+    flags) with the stage-2 phase's ``tmp/green_dpo/cases.jsonl`` and
+    ``tok`` (by default ``green_tokenizer`` of the model's vocabulary):
+    ``steps`` steps (B=1, 1024 tokens), the last profiled, their launches
+    by head dim held to ``want``, their batches to ``call``'s shape (the
+    first step's valid length ``call["lens"]``), finite losses; the
+    adapters file read back through the port's reader equal to the
+    trained leaves bit for bit; the checkpoint holding the trainable
+    leaves and the optimizer state alone. Returns (the result line, the
+    leg's launches, the steps' valid lengths)."""
     from u2tokenizer_torch.train import lora
     from u2tokenizer_torch.train.checkpoint import (STATE_FILE,
                                                     load_params_msgpack)
     from u2tokenizer_torch.weights import flatten
 
-    cfg = phi3_config()
     out = os.path.join(tmp, "qlora")
-    tok = green_tokenizer(cfg.llm.vocab_size)
+    cfg_path = os.path.join(tmp, "qlora_config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    tok = tok or green_tokenizer(cfg.llm.vocab_size)
     reset_launches(fa, da)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with step_probe(torch, fa, da, lora, "make_qlora_trainer", unpack=True,
-                    profile_at=QLORA_STEPS - 1) as recs:
-        state = cli_run(["train", "--qlora", QLORA_MODE, "--pretrained",
-                         os.path.join(tmp, "mu2phi3"), "--tokenizer", "mock",
+                    profile_at=steps - 1) as recs:
+        state = cli_run(["train", "--qlora", mode, "--config", cfg_path,
+                         *extra, "--tokenizer", "mock",
                          "--train-base-path", os.path.join(tmp, "green_dpo"),
                          "--train-jsonl-path", "cases.jsonl", "--max-steps",
-                         str(QLORA_STEPS), "--batch-size", "1",
+                         str(steps), "--batch-size", "1",
                          "--max-length", str(PROMPT), "--num-workers", "2",
                          "--output-dir", out], tokenizer=tok)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = read_launches(fa, da)
-    expect_launches("qlora", recs, QLORA_LAUNCHES, key="launches_by_dim")
+    name = model_label(cfg.llm)
+    expect_launches(f"qlora {name}", recs, want, key="launches_by_dim")
     readings = step_readings(recs)
     if not all(math.isfinite(x) for x in readings["loss"]
                + readings["grad_norm"]):
-        raise AssertionError(f"qlora: {readings}")
+        raise AssertionError(f"qlora {name}: {readings}")
     lens = [r["lens"] for r in recs]
-    # the kernels are checked and timed at QLORA_CALL: the steps' batches
-    # must have its shape (B=1, S=PROMPT; q (1, S, 32, 96)) and the first
-    # its valid length
-    if (any(r["shape"] != [QLORA_CALL["b"], QLORA_CALL["s"]] for r in recs)
-            or lens[0] != QLORA_CALL["lens"]):
+    # the kernels are checked and timed at ``call``: the steps' batches
+    # must have its shape (B=1, S=PROMPT) and the first its valid length
+    if (any(r["shape"] != [call["b"], call["s"]] for r in recs)
+            or lens[0] != call["lens"]):
         shapes = [r["shape"] for r in recs]
-        raise AssertionError(f"qlora steps' batches {shapes}, lens {lens}, "
-                             f"not QLORA_CALL's")
+        raise AssertionError(f"qlora {name} steps' batches {shapes}, lens "
+                             f"{lens}, not the kernel check's call {call}")
     adapters = os.path.join(out, "qlora_adapters.msgpack")
     t1 = time.perf_counter()
     back = flatten(load_params_msgpack(adapters))
     read_s = time.perf_counter() - t1
-    want = flatten(lora.flax_tree(state.model, state.train))
-    if sorted(back) != sorted(want) or not all(
-            back[k].dtype == want[k].dtype and torch.equal(back[k], want[k])
-            for k in want):
-        raise AssertionError("qlora: the adapters file does not read back "
-                             "as the trained leaves")
-    step_dir = os.path.join(out, "checkpoints", str(QLORA_STEPS))
+    want_leaves = flatten(lora.flax_tree(state.model, state.train))
+    if sorted(back) != sorted(want_leaves) or not all(
+            back[k].dtype == want_leaves[k].dtype
+            and torch.equal(back[k], want_leaves[k]) for k in want_leaves):
+        raise AssertionError(f"qlora {name}: the adapters file does not "
+                             "read back as the trained leaves")
+    step_dir = os.path.join(out, "checkpoints", str(steps))
     saved = torch.load(os.path.join(step_dir, STATE_FILE),
                        map_location="cpu", weights_only=True)
     if set(saved) != {"step", "train", "optimizer"} or \
             set(saved["train"]) != set(state.train):
-        raise AssertionError("qlora: the checkpoint holds other leaves than "
-                             "the trainable ones")
+        raise AssertionError(f"qlora {name}: the checkpoint holds other "
+                             "leaves than the trainable ones")
     n_train = sum(p.numel() for p in state.train.values())
     n_all = sum(p.numel() for p in state.model.parameters())
     dtypes = sorted({str(p.dtype) for p in state.train.values()})
-    line = {**readings, "model": "mu2Phi-3-mini", "qlora": QLORA_MODE,
+    line = {**readings, "model": name, "qlora": mode,
+            "decoder_layers": cfg.llm.num_layers,
             "lora_rank": state.model.cfg.llm.lora_rank,
             "batch": 1, "seq": PROMPT, "valid_tokens": lens,
-            "remat": True, "trainable_params": n_train,
+            "remat": state.model.llm.model.remat, "flags": list(extra),
+            "trainable_params": n_train,
             "all_params": n_all, "trainable_dtypes": dtypes,
             "cli_total_s": total_s, "peak_mem_gb": peak / 1e9,
             "adapters_file_gb": os.path.getsize(adapters) / 1e9,
@@ -5015,9 +5068,22 @@ def qlora_phase(torch, fa, da, tmp: str) -> tuple:
             "profile": recs[-1]["profile"],
             "launches_per_step": {k: n for k, n in
                                   recs[-1]["launches_by_dim"].items() if n}}
-    del state, saved, back, want
+    del state, saved, back, want_leaves
     shutil.rmtree(out)
+    os.remove(cfg_path)
     return line, launches, sorted({n for row in lens for n in row})
+
+
+def qlora_phase(torch, fa, da, tmp: str) -> tuple:
+    """μ²Phi-3-mini's QLoRA leg (``qlora_cli_leg``): ``--qlora int8
+    --pretrained tmp/mu2phi3``, the decoder cut to QLORA_LAYERS layers,
+    QLORA_STEPS steps held to QLORA_LAUNCHES and QLORA_CALL."""
+    cfg = phi3_config()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=QLORA_LAYERS))
+    return qlora_cli_leg(torch, fa, da, tmp, cfg, QLORA_MODE, QLORA_STEPS,
+                         QLORA_LAUNCHES, QLORA_CALL,
+                         ["--pretrained", os.path.join(tmp, "mu2phi3")])
 
 
 def drive_phi(torch, F, fa, da, volume, tmp: str, preds: str, card: str):
@@ -5646,6 +5712,445 @@ def drive_ablation(torch, fa, da, volume, tmp: str, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# μ²Qwen3-8B (``drive_qwen3_8b``)
+# ---------------------------------------------------------------------------
+
+# bench.py's 8B serving configuration (BENCH_MODEL=8b; bench.py:47-58,
+# 123-126, 197-206): int8 decoder weights, the int4 KV cache, B=16 volumes,
+# the ViT over one group of 128 chunks, QWEN8B_NEW greedy tokens (bench.py's
+# 768 cut for the script's time). Each decode step launches K3-int4 36 times
+# (36 layers, 32 query heads over 8 kv heads of 128).
+QWEN8B_BATCH, QWEN8B_NEW = 16, 128
+QWEN8B_HEADS = (32, 8, 128)
+# The 8B's kernel forms, D=128 at a GQA group of 4: K2 at its serving
+# prefill (16 rows of 1024, the last 900), K3-int4 at its decode (1024 +
+# QWEN8B_NEW slots; timed at the middle step, checked at the first and
+# last) and K4a-c at its QLoRA call (B=1, 1024 tokens, the stage-2 phase's
+# first case valid for QLORA_VALID), each timed.
+QWEN8B_SERVE_CALL = dict(QWEN8B_PREFILL_CALL, b=QWEN8B_BATCH,
+                         lens=[PROMPT] * (QWEN8B_BATCH - 1) + [RAGGED])
+QWEN8B_QLORA_CALL = dict(QWEN8B_PREFILL_CALL, b=1, lens=[QLORA_VALID])
+# Its QLoRA stage 1 from the CLI, as the JAX package's 8B tool sets it up
+# (tools_train_8b_qlora.py:74-83: an int4 base, the int8 head in 8 tiles),
+# with the vision tower frozen and the 'dots_no_batch' remat policy,
+# QWEN8B_QLORA_STEPS steps of B=1 at 1024 tokens from seeded weights. Each
+# step launches K1 12 (the frozen ViT), K2 72 at D=128 (36 layers, the
+# forward again in the recompute: the flash Function is no aten op, so no
+# policy keeps its output) and K4a-c 36 each.
+QWEN8B_QLORA_STEPS, QWEN8B_TILES, QWEN8B_REMAT = 3, 8, "dots_no_batch"
+QWEN8B_QLORA_LAUNCHES = {"flash_fwd_noncausal_d64": 12,
+                         "flash_fwd_causal_d128": 72,
+                         "flash_bwd_lse_d128": 36, "flash_bwd_dq_d128": 36,
+                         "flash_bwd_dkv_d128": 36}
+# The remat policies on the card: the same QLoRA model with POLICY_LAYERS
+# decoder layers, one step on one batch under each of REMAT_POLICIES, every
+# trainable leaf's gradient within POLICY_COS_MIN and POLICY_NORM_TOL of
+# its gradient under "nothing" (a policy changes what the backward
+# recomputes, not a number: K4a-c use no atomics, so the same bits are
+# expected, and each reading says whether they are), the launches a step
+# equal under all three.
+POLICY_LAYERS = 4
+REMAT_POLICIES = ("nothing", "dots_no_batch", "dots")
+POLICY_COS_MIN, POLICY_NORM_TOL = 0.99999, 1e-4
+# ``cli convert-checkpoint`` on the report phase's μ²Llama-3.2-1B export,
+# then ``cli generate`` of CONVERT_TOKENS greedy tokens on one case from the
+# converted directory and from the HF one. ``U2InferenceModel(lora_path=)``
+# on the same export: adapters of LORA_RANK and LORA_ALPHA on every target
+# kernel, lora_a ~ N(0, 1/r) and lora_b ~ N(0, (LORA_B_SCALE sigma)^2), sigma
+# the kernel's spread, so that (alpha/r) A @ B spreads by 2 LORA_B_SCALE
+# sigma, a tenth of the weights', as QLORA_B_STD reasons; LORA_TOKENS greedy
+# tokens and the first step's logits against the same adapters folded by
+# hand; the adapted logits at least LORA_MIN_REL (relative) off the base's.
+CONVERT_TOKENS, LORA_TOKENS = 128, 64
+LORA_RANK, LORA_ALPHA, LORA_B_SCALE, LORA_MIN_REL = 16, 32, 0.05, 1e-2
+
+
+def qwen8b_config(layers: int = 0, tiles: int = 0):
+    """μ²Qwen3-8B: the default μ² stack (ViT3D 12 x 768, SPP, the
+    μ²tokenizer at the decoder's width) on the ``qwen3_8b`` decoder (36
+    layers, 32 / 8 heads of 128, an untied 151,936 x 4096 head), cut to
+    ``layers`` decoder layers and the head in ``tiles`` where given."""
+    from u2tokenizer_torch.config import LLMConfig, U2ModelConfig
+
+    llm = LLMConfig.qwen3_8b()
+    return U2ModelConfig(llm=dataclasses.replace(
+        llm, num_layers=layers or llm.num_layers, lm_head_tiles=tiles))
+
+
+def qwen8b_kernel_checks(torch, F, fa, da, attn) -> tuple:
+    """The 8B forms (D=128, group 4): K2 at QWEN8B_SERVE_CALL, K4a-c at
+    QWEN8B_QLORA_CALL and K3-int4 at the serving decode's middle step,
+    timed; K3-int4 at its first and last steps, checked. Returns (the
+    timed entries, named by form, each with the largest error of its
+    form's checks; the untimed checks)."""
+    timed = {"flash_fwd_causal_d128_g4": check_flash(
+        torch, F, fa, QWEN8B_SERVE_CALL, 80)}
+    for entry in check_flash_bwd(torch, F, fa, QWEN8B_QLORA_CALL, 81):
+        timed[f"{entry['name']}_d128_g4"] = entry
+    decode = dict(heads=QWEN8B_HEADS, new=QWEN8B_NEW)
+    timed["decode_attention_int4_d128_g4"] = check_decode(
+        torch, da, attn, 4, QWEN8B_BATCH, (QWEN8B_NEW - 1) // 2, **decode)
+    checks = [check_decode(torch, da, attn, 4, QWEN8B_BATCH, step,
+                           timed=False, **decode)
+              for step in (0, QWEN8B_NEW - 1)]
+    entry = timed["decode_attention_int4_d128_g4"]
+    entry["max_abs_err"] = max([entry["max_abs_err"]]
+                               + [c["max_abs_err"] for c in checks])
+    for form, entry in timed.items():
+        entry["head_dim"], entry["group"] = 128, 4
+        entry["kernel"], entry["name"] = entry["name"], form
+    return timed, checks
+
+
+def qwen8b_serving(torch, da, card: str) -> dict:
+    """``serve_and_check`` at bench.py's 8B configuration (the seeded
+    model drawn in fp32 on the card, cast to bf16 parameter by parameter,
+    then quantized: the build's peak is its fp32 size), and the 2-layer
+    model at the 8B widths, int8 weights with the int4 cache, against the
+    CPU's fp32 (``check_reference``) with the host memory it took."""
+    cfg = qwen8b_config()
+    run = serve_and_check(torch, da, QWEN8B_NEW, QWEN8B_BATCH, "int8",
+                          "int4", QUANT_MICROBATCH, card, cfg,
+                          label="serve_mu2qwen3_8b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with host_memory() as host:
+        t0 = time.perf_counter()
+        line = check_reference(torch, "int8", "int4", cfg)
+    line.update(check_s=time.perf_counter() - t0, host_gb=host, card=card)
+    print(json.dumps({"reference_check": line}), flush=True)
+    return run["launches"]
+
+
+def qwen8b_qlora(torch, F, fa, da, tmp: str, tok, card: str) -> tuple:
+    """``cli train --qlora int4 --freeze-vision-tower --remat
+    dots_no_batch`` at μ²Qwen3-8B (``qlora_cli_leg``, the head in
+    QWEN8B_TILES tiles, no ``--pretrained``: seeded weights; ``tok`` the
+    stage-2 phase's tokenizer, whose ids all lie below the 8B's
+    vocabulary), then K4a-c at its steps' other valid lengths, checked.
+    Returns (the launches, the checks)."""
+    cfg = qwen8b_config(tiles=QWEN8B_TILES)
+    line, launches, lens = qlora_cli_leg(
+        torch, fa, da, tmp, cfg, "int4", QWEN8B_QLORA_STEPS,
+        QWEN8B_QLORA_LAUNCHES, QWEN8B_QLORA_CALL,
+        ["--freeze-vision-tower", "--remat", QWEN8B_REMAT], tok)
+    line["card"] = card
+    print(json.dumps({"qlora_mu2qwen3_8b": line}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = [e for i, n in enumerate(n for n in lens if n != QLORA_VALID)
+              for e in check_flash_bwd(
+                  torch, F, fa, dict(QWEN8B_QLORA_CALL, lens=[n]), 90 + i,
+                  timed=False)]
+    for k in checks:
+        print(json.dumps({"kernel_check": k}), flush=True)
+    return launches, checks
+
+
+def remat_policy_steps(torch, fa, da, card: str) -> dict:
+    """One step of the QLoRA model at the 8B widths (POLICY_LAYERS decoder
+    layers, set up by ``lora.make_qlora_trainer`` as the CLI does, lora_b
+    drawn at QLORA_B_STD so that every adapter has a gradient) under each
+    of REMAT_POLICIES on one batch, in two rounds (the second read): loss,
+    s/step, peak memory and the launches of the step; every trainable
+    leaf's gradient against "nothing"'s (cosine, norm ratio, the same
+    bits), held to POLICY_COS_MIN and POLICY_NORM_TOL, and the launches
+    held equal. Returns the launches of all the steps."""
+    from u2tokenizer_torch.config import TrainConfig
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.train import lora
+    from u2tokenizer_torch.train.sft import make_loss_fn
+
+    cfg = qwen8b_config(layers=POLICY_LAYERS, tiles=QWEN8B_TILES)
+    model = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0,
+                       remat="nothing")
+    train = lora.make_qlora_trainer(model, TrainConfig(), 1, "int4")[0].train
+    g = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        for path, p in train.items():
+            if path.endswith("/lora_b"):
+                p.normal_(0.0, QLORA_B_STD, generator=g)
+    batch = {k: v.to("cuda") for k, v in training_batch(
+        torch, cfg, PROMPT, [QLORA_VALID], TRAIN_PROMPT, seed=2).items()}
+    loss_fn = make_loss_fn()
+    reset_launches(fa, da)
+    total = read_launches(fa, da, by_dim=True)
+    runs, grads = {}, {}
+    # two rounds over the policies, the second read, so that no policy's
+    # reading pays for the allocator's growth to another's peak
+    for policy in REMAT_POLICIES * 2:
+        model.llm.model.remat = policy
+        grads.pop(policy, None)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = read_launches(fa, da, by_dim=True)
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, batch)
+        step = torch.autograd.grad(loss, list(train.values()),
+                                   allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        after = read_launches(fa, da, by_dim=True)
+        grads[policy] = dict(zip(train, step))
+        runs[policy] = {
+            "loss": loss.item(), "s_per_step": s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "step_peak_over_weights_gb":
+                (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "launches_per_step": {k: n - before[k] for k, n in after.items()
+                                  if n - before[k]}}
+        del loss, step
+    ref = {k: v.double().flatten() for k, v in grads["nothing"].items()}
+    for policy in REMAT_POLICIES[1:]:
+        readings = gradient_readings(torch, grads[policy], ref)
+        runs[policy].update(
+            min_cos=min(r["cos"] for r in readings.values()),
+            max_norm_ratio_off=max(abs(r["norm_ratio"] - 1)
+                                   for r in readings.values()),
+            leaves=len(readings),
+            leaves_same_bits=sum(torch.equal(grads[policy][k],
+                                             grads["nothing"][k])
+                                 for k in train),
+            loss_same_bits=runs[policy]["loss"] == runs["nothing"]["loss"])
+        if not (runs[policy]["min_cos"] >= POLICY_COS_MIN
+                and runs[policy]["max_norm_ratio_off"] <= POLICY_NORM_TOL):
+            worst = min(readings, key=lambda k: readings[k]["cos"])
+            raise AssertionError(f"remat {policy!r}: gradients off those of "
+                                 f"'nothing' ({worst}: {readings[worst]})")
+        if runs[policy]["launches_per_step"] != \
+                runs["nothing"]["launches_per_step"]:
+            raise AssertionError(
+                f"remat {policy!r}: launches a step "
+                f"{runs[policy]['launches_per_step']} != 'nothing''s "
+                f"{runs['nothing']['launches_per_step']}")
+    del grads, ref, model, train, batch
+    print(json.dumps({"remat_policies_mu2qwen3_8b": {
+        "decoder_layers": POLICY_LAYERS, "qlora": "int4",
+        "batch": 1, "seq": PROMPT, "valid_tokens": QLORA_VALID,
+        "cos_min": POLICY_COS_MIN, "norm_tol": POLICY_NORM_TOL,
+        **runs, "card": card}}), flush=True)
+    after = read_launches(fa, da, by_dim=True)
+    return by_kernel({k: n - total[k] for k, n in after.items()})
+
+
+def convert_leg(torch, fa, da, tmp: str, tok) -> dict:
+    """``cli convert-checkpoint`` of the report phase's export
+    ``tmp/mu2llama`` (host only), then ``cli generate --checkpoint`` of
+    CONVERT_TOKENS greedy tokens on the stage-2 phase's first case from
+    the HF directory and from the converted one: the tokens (through
+    ``step_probe`` around ``make_multimodal_generate_fn``) equal bit for
+    bit. Returns the result line."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.models import generate
+
+    hf = os.path.join(tmp, "mu2llama")
+    out = os.path.join(tmp, "mu2llama_converted")
+    with host_memory() as host:
+        t0 = time.perf_counter()
+        printed = cli_run(["convert-checkpoint", "--hf-dir", hf, "--output",
+                           out])
+        convert_s = time.perf_counter() - t0
+    loads, load = [], cli._init_or_load
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        model = load(*a, **kw)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return model
+
+    tokens, data = {}, os.path.join(tmp, "green_dpo")
+    cli._init_or_load = timed_load
+    try:
+        for name, ckpt in (("hf", hf), ("converted", out)):
+            with step_probe(torch, fa, da, generate,
+                            "make_multimodal_generate_fn",
+                            record=generate_record) as recs:
+                cli_run(["generate", "--checkpoint", ckpt, "--tokenizer",
+                         "mock", "--base-path", data, "--jsonl-path",
+                         "cases.jsonl", "--output",
+                         os.path.join(tmp, f"generate_{name}.jsonl"),
+                         "--max-new-tokens", str(CONVERT_TOKENS),
+                         "--num-samples", "1", "--end", "1"],
+                        tokenizer=tok)
+            tokens[name] = recs[0]["tokens"]
+    finally:
+        cli._init_or_load = load
+    if not torch.equal(tokens["hf"], tokens["converted"]):
+        diff = (tokens["hf"] != tokens["converted"]).nonzero()
+        raise AssertionError(f"generate on the converted checkpoint parts "
+                             f"from the HF directory's at token "
+                             f"{int(diff[0, -1])}")
+    line = {"model": MODEL_NAMES["llama"], **printed, "convert_s": convert_s,
+            "convert_host_gb": host,
+            "msgpack_gb": os.path.getsize(os.path.join(
+                out, "u2_params.msgpack")) / 1e9,
+            "load_s": dict(zip(("hf", "converted"), loads)),
+            "tokens": CONVERT_TOKENS, "tokens_equal": True,
+            "first_tokens": tokens["hf"][:8].tolist()}
+    shutil.rmtree(out)
+    return line
+
+
+def lora_report(torch, ckpt: str, volume, tok, lora_path=None) -> tuple:
+    """A greedy report of LORA_TOKENS tokens from ``U2InferenceModel(ckpt,
+    lora_path=)``: (tokens, the first step's fp32 logits, load seconds)."""
+    from u2tokenizer_torch.eval.inference import U2InferenceModel
+
+    t0 = time.perf_counter()
+    im = U2InferenceModel(ckpt, tokenizer=tok, do_sample=False,
+                          speculative=False, max_new_tokens=LORA_TOKENS,
+                          lora_path=lora_path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tokens = im.generate_tokens(volume, REPORT_QUESTION)
+    ids, qids, plen = im._encode_prompt(REPORT_QUESTION)
+    dev = im.device
+    fn = im._gen_fn
+    embeds = fn.embeds(torch.from_numpy(ids[None]).to(dev),
+                       volume.float()[None],
+                       torch.from_numpy(qids[None]).to(dev))
+    _, _, _, last = fn.prefill_stage(embeds, torch.tensor(
+        [plen], dtype=torch.int32, device=dev))
+    with torch.inference_mode():
+        logits = im.model.lm_logits(last)[0, 0].float()
+    del im, fn, embeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tokens, logits, load_s
+
+
+def lora_path_leg(torch, tmp: str, volume) -> dict:
+    """``U2InferenceModel(lora_path=)`` on the report phase's export: an
+    adapter directory (``train.lora.save_lora_dir``, flax's msgpack form)
+    over every target kernel, and the same adapters folded by hand into
+    the fp32 weights on the host (kernel + (alpha/r) A @ B in plain torch)
+    and written by ``save_hf_checkpoint``. The LoRA-loaded model's tokens
+    and first-step logits equal the folded directory's bit for bit, its
+    logits are LORA_MIN_REL off the base's, and an ``adapter_config.json``
+    with alpha = r (the scale dropped) does not match. Returns the
+    result line."""
+    import numpy as np
+
+    from u2tokenizer_torch.eval.inference import load_state_dict
+    from u2tokenizer_torch.models.hf_export import save_hf_checkpoint
+    from u2tokenizer_torch.models.hf_weights import convert_u2_checkpoint
+    from u2tokenizer_torch.train import lora
+    from u2tokenizer_torch.weights import flatten
+
+    cfg = released_config()
+    hf = os.path.join(tmp, "mu2llama")
+    adapter, folded = (os.path.join(tmp, name) for name in
+                       ("lora_adapter", "mu2llama_folded"))
+    t0 = time.perf_counter()
+    flat = flatten(convert_u2_checkpoint(load_state_dict(hf), cfg))
+    g = torch.Generator().manual_seed(5)
+    adapters = {}
+    for path, w in flat.items():
+        if w.ndim == 2 and lora.is_lora_target(f"params/{path}"):
+            adapters[f"params/{path}"] = {
+                "a": torch.randn(w.shape[0], LORA_RANK, generator=g)
+                * LORA_RANK ** -0.5,
+                "b": torch.randn(LORA_RANK, w.shape[1], generator=g)
+                * (LORA_B_SCALE * float(np.std(w)))}
+    lcfg = lora.LoraConfig(r=LORA_RANK, alpha=LORA_ALPHA)
+    lora.save_lora_dir(adapter, adapters, lcfg)
+    for path in flat:  # the hand fold, in fp32 on the host
+        ab = adapters.get(f"params/{path}")
+        if ab is not None:
+            flat[path] = (torch.from_numpy(flat[path])
+                          + (LORA_ALPHA / LORA_RANK) * (ab["a"] @ ab["b"])
+                          ).numpy()
+    save_hf_checkpoint(folded, {"params": lora.unflatten(flat)}, cfg)
+    setup_s = time.perf_counter() - t0
+    del flat
+    gc.collect()
+    tok = full_vocab_tokenizer(cfg.llm.vocab_size)
+    reports = {"lora": lora_report(torch, hf, volume, tok, adapter),
+               "folded": lora_report(torch, folded, volume, tok),
+               "base": lora_report(torch, hf, volume, tok)}
+    fault = os.path.join(tmp, "lora_fault")
+    shutil.copytree(adapter, fault)
+    with open(os.path.join(fault, "adapter_config.json"), "w") as f:
+        json.dump({"r": LORA_RANK, "alpha": LORA_RANK}, f)
+    reports["fault"] = lora_report(torch, hf, volume, tok, fault)
+    same = {name: torch.equal(r[0], reports["folded"][0])
+            and torch.equal(r[1], reports["folded"][1])
+            for name, r in reports.items()}
+    base = reports["base"][1]
+    rel = {name: ((r[1] - base).abs().max() / base.abs().max()).item()
+           for name, r in reports.items()}
+    if not same["lora"]:
+        raise AssertionError(f"lora_path: the LoRA-loaded model does not "
+                             f"match the folded checkpoint "
+                             f"({report_diff(reports['lora'][:2], reports['folded'][:2])})")
+    if not rel["lora"] >= LORA_MIN_REL:
+        raise AssertionError(f"lora_path: the adapters move the logits by "
+                             f"{rel['lora']:.3g} of the base's, under "
+                             f"{LORA_MIN_REL}")
+    if same["fault"]:
+        raise AssertionError("lora_path: adapter_config.json with alpha = r "
+                             "matches the folded checkpoint")
+    line = {"model": MODEL_NAMES["llama"], "rank": LORA_RANK,
+            "alpha": LORA_ALPHA, "target_kernels": len(adapters),
+            "adapter_mb": os.path.getsize(os.path.join(
+                adapter, "adapter.msgpack")) / 1e6,
+            "setup_s": setup_s, "tokens": LORA_TOKENS,
+            "load_s": {name: r[2] for name, r in reports.items()},
+            "same_bits_as_folded": same, "logits_rel_to_base": rel,
+            "first_tokens": {name: r[0][:8].tolist()
+                             for name, r in reports.items()}}
+    for path in (adapter, folded, fault):
+        shutil.rmtree(path)
+    return line
+
+
+def drive_qwen3_8b(torch, F, fa, da, volume, tmp: str, tok,
+                   card: str) -> tuple:
+    """The μ²Qwen3-8B phase, after the ablation phase, from the stage-2
+    phase's files and the report phase's export: bench.py's 8B serving
+    configuration and its reduced check (``qwen8b_serving``), QLoRA stage
+    1 from the CLI (``qwen8b_qlora``), the remat policies
+    (``remat_policy_steps``); then on the μ²Llama-3.2-1B export ``cli
+    convert-checkpoint`` (``convert_leg``) and ``lora_path``
+    (``lora_path_leg``). Returns (the 8B paths' launches by path, by
+    kernel; the K4 checks at the QLoRA steps' other lengths; the legs'
+    seconds)."""
+    counts, legs_s = {}, {}
+    t0 = time.perf_counter()
+    counts["serve_mu2qwen3_8b"] = qwen8b_serving(torch, da, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counts["qlora_mu2qwen3_8b"], checks = qwen8b_qlora(torch, F, fa, da,
+                                                       tmp, tok, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    counts["remat_policies_mu2qwen3_8b"] = remat_policy_steps(
+        torch, fa, da, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    line = convert_leg(torch, fa, da, tmp, tok)
+    line["card"] = card
+    print(json.dumps({"convert_checkpoint_mu2llama": line}), flush=True)
+    t4 = time.perf_counter()
+    line = lora_path_leg(torch, tmp, volume)
+    line["card"] = card
+    print(json.dumps({"lora_path_mu2llama": line}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs_s = {"serving_and_reference": t1 - t0, "qlora": t2 - t1,
+              "remat_policies": t3 - t2, "convert_checkpoint": t4 - t3,
+              "lora_path": time.perf_counter() - t4}
+    print(json.dumps({"qwen3_8b_phase_s": legs_s}), flush=True)
+    return counts, checks, legs_s
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--max-new", type=int, default=B4_MAX_NEW)
@@ -5818,6 +6323,18 @@ def main() -> int:
     bwd_calls.update(flash_bwd_summary(
         {label: tuple(phi_timed[f"{name}_d{d}"] for name in fa.BWD_KERNELS)
          for label, d in (("qlora_mu2phi3_d96", 96), ("phi2_shaped_d80", 80))}))
+    # the μ²Qwen3-8B forms: K2, K3-int4 and K4a-c at D=128, group 4
+    q8_timed, q8_checks = qwen8b_kernel_checks(torch, F, fa, da, attn)
+    for k in list(q8_timed.values()) + q8_checks:
+        print(json.dumps({"kernel_check": k}), flush=True)
+    print(json.dumps({"qwen3_8b_calls": {
+        "flash_fwd": flash_fwd_summary(
+            {"prefill_mu2qwen3_8b": q8_timed["flash_fwd_causal_d128_g4"]}),
+        "decode": decode_summary(
+            {"decode_mu2qwen3_8b": q8_timed["decode_attention_int4_d128_g4"]}
+        )}, "card": card}), flush=True)
+    bwd_calls.update(flash_bwd_summary({"qlora_mu2qwen3_8b_d128_g4": tuple(
+        q8_timed[f"{name}_d128_g4"] for name in fa.BWD_KERNELS)}))
     print(json.dumps({"flash_bwd_calls": bwd_calls, "card": card}),
           flush=True)
     for entry in phi_timed.values():
@@ -5827,7 +6344,8 @@ def main() -> int:
                                       and c["shape"]["q"][-1]
                                       == entry["head_dim"]])
     kernels += phi_timed.values()
-    del phi_checks
+    kernels += q8_timed.values()
+    del phi_checks, q8_checks
     gc.collect()
     torch.cuda.empty_cache()
     if args.kernels_only:
@@ -5883,6 +6401,12 @@ def main() -> int:
         t0 = time.perf_counter()
         counts.update(drive_ablation(torch, fa, da, volume, tmp, card))
         ablation_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        q8_counts, q8_calls, q8_legs = drive_qwen3_8b(
+            torch, F, fa, da, volume, tmp, tok, card)
+        q8_s = time.perf_counter() - t0
     del volume
     gc.collect()
     torch.cuda.empty_cache()
@@ -5925,24 +6449,28 @@ def main() -> int:
         entry = next(k for k in kernels if k["name"] == new["name"])
         entry["max_abs_err"] = max(entry["max_abs_err"], new["max_abs_err"])
     # the QLoRA steps' other valid lengths, checked untimed
-    for new in qlora_calls:
+    for new, d in [(c, 96) for c in qlora_calls] + [(c, 128)
+                                                      for c in q8_calls]:
         entry = next(k for k in kernels if k.get("kernel") == new["name"]
-                     and k["head_dim"] == 96)
+                     and k["head_dim"] == d)
         entry["max_abs_err"] = max(entry["max_abs_err"], new["max_abs_err"])
     # a Phi form's launches are its kernel's on the paths of its head dim,
     # which run each kernel at that dim alone (the ViT's K1 at D=64 counts
     # to the D=64 entry); the QLoRA steps are held to it by head dim
     family = {96: "mu2phi3", 80: "phi2"}
     for k in kernels:
-        if "head_dim" in k:
+        if k.get("group") == 4:  # the μ²Qwen3-8B forms: its paths' launches
+            by_path = {path: n.get(k["kernel"], 0)
+                       for path, n in q8_counts.items()}
+        elif "head_dim" in k:
             by_path = {path: n.get(k["kernel"], 0)
                        for path, n in phi_counts.items()
                        if family[k["head_dim"]] in path}
         else:
             by_path = {path: n[k["name"]] for path, n in counts.items()}
-        if k["name"] == "flash_fwd_noncausal":  # μ²Phi-3's ViT, D=64
-            by_path.update({path: n.get(k["name"], 0)
-                            for path, n in phi_counts.items()})
+        if k["name"] == "flash_fwd_noncausal":  # μ²Phi-3's, μ²Qwen3-8B's ViT
+            by_path.update({path: n.get(k["name"], 0) for path, n in
+                            list(phi_counts.items()) + list(q8_counts.items())})
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if not k["launches"] and k["name"] not in NO_PATH_FORMS:
@@ -5954,7 +6482,9 @@ def main() -> int:
                       "green_dpo_phase_s": green_s, "eval_phase_s": eval_s,
                       "phi_phase_s": phi_s,
                       "qlora_phase_s": qlora_s,
-                      "ablation_phase_s": ablation_s}), flush=True)
+                      "ablation_phase_s": ablation_s,
+                      "qwen3_8b_phase_s": q8_s,
+                      "qwen3_8b_legs_s": q8_legs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

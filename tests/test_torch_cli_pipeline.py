@@ -5,9 +5,9 @@ the CPU at the tiny configuration (``--tiny --device cpu``):
 ``green`` and ``dpo-convert`` files equal the JAX package's commands'
 output on the same predictions, byte for byte. Every subcommand that runs
 a model runs on the GPU by default and raises without one; meshes (with
-``--qlora`` too) and the msgpack checkpoint form raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item (``--qlora``
-itself runs: ``test_torch_qlora_train.py``).
+``--qlora`` too) raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item (``--qlora`` itself runs: ``test_torch_qlora_train.py``); the
+msgpack checkpoint form loads.
 """
 
 import argparse
@@ -191,14 +191,25 @@ def test_train_refuses_what_is_not_ported(extra, item):
 
 
 def test_msgpack_checkpoint_is_refused(tmp_path):
-    (tmp_path / "u2_params.msgpack").write_bytes(b"")
+    """The msgpack checkpoint form (``convert-checkpoint``'s
+    ``u2_params.msgpack``) is read now: a model's flax tree written in it
+    loads into another model of the config, every parameter equal
+    (``test_torch_convert_checkpoint.py`` holds the form to the JAX
+    package's)."""
     from u2tokenizer_torch.config import U2ModelConfig
     from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.train.checkpoint import save_params_msgpack
+    from u2tokenizer_torch.weights import flax_params
 
-    model = U2CausalLM(U2ModelConfig.tiny(), dtype=torch.float32,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli._load_pretrained_into(model, str(tmp_path), model.cfg)
+    cfg = U2ModelConfig.tiny()
+    source = U2CausalLM(cfg, dtype=torch.float32, device="cpu", seed=1)
+    save_params_msgpack(str(tmp_path / "u2_params.msgpack"),
+                        flax_params(source))
+    model = U2CausalLM(cfg, dtype=torch.float32, device="cpu", seed=2)
+    cli._load_pretrained_into(model, str(tmp_path), model.cfg)
+    for (name, a), (_, b) in zip(source.state_dict().items(),
+                                 model.state_dict().items()):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("name", ["train", "generate", "green",

@@ -27,6 +27,7 @@ from u2tokenizer_torch.eval import inference as t_inf
 from u2tokenizer_torch.models import hf_export as t_export
 from u2tokenizer_torch.models import speculative as t_spec
 from u2tokenizer_torch.models.u2_model import U2CausalLM as TModel
+from u2tokenizer_torch.train import lora as t_lora
 from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer as TTok
 from u2tokenizer_torch.weights import flatten, flax_params
 from u2tokenizer_tpu.config import U2ModelConfig as JCfg
@@ -158,8 +159,9 @@ def test_int8_weights_match_jax(case):
 def test_refusals_and_options(case, monkeypatch):
     """The JAX defaults build the speculative path (``speculative=None``
     follows ``do_sample``); greedy speculative decoding gives the tokens
-    of the plain loop; LoRA, unknown weights and a missing tokenizer are
-    refused."""
+    of the plain loop; a LoRA directory of zero adapters gives the base's
+    tokens; a LoRA directory without its files, unknown weights and a
+    missing tokenizer are refused."""
     root, jcfg = case
     path = str(root / "port_ckpt")
     vocab = jcfg.llm.vocab_size
@@ -173,7 +175,18 @@ def test_refusals_and_options(case, monkeypatch):
         device="cpu", speculative=spec, **KW).generate_tokens(tvol, QUESTION)
         for spec in (True, False)]
     torch.testing.assert_close(tokens[0], tokens[1], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    # a LoRA directory whose adapters are zero folds in as the base; one
+    # with its files missing raises as the JAX package's does
+    lora = {"params/llm/model/layers_0/self_attn/q_proj/kernel": {
+        "a": torch.ones(jcfg.llm.hidden_size, 2),
+        "b": torch.zeros(2, jcfg.llm.num_heads * jcfg.llm.head_dim)}}
+    t_lora.save_lora_dir(path + "_lora", lora, t_lora.LoraConfig(2, 4))
+    zero = t_inf.U2InferenceModel(
+        path, tokenizer=_tokenizer(TTok, vocab), dtype=torch.float32,
+        device="cpu", lora_path=path + "_lora", **KW)
+    torch.testing.assert_close(zero.generate_tokens(tvol, QUESTION),
+                               tokens[1], rtol=0, atol=0)
+    with pytest.raises(FileNotFoundError):
         t_inf.U2InferenceModel(path, tokenizer=TTok(), do_sample=False,
                                lora_path=path, device="cpu")
     with pytest.raises(ValueError, match="weights"):

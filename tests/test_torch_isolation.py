@@ -83,7 +83,12 @@ def test_port_imports_without_jax():
             "u2tokenizer_torch.eval.metrics, "
             "u2tokenizer_torch.eval.evaluators, "
             "u2tokenizer_torch.eval.quant_report, "
-            "u2tokenizer_torch.eval.attention_viz; "
+            "u2tokenizer_torch.eval.attention_viz, "
+            "u2tokenizer_torch.models.llm.decoder, "
+            "u2tokenizer_torch.models.u2tok.attention, "
+            "u2tokenizer_torch.train.lora, u2tokenizer_torch.train.sft, "
+            "u2tokenizer_torch.train.checkpoint, "
+            "u2tokenizer_torch.utils.msgpack; "
             "sys.exit(any(m.split('.')[0] in %r for m in sys.modules))"
             % (FORBIDDEN + OTHERS,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -143,6 +148,36 @@ def test_serving_entry_points_need_a_gpu(monkeypatch, tmp_path):
                 ["serve", "--tiny", "--checkpoint", str(tmp_path)]))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+
+
+def test_lora_path_and_convert_checkpoint_devices(monkeypatch, tmp_path):
+    """Without a GPU, ``U2InferenceModel(lora_path=)`` raises unless told
+    the CPU; ``convert-checkpoint`` runs on the host and needs none."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.eval.inference import U2InferenceModel
+    from u2tokenizer_torch.models.hf_export import save_hf_checkpoint
+    from u2tokenizer_torch.train.lora import LoraConfig, save_lora_dir
+    from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
+    from u2tokenizer_torch.weights import flax_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = t_config.U2ModelConfig.tiny()
+    ckpt, lora = str(tmp_path / "ckpt"), str(tmp_path / "lora")
+    v = cfg.vision  # the tiny sizes that config.json alone must carry
+    save_hf_checkpoint(ckpt, flax_params(U2CausalLM(
+        cfg, dtype=torch.float32, device="cpu")), cfg, extra_config={
+            "vision_num_layers": v.num_layers, "vision_mlp_dim": v.mlp_dim,
+            "vision_num_heads": v.num_heads})
+    save_lora_dir(lora, {}, LoraConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        U2InferenceModel(ckpt, tokenizer=MockTokenizer(), lora_path=lora)
+    U2InferenceModel(ckpt, tokenizer=MockTokenizer(), lora_path=lora,
+                     device="cpu")
+    args = cli.build_parser().parse_args(
+        ["convert-checkpoint", "--hf-dir", ckpt, "--output",
+         str(tmp_path / "out"), "--num-chunks", str(cfg.num_chunks)])
+    assert not hasattr(args, "device")
+    assert args.fn(args)["params"] > 0
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):

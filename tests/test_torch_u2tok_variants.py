@@ -151,8 +151,21 @@ def test_cross_attention_capture(compress):
 
 
 def test_unknown_attention_type_raises():
-    with pytest.raises(ValueError, match="unknown attn_type"):
-        t_attn.make_self_attention("alibi", E, HEADS, MAX_SEQ)
+    """A name other than 'rma' and 'rope' builds the vanilla attention in
+    both packages (the reference falls back to ``nn.MultiheadAttention``
+    the same way): the same module type, and the same output on the same
+    parameters. Nothing raises."""
+    jm = j_attn.make_self_attention("alibi", E, HEADS, MAX_SEQ,
+                                    jnp.float32, "alibi")
+    tm = t_attn.make_self_attention("alibi", E, HEADS, MAX_SEQ)
+    assert isinstance(jm, j_attn.VanillaMultiheadAttention)
+    assert isinstance(tm, t_attn.VanillaMultiheadAttention)
+    x = _rand((2, 12, E), 5)
+    params = _pair(jm, tm, x, x, x)
+    ref = jm.apply(params, *[jnp.asarray(x)] * 3)
+    with torch.no_grad():
+        out = tm(*[torch.from_numpy(x)] * 3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
 @pytest.mark.parametrize("attn_type", ATTN_TYPES)

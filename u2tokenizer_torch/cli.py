@@ -16,6 +16,10 @@
   python -m u2tokenizer_torch.cli quant-report
                                               int8/int4 serving-quality
                                               gate against the float model
+  python -m u2tokenizer_torch.cli convert-checkpoint
+                                              a released HF μ² checkpoint ->
+                                              u2_config.json +
+                                              u2_params.msgpack (host only)
   python -m u2tokenizer_torch.cli demo        one CT volume -> report text
                                               (one question, or a REPL);
                                               --attention draws the
@@ -36,7 +40,8 @@ of the JAX package's CLI (--attn-type rma|rope|vanilla, --enable-diffts,
 the checkpoint's own config is read, and without a checkpoint the
 published μ²Qwen3-1.7B config is built. ``--pretrained`` and
 ``--checkpoint`` name an HF-layout μ² checkpoint (``model.safetensors``
-shards or ``pytorch_model.bin``, ``models.hf_weights``). A tokenizer is an
+shards or ``pytorch_model.bin``, ``models.hf_weights``) or a directory
+that ``convert-checkpoint`` wrote. A tokenizer is an
 HF tokenizer directory (``transformers`` is then imported), or omitted (or
 ``mock``) for the whitespace ``MockTokenizer``.
 
@@ -131,21 +136,23 @@ def _config_for(args, checkpoint):
 
 
 def _load_pretrained_into(model, path, cfg):
-    """Converted HF-layout μ² weights (safetensors shards or
-    pytorch_model.bin) copied into ``model``'s parameters."""
-    if os.path.isdir(path) and os.path.exists(
-            os.path.join(path, "u2_params.msgpack")):
-        raise NotImplementedError(
-            "the JAX package's u2_params.msgpack checkpoint form comes with "
-            "its convert-checkpoint subcommand, which the port does not "
-            "have yet (ROADMAP.md queue 1, item 7); pass an HF-layout "
-            "checkpoint directory")
-    from .eval.inference import load_state_dict
-    from .models.hf_weights import convert_u2_checkpoint
+    """μ² weights copied into ``model``'s parameters: a directory written
+    by ``convert-checkpoint`` (``u2_params.msgpack``, the flax tree) or a
+    converted HF-layout checkpoint (safetensors shards or
+    pytorch_model.bin)."""
+    from .eval.inference import CONVERTED_PARAMS, load_state_dict
     from .weights import flatten, load_flax_params
 
-    load_flax_params(model, flatten(convert_u2_checkpoint(
-        load_state_dict(path), cfg)))
+    if os.path.isdir(path) and os.path.exists(
+            os.path.join(path, CONVERTED_PARAMS)):
+        from .train.checkpoint import load_params_msgpack
+
+        tree = load_params_msgpack(os.path.join(path, CONVERTED_PARAMS))
+    else:
+        from .models.hf_weights import convert_u2_checkpoint
+
+        tree = convert_u2_checkpoint(load_state_dict(path), cfg)
+    load_flax_params(model, flatten(tree))
     return model
 
 
@@ -594,6 +601,45 @@ def cmd_eval_predictions(args, tokenizer=None):
     return result
 
 
+def _checkpoint_cfg_and_sd(hf_dir, num_chunks):
+    """A released μ² HF checkpoint's config (``config.json`` through
+    ``u2_config_from_hf``) and its raw state dict (safetensors shards, else
+    pytorch_model.bin)."""
+    from .eval.inference import load_state_dict
+    from .models.hf_weights import u2_config_from_hf
+
+    with open(os.path.join(hf_dir, "config.json")) as f:
+        hf_cfg = json.load(f)
+    return (u2_config_from_hf(hf_cfg, num_chunks=num_chunks),
+            load_state_dict(hf_dir))
+
+
+def cmd_convert_checkpoint(args):
+    """A released μ² HF checkpoint (μ²Qwen3-1.7B/8B, μ²Llama-3.2-1B
+    layouts) converted to the framework's form, on the host: ``--output``
+    gets ``u2_config.json`` (the config's JSON) and ``u2_params.msgpack``
+    (the flax parameter tree in flax's msgpack form, as the JAX package's
+    command writes it), which every command's ``--checkpoint`` and
+    ``--pretrained`` read. Prints {params, source_tensors, output} as one
+    JSON line and returns it."""
+    from .eval.inference import CONVERTED_CONFIG, CONVERTED_PARAMS
+    from .models.hf_weights import convert_u2_checkpoint
+    from .train.checkpoint import save_params_msgpack
+    from .weights import flatten
+
+    cfg, sd = _checkpoint_cfg_and_sd(args.hf_dir, args.num_chunks)
+    params = convert_u2_checkpoint(sd, cfg)
+    os.makedirs(args.output, exist_ok=True)
+    with open(os.path.join(args.output, CONVERTED_CONFIG), "w") as f:
+        f.write(cfg.to_json())
+    count = sum(int(leaf.size) for leaf in flatten(params).values())
+    save_params_msgpack(os.path.join(args.output, CONVERTED_PARAMS), params)
+    line = {"params": count, "source_tensors": len(sd),
+            "output": args.output}
+    print(json.dumps(line))
+    return line
+
+
 def cmd_quant_report(args):
     """Quantization-quality gate (``eval/quant_report.py``): per-layer
     weight round-trip SNR, teacher-forced logit agreement and optional
@@ -871,8 +917,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--remat", default="nothing",
                    choices=["nothing", "dots_no_batch", "dots", "off"],
                    help="gradient checkpointing of the decoder layers: "
-                        "'nothing' recomputes everything, 'off' none "
-                        "('dots' policies are not ported yet)")
+                        "'nothing' recomputes everything; 'dots_no_batch' "
+                        "keeps the weight matmul outputs, 'dots' every "
+                        "matmul output (more activation memory, less "
+                        "recompute); 'off' disables remat")
     t.add_argument("--ce-chunk", dest="ce_chunk", type=int, default=0,
                    help="> 0: compute the LM loss in sequence chunks of "
                         "this size, never materializing the (B, S, vocab) "
@@ -1002,6 +1050,13 @@ def build_parser() -> argparse.ArgumentParser:
     ep.add_argument("--no-bertscore", action="store_true")
     _add_device(ep)
     ep.set_defaults(fn=cmd_eval_predictions)
+
+    cc = sub.add_parser("convert-checkpoint",
+                        help="released HF μ² checkpoint -> framework params")
+    cc.add_argument("--hf-dir", dest="hf_dir", required=True)
+    cc.add_argument("--output", required=True)
+    cc.add_argument("--num-chunks", type=int, default=8)
+    cc.set_defaults(fn=cmd_convert_checkpoint)
 
     dm = sub.add_parser("demo")
     _add_common(dm)

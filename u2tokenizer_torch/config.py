@@ -347,8 +347,8 @@ class TrainConfig:
     seed: int = 42
     bf16: bool = True
     # gradient checkpointing of each decoder layer: True or "nothing" =
-    # full recompute (minimum memory), False or "off" = none; the JAX
-    # package's "dots" / "dots_no_batch" policies are not ported yet
+    # full recompute (minimum memory), "dots_no_batch" keeps the weight
+    # matmul outputs, "dots" every matmul output, False or "off" = none
     remat: Union[bool, str] = True
     # > 0: compute the LM loss from hidden states in sequence chunks of
     # this size (never materializing the (B, S, vocab) logits); 0 = plain

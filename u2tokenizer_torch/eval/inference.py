@@ -35,9 +35,13 @@ from ..models.quantize import (cast_for_inference, quantize_llm_weights,
                                quantized_llm_config)
 from ..models.speculative import make_spec_multimodal_generate_fn
 from ..models.u2_model import U2CausalLM, resolve_device
+from ..train.lora import load_lora_dir, merge_lora
 from ..weights import flatten, load_flax_params
 
 WEIGHTS = ("bf16", "int8", "int4")
+# ``cli convert-checkpoint``'s directory: the config's JSON and the flax
+# parameter tree in flax's msgpack form
+CONVERTED_CONFIG, CONVERTED_PARAMS = "u2_config.json", "u2_params.msgpack"
 
 
 def check_character_and_length(text: str, min_len: int = 20) -> bool:
@@ -49,12 +53,14 @@ def check_character_and_length(text: str, min_len: int = 20) -> bool:
 
 
 def load_model_config(checkpoint_path: str) -> U2ModelConfig:
-    """``u2_tpu_config.json`` where the directory has one, else the μ²
-    config that ``config.json`` describes."""
-    tpu_cfg = os.path.join(checkpoint_path, "u2_tpu_config.json")
-    if os.path.exists(tpu_cfg):
-        with open(tpu_cfg) as f:
-            return U2ModelConfig.from_json(f.read())
+    """``u2_tpu_config.json`` where the directory has one, or
+    ``u2_config.json`` (``cli convert-checkpoint``'s), else the μ² config
+    that ``config.json`` describes."""
+    for name in ("u2_tpu_config.json", CONVERTED_CONFIG):
+        path = os.path.join(checkpoint_path, name)
+        if os.path.exists(path):
+            with open(path) as f:
+                return U2ModelConfig.from_json(f.read())
     with open(os.path.join(checkpoint_path, "config.json")) as f:
         return u2_config_from_hf(json.load(f))
 
@@ -83,9 +89,11 @@ class U2InferenceModel:
     when greedy, the same distribution when sampling; ``spec_stats``
     counts its emitted tokens (after the first, which the prefill gives)
     and verify steps, so that their ratio is the mean acceptance.
-    ``lora_path`` is refused: its adapter form (``adapter.msgpack`` and
-    ``adapter_config.json``, merged into the base at load) is not ported
-    yet, where ``train.lora`` is (ROADMAP.md queue 1)."""
+    ``lora_path`` names an adapter directory (``adapter.msgpack``,
+    ``adapter_config.json``; ``train.lora.save_lora_dir``) whose adapters
+    are folded into the checkpoint's fp32 weights on the host, kernel +
+    (alpha/r) A @ B, before the bf16 cast or the quantization, as in the
+    JAX package."""
 
     def __init__(self, checkpoint_path: str, tokenizer=None,
                  model_config: Optional[U2ModelConfig] = None,
@@ -96,10 +104,6 @@ class U2InferenceModel:
                  weights: str = "bf16", device="cuda"):
         if speculative is None:
             speculative = bool(do_sample)
-        if lora_path is not None:
-            raise NotImplementedError(
-                "lora_path: the LoRA adapter directory form (adapter.msgpack "
-                "+ adapter_config.json) is not ported yet")
         if weights not in WEIGHTS:
             raise ValueError(f"weights must be one of {WEIGHTS}, got "
                              f"{weights!r}")
@@ -117,8 +121,11 @@ class U2InferenceModel:
 
         model = U2CausalLM(self.cfg, dtype=dtype, device=self.device,
                            seed=seed)
-        load_flax_params(model, flatten(convert_u2_checkpoint(
-            load_state_dict(checkpoint_path), self.cfg)))
+        params = convert_u2_checkpoint(load_state_dict(checkpoint_path),
+                                       self.cfg)
+        if lora_path is not None:
+            params = self._merge_lora(params, lora_path)
+        load_flax_params(model, flatten(params))
         # as the JAX package: "bf16" computes in ``dtype``; int8 and int4
         # quantize the bf16-cast weights
         cast_for_inference(model, dtype if weights == "bf16"
@@ -141,6 +148,13 @@ class U2InferenceModel:
             self._gen_fn = make_multimodal_generate_fn(model, self.gen_cfg)
         self._generator = torch.Generator(self.device).manual_seed(seed)
         self.spec_stats = {"emitted_tokens": 0, "verify_steps": 0}
+
+    @staticmethod
+    def _merge_lora(params, lora_path: str):
+        """``params`` (the converted fp32 tree) with the adapters of
+        ``lora_path`` folded in (``train.lora.merge_lora``)."""
+        lora, lcfg = load_lora_dir(lora_path)
+        return merge_lora(params, lora, lcfg)
 
     def _encode_prompt(self, question: str, with_image: bool = True):
         """(ids padded to ``max_length``, question ids padded to 64, the

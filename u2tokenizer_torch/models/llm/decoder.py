@@ -32,21 +32,28 @@ chunked prefill) attends the whole cache under ``mask``, not its fresh
 K/V. On CUDA an index past the buffer is a device assert, so callers size
 the cache with the slack their blocks need.
 
-``remat`` (True or "nothing") checkpoints each decoder layer while
-gradients are recorded, the counterpart of the JAX package's
-``nn.remat(DecoderLayer, policy=nothing_saveable)``: the layer keeps only
-its input and runs its forward again in the backward.
+``remat`` checkpoints each decoder layer while gradients are recorded, the
+counterpart of the JAX package's ``nn.remat(DecoderLayer, policy=...)``:
+True or "nothing" (``nothing_saveable``) keeps only the layer's input and
+runs its forward again in the backward; "dots" (``dots_saveable``) also
+keeps the output of every matrix product, and "dots_no_batch"
+(``dots_with_no_batch_dims_saveable``) those of the products with no
+batch dimension, the weight products (``remat_policy``). The rest of the
+layer runs again, the flash attention's forward kernel included: it is
+no aten op, so no policy keeps its output.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ...config import LLMConfig
 from ...ops.attention import (gqa_sdpa, gqa_sdpa_fanout,
@@ -479,16 +486,49 @@ class DecoderLayer(nn.Module):
         return x, cache_kv
 
 
-def remat_enabled(remat) -> bool:
-    """TrainConfig.remat -> whether decoder layers are checkpointed: True or
-    "nothing" (full recompute) or False or "off". The JAX package's policies
-    that keep matmul outputs are not ported."""
-    if remat in (True, "nothing"):
-        return True
-    if remat in (False, "off"):
+# the matrix products as the dispatcher sees them: F.linear, matmul and
+# einsum all reach these (the QDense path dequantizes its integer weights
+# and multiplies in the compute dtype, so no integer product occurs)
+MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+BATCHED = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def is_batched_product(func, args) -> bool:
+    """A product with a batch dimension, as JAX's dot_general has one: a
+    bmm or baddbmm over more than one matrix. einsum lowers a contraction
+    with no batch dims (the int4 weight product) to a bmm over a batch of
+    one, which counts as a plain product."""
+    if func not in BATCHED:
         return False
-    if remat in ("dots", "dots_no_batch"):
-        raise NotImplementedError(f"remat policy {remat!r} is not ported yet")
+    lhs = args[1] if func is torch.ops.aten.baddbmm.default else args[0]
+    return lhs.shape[0] > 1
+
+
+def _saves(keep: Callable) -> Callable:
+    def policy(ctx, func, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if keep(func, args)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+REMAT_POLICIES = {
+    "nothing": None,  # the plain checkpoint: nothing saved
+    "dots": _saves(lambda func, args: func in MATMULS),
+    "dots_no_batch": _saves(lambda func, args: func in MATMULS
+                            and not is_batched_product(func, args)),
+}
+
+
+def remat_policy(remat) -> Optional[str]:
+    """TrainConfig.remat -> the policy name of ``REMAT_POLICIES`` (True is
+    "nothing"), or None for no checkpointing (None, False or "off")."""
+    if remat is True:
+        return "nothing"
+    if remat in (None, False, "off"):
+        return None
+    if remat in REMAT_POLICIES:
+        return remat
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
@@ -502,7 +542,7 @@ class DecoderModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.remat = remat_enabled(remat)
+        self.remat = remat_policy(remat)
         shape = (cfg.vocab_size, cfg.hidden_size)
         if cfg.quantized_weights:
             self.set_embedding(
@@ -556,7 +596,9 @@ class DecoderModel(nn.Module):
             args = (x, rope, mask, _layer_kv(cache, i), write_index, lens,
                     decode_bounds, _layer_kv(prefix_cache, i), prefix_mask)
             if self.remat and torch.is_grad_enabled():
-                x, _ = checkpoint(layer, *args, use_reentrant=False)
+                contexts = REMAT_POLICIES[self.remat]
+                kw = {"context_fn": contexts} if contexts else {}
+                x, _ = checkpoint(layer, *args, use_reentrant=False, **kw)
             else:
                 x, _ = layer(*args)
         return self.norm(x), cache

@@ -5,7 +5,8 @@ The three self-attention flavours of the reference's ``attn_type`` switch:
 ``RelativeMultiheadAttention`` (MHA with a learned relative-position bias
 table, 'rma', the default), ``RotaryMultiheadAttention`` (rotary
 embeddings of theta 10,000, 'rope') and ``VanillaMultiheadAttention``
-(plain MHA, 'vanilla'); and ``MultiHeadCrossAttention``. With
+(plain MHA, 'vanilla' or any other name); and
+``MultiHeadCrossAttention``. With
 ``is_compress`` a module attends the raw values (no value projection) and
 skips the output projection; it then has no ``wv``/``dense`` parameters,
 like its flax counterpart. All operate batch-first on (B, S, E).
@@ -142,15 +143,14 @@ class MultiHeadCrossAttention(_Attention):
 def make_self_attention(attn_type: str, d_model: int, num_heads: int,
                         max_seq_len: int, dtype=torch.float32,
                         device=None) -> nn.Module:
-    """The self attention of ``attn_type``: 'rma', 'rope' or 'vanilla'."""
+    """The self attention of ``attn_type``: 'rma', 'rope', else the
+    vanilla one, as the JAX package (and the reference, which falls back
+    to ``nn.MultiheadAttention``) builds for any other name."""
     if attn_type == "rma":
         return RelativeMultiheadAttention(d_model, num_heads, max_seq_len,
                                           dtype, device=device)
     if attn_type == "rope":
         return RotaryMultiheadAttention(d_model, num_heads, dtype=dtype,
                                         device=device)
-    if attn_type == "vanilla":
-        return VanillaMultiheadAttention(d_model, num_heads, dtype,
-                                         device=device)
-    raise ValueError(f"unknown attn_type {attn_type!r}: 'rma', 'rope' or "
-                     "'vanilla'")
+    return VanillaMultiheadAttention(d_model, num_heads, dtype,
+                                     device=device)

@@ -87,7 +87,7 @@ def save_params_msgpack(path: str, params: Any) -> None:
     """A nested tree of tensors or numpy arrays as one flax msgpack file
     (``flax.serialization.to_bytes`` of the same tree)."""
     with open(path, "wb") as f:
-        f.write(msgpack.to_bytes(params))
+        msgpack.dump(params, f)
 
 
 def load_params_msgpack(path: str) -> Any:

@@ -13,7 +13,9 @@ does the port, on modules, every parameter named by its flax path
     trainer ``make_lora_train_step`` runs the model on those effective
     weights (``torch.func.functional_call``), takes gradients for the
     adapters and the fully trained modules and hands every leaf, the
-    others with zero gradients, to the optimizer;
+    others with zero gradients, to the optimizer; ``save_lora_dir`` writes
+    the adapter directory (``adapter.msgpack``, ``adapter_config.json``)
+    that ``U2InferenceModel(lora_path=)`` folds into the base at load;
   * QLoRA (``cli train --qlora``): the decoder's base quantized to int8 or
     int4 in place (``models.quantize``), fresh fp32 adapters on every
     attention and MLP projection inside ``QDense`` (``qlora_config``,
@@ -39,6 +41,8 @@ numbers.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
 
@@ -50,6 +54,7 @@ from ..models.llm.decoder import QDense
 from ..models.quantize import dequantize_llm_weights, quantize_llm_weights
 from ..weights import flax_path, torch_name
 from . import optim
+from .checkpoint import load_params_msgpack, save_params_msgpack
 from .sft import Optimizer, global_norm, make_loss_fn, make_schedule
 
 # reference exclusion list (train_stage1.py:221)
@@ -60,6 +65,8 @@ DEFAULT_EXCLUDE = ("vision_tower", "mm_projector", "embed_tokens", "lm_head",
 DEFAULT_FULL_TRAIN = ("vision_tower", "mm_projector", "embed_tokens",
                       "lm_head", "u2tokenizer")
 ADAPTERS = ("/lora_a", "/lora_b")
+# the adapter directory form (``save_lora_dir``, ``load_lora_dir``)
+ADAPTER_FILE, ADAPTER_CONFIG = "adapter.msgpack", "adapter_config.json"
 
 
 @dataclass(frozen=True)
@@ -114,11 +121,12 @@ def _map_tree(fn: Callable, tree, prefix: str = ""):
 
 def apply_lora(params, lora: Dict[str, Any], cfg: LoraConfig):
     """Materialize effective params of a nested tree ({"params": ...} of
-    tensors, kernels (in, out) as flax holds them): kernel + scale * A @ B
-    in the kernel's dtype."""
+    tensors or numpy arrays, kernels (in, out) as flax holds them): kernel
+    + scale * A @ B in the kernel's dtype, a tensor."""
 
     def update(path, leaf):
         if path in lora:
+            leaf = torch.as_tensor(leaf)
             ab = lora[path]["a"] @ lora[path]["b"]
             return leaf + (cfg.scale * ab).to(leaf.dtype)
         return leaf
@@ -129,6 +137,26 @@ def apply_lora(params, lora: Dict[str, Any], cfg: LoraConfig):
 def merge_lora(params, lora: Dict[str, Any], cfg: LoraConfig):
     """Fold adapters into the base weights (for export / inference)."""
     return apply_lora(params, lora, cfg)
+
+
+def save_lora_dir(path: str, lora: Dict[str, Any], cfg: LoraConfig) -> None:
+    """The adapter directory that ``U2InferenceModel(lora_path=)`` folds in
+    at load: ``adapter.msgpack``, the {kernel path: {"a", "b"}} adapters
+    in flax's msgpack form, and ``adapter_config.json`` with r and alpha."""
+    os.makedirs(path, exist_ok=True)
+    save_params_msgpack(os.path.join(path, ADAPTER_FILE), lora)
+    with open(os.path.join(path, ADAPTER_CONFIG), "w") as f:
+        json.dump({"r": cfg.r, "alpha": cfg.alpha}, f)
+
+
+def load_lora_dir(path: str) -> Tuple[Dict[str, Any], LoraConfig]:
+    """(adapters as CPU tensors, LoraConfig) of an adapter directory, read
+    as the JAX package's ``U2InferenceModel._merge_lora`` reads it: a
+    missing file raises ``FileNotFoundError``."""
+    lora = load_params_msgpack(os.path.join(path, ADAPTER_FILE))
+    with open(os.path.join(path, ADAPTER_CONFIG)) as f:
+        acfg = json.load(f)
+    return lora, LoraConfig(r=acfg["r"], alpha=acfg["alpha"])
 
 
 def count_params(tree) -> int:

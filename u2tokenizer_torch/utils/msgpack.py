@@ -14,6 +14,7 @@ reads arrays into CPU tensors:
     flax's state dicts ({"0": ...}), bool, int, float, str, bytes, and
     tensors or numpy arrays (any dtype numpy names, and bf16) as type-1
     extensions;
+  * ``dump(tree, f)``: the same bytes written to a file as they are made;
   * ``restore(data)``: the tree back, arrays as tensors (chunked arrays
     joined);
   * ``packb`` and ``unpackb``: plain MessagePack of such values (lists as
@@ -31,6 +32,9 @@ import torch
 EXT_NDARRAY = 1
 CHUNKED = "__msgpack_chunked_array__"
 MAX_CHUNK_SIZE = 2 ** 30  # flax's limit on one array's bytes
+_TORCH_COPIES = tuple(np.dtype(t) for t in (np.float32, np.float64,
+                                            np.float16, np.int8, np.uint8,
+                                            np.int16, np.int32, np.int64))
 
 
 # ---------------------------------------------------------------- packing ---
@@ -76,38 +80,55 @@ def _int(out: List[bytes], n: int) -> None:
         raise ValueError(f"msgpack: {n} does not fit 64 bits")
 
 
-def _ext(out: List[bytes], code: int, data: bytes) -> None:
-    n = len(data)
+def _ext(out: List[bytes], code: int, *pieces) -> None:
+    """An extension of type ``code`` whose data is ``pieces`` joined."""
+    n = sum(len(piece) for piece in pieces)
     if n in _FIXEXT:
         out.append(bytes([_FIXEXT[n], code]))
     else:
         _head(out, n, None, 0, ((0xC7, ">B", 1 << 8), (0xC8, ">H", 1 << 16),
                                 (0xC9, ">I", 1 << 32)))
         out.append(bytes([code]))
-    out.append(data)
+    for piece in pieces:
+        out.append(piece)
 
 
-def _array_bytes(x) -> bytes:
-    """The type-1 extension's data of a tensor or numpy array."""
+def _array_pieces(x) -> list:
+    """The type-1 extension's data of a tensor or numpy array, the
+    MessagePack of (shape, dtype name, raw C-order bytes), as pieces: the
+    head, then the array's own memory (a view, not a copy, where it is
+    contiguous on the CPU)."""
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            name, raw = "bfloat16", t.view(torch.int16).numpy().tobytes()
+            name, arr = "bfloat16", t.view(torch.int16).numpy()
         else:
             arr = t.numpy()
-            name, raw = arr.dtype.name, arr.tobytes()
+            name = arr.dtype.name
         shape = tuple(t.shape)
     else:
-        arr = np.ascontiguousarray(x)
-        name, raw, shape = arr.dtype.name, arr.tobytes(), arr.shape
-    return packb((tuple(int(n) for n in shape), name, raw))
+        x = np.asarray(x)
+        if x.ndim and not x.flags.c_contiguous and x.dtype in _TORCH_COPIES:
+            # a transposed kernel: torch's strided copy is several times
+            # faster than numpy's
+            arr = torch.from_numpy(x).contiguous().numpy()
+        else:
+            arr = np.ascontiguousarray(x)
+        name, shape = arr.dtype.name, arr.shape
+    raw = memoryview(arr.reshape(-1).view(np.uint8))
+    head: List[bytes] = []
+    _head(head, 3, 0x90, 16, _ARRAY)
+    _pack(tuple(int(n) for n in shape), head)
+    _pack(name, head)
+    _head(head, len(raw), None, 0, _BIN)
+    return [b"".join(head), raw]
 
 
 def _pack(obj: Any, out: List[bytes]) -> None:
     if obj is True or obj is False:
         out.append(b"\xc3" if obj else b"\xc2")
     elif isinstance(obj, (torch.Tensor, np.ndarray)):
-        _ext(out, EXT_NDARRAY, _array_bytes(obj))
+        _ext(out, EXT_NDARRAY, *_array_pieces(obj))
     elif isinstance(obj, int):
         _int(out, obj)
     elif isinstance(obj, float):
@@ -166,6 +187,19 @@ def to_bytes(tree: Any) -> bytes:
     return packb(_state_dict(tree))
 
 
+class _Sink:
+    """``_pack``'s output list, written through to a file as it comes."""
+
+    def __init__(self, f):
+        self.append = f.write
+
+
+def dump(tree: Any, f) -> None:
+    """``to_bytes(tree)`` written to the binary file ``f`` piece by piece,
+    so that a tree of many GB is never held twice in memory."""
+    _pack(_state_dict(tree), _Sink(f))
+
+
 # -------------------------------------------------------------- unpacking ---
 
 def _dtype_of(name: str):
@@ -174,8 +208,14 @@ def _dtype_of(name: str):
     return np.dtype(name)
 
 
-def _array(data: bytes) -> torch.Tensor:
-    shape, name, raw = unpackb(data)
+def _array(data) -> torch.Tensor:
+    """The tensor of a type-1 extension's data, copied once out of it."""
+    reader = _Reader(data, views=True)
+    shape, name, raw = reader.value()
+    if reader.pos != len(reader.data):
+        raise ValueError("msgpack: trailing bytes after the value")
+    if isinstance(name, memoryview):
+        name = name.tobytes()
     if isinstance(name, bytes):
         name = name.decode()
     dtype = _dtype_of(name)
@@ -188,22 +228,28 @@ def _array(data: bytes) -> torch.Tensor:
 
 
 class _Reader:
-    def __init__(self, data: bytes):
-        self.data, self.pos = memoryview(data), 0
+    """MessagePack values from ``data``; with ``views`` its binary values
+    are memoryviews of ``data``, not copies (an array's raw bytes)."""
 
-    def take(self, n: int) -> bytes:
+    def __init__(self, data, views: bool = False):
+        self.data, self.pos, self.views = memoryview(data), 0, views
+
+    def view(self, n: int) -> memoryview:
         if self.pos + n > len(self.data):
             raise ValueError("msgpack: data ends inside a value")
-        out = self.data[self.pos:self.pos + n].tobytes()
+        out = self.data[self.pos:self.pos + n]
         self.pos += n
         return out
+
+    def take(self, n: int) -> bytes:
+        return self.view(n).tobytes()
 
     def num(self, fmt: str):
         return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
 
     def ext(self, n: int) -> Any:
         code = self.num(">b")
-        data = self.take(n)
+        data = self.view(n)
         if code == EXT_NDARRAY:
             return _array(data)
         raise ValueError(f"msgpack: unknown extension type {code}")
@@ -225,7 +271,8 @@ class _Reader:
             return simple[b]
         sized = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}
         if b in sized:
-            return self.take(self.num(sized[b]))
+            n = self.num(sized[b])
+            return self.view(n) if self.views else self.take(n)
         sized = {0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}
         if b in sized:
             return self.ext(self.num(sized[b]))
