@@ -106,8 +106,8 @@ Run from the root of a checkout. It
      augmentations on the card), ``generate --do-sample --num-samples 8``
      (256 tokens, the users' 768 cut for the script's time) on two cases,
      ``green`` with a judge directory (the Llama-3.2-1B preset, seeded
-     bf16 weights: 16 prompts in batches of 4 padded to 2048, 256 greedy
-     tokens, speculative with the shared prefix), one batch held to the
+     bf16 weights: 16 prompts in batches of 4 padded to 2048,
+     JUDGE_TOKENS greedy tokens, speculative with the shared prefix), one batch held to the
      plain judge under the near-tie rule, which must reject a shared
      prefix one bucket too long, and one batch with ``--judge-weights
      int8``; ``green`` with the stub judge and ``dpo-convert`` (2 pairs);
@@ -120,8 +120,8 @@ Run from the root of a checkout. It
      the judge's;
  7b. scores reports through the port's CLI in this process
      (``drive_eval``) from the stage-2 phase's checkpoint, cases and
-     judge: ``eval --task mrg`` of three cases, 128 greedy tokens each
-     (the users' 768 cut) with the seeded judge (seconds a case and a
+     judge: ``eval --task mrg`` of three cases, EVAL_TOKENS greedy tokens
+     each (the users' 768 cut) with the seeded judge (seconds a case and a
      judged batch, K1 12 and K2 16 a case through ``step_probe``), case
      0's tokens and first-token logits inside the command against
      ``MultimodalGenerate`` on the same sample and model, a check that
@@ -187,6 +187,21 @@ Run from the root of a checkout. It
      model in fp32 with the plain attention on the card (prefill logits,
      loss, gradients) and rejecting a planted fault of its own module; and
      'rma' over the linear projector's 2048 tokens raising;
+ 12a. drives segmentation and M3D-Bench (``drive_m3d``) at the released
+     μ²Llama-3.2-1B configuration with the full SegVol head (seeded
+     weights) on a synthetic M3D root (4 volumes of (8, 32, 256, 256),
+     ball masks): ``cli eval-m3d`` for rec and reg (2 cases), seg (3) and
+     refseg (2), 64 greedy tokens a case (K1 12, K2 16 a case; '[SEG]'
+     is the first token greedy decoding emits on case 0, so the branch is
+     taken), and itr (4 images, K1 12 each); the '[SEG]' generate of a
+     2-layer model on the card against the CPU's fp32 (tokens under the
+     near-tie rule, mask logits and their prompt part within 5e-2,
+     rejecting the '[SEG]' state one row late and the pad gap left open);
+     3 joint LM + seg steps of B=1 at 512 tokens through
+     ``make_seg_train_step`` (K1 12, K2 16, K4a-c 28 a step) and the
+     2-layer joint step against the CPU leaf by leaf (rejecting the
+     planted faults of the flash backward's wiring); K2 and K4a-c at the
+     phase's 512-row calls (untimed);
  12b. drives μ²Qwen3-8B (``drive_qwen3_8b``, the ``qwen3_8b`` decoder
      under the default μ² stack, seeded weights, full width and depth):
      ``bench.py``'s 8B serving configuration (int8 weights, the int4
@@ -1616,10 +1631,10 @@ FANOUT = 8                 # samples a case, pred_then_green's protocol
 FANOUT_TOKENS = 128
 SCRIPT_SEED = 7            # bench.py's report scripts
 # the forced-content phase's depth (bench.py's 768 cut for the script's
-# time, to 256 when the Phi phase came and to 128 when the evaluation
-# phase came; it launches no K3, so the B=112 path's K3 checks stay at
-# MAX_NEW)
-FORCED_TOKENS = 128
+# time, to 256 when the Phi phase came, to 128 when the evaluation phase
+# came and to 64 when the M3D phase came; it launches no K3, so the B=112
+# path's K3 checks stay at MAX_NEW)
+FORCED_TOKENS = 64
 # Greedy speculative decoding against plain greedy on the card. A verify
 # block's logits come from other GEMM shapes than a single step's, so the
 # two bf16 computations of one position may order a near tie differently.
@@ -3240,6 +3255,14 @@ def gradient_readings(torch, grads, ref):
     return out
 
 
+def card_reference(grads) -> dict:
+    """The CPU's gradients as flat fp64 on the card, where
+    ``gradient_readings`` then sums each card step's against them (moving
+    every card step's gradients to the host instead took seconds a
+    step)."""
+    return {n: g.double().flatten().to("cuda") for n, g in grads.items()}
+
+
 def left_out(name: str):
     """Why the training reference check leaves this parameter's gradient
     out (see TRAIN_COS_MIN), or None where it holds it."""
@@ -3357,7 +3380,7 @@ def train_reference_readings(torch, fa, qlora=None, lora_b_std=None,
                              for path, g in recorder.grads.items()}
 
     loss_cpu, grads = step(cpu, batch, cpu_train)
-    ref = {n: g.double().flatten() for n, g in grads.items()}
+    ref = card_reference(grads)
     del cpu, cpu_train, grads
     card_batch = {k: v.to("cuda") for k, v in batch.items()}
 
@@ -3440,10 +3463,11 @@ def qlora_reference_line(torch, fa, lora_b_std: float) -> dict:
 # report phase's ct.nii is seed 0) and a jsonl of three cases. ``train``
 # takes TRAIN_FILE_STEPS steps; ``generate`` samples GEN_SAMPLES reports
 # of GEN_TOKENS tokens for the first GEN_CASES cases (the users' 768 tokens
-# cut for the script's time); the judge scores them in batches of
-# JUDGE_BATCH prompts padded to JUDGE_LENGTH (TorchJudge's defaults, the
-# JAX package's), JUDGE_TOKENS greedy tokens each (TorchJudge's 600 cut
-# when the ablation phase came, for the script's time); ``dpo`` takes
+# cut for the script's time); the judge
+# scores them in batches of JUDGE_BATCH prompts padded to JUDGE_LENGTH
+# (TorchJudge's defaults, the JAX package's), JUDGE_TOKENS greedy tokens
+# each (TorchJudge's 600 cut for the script's time: 256 when the ablation
+# phase came, 64 when the M3D phase came); ``dpo`` takes
 # DPO_STEPS steps at the JAX defaults, and again with ``--ce-chunk``
 # DPO_CE_CHUNK;
 # a repeated pair at SEPARATE_LR, the JAX default, must separate (the
@@ -3451,7 +3475,7 @@ def qlora_reference_line(torch, fa, lora_b_std: float) -> dict:
 GREEN_CT_SEEDS = (0, 1, 2)
 TRAIN_FILE_STEPS = 3
 GEN_CASES, GEN_SAMPLES, GEN_TOKENS = 2, 8, 256
-JUDGE_BATCH, JUDGE_LENGTH, JUDGE_TOKENS = 4, 2048, 256
+JUDGE_BATCH, JUDGE_LENGTH, JUDGE_TOKENS = 4, 2048, 64
 DPO_STEPS, DPO_CE_CHUNK = 4, 256
 SEPARATE_LR, SEPARATE_STEPS = 4e-6, 4
 # step 0 of DPO is an identity (policy = reference): the sigmoid loss is
@@ -4122,7 +4146,7 @@ def dpo_reference_readings(torch, fa, tok):
     with torch.no_grad():
         logps_cpu = dpo._completion_logps(cpu, batch, False)
     loss_cpu = step(cpu, dpo.frozen_reference(cpu), batch)
-    ref = {n: p.grad.double().flatten() for n, p in cpu.named_parameters()}
+    ref = card_reference({n: p.grad for n, p in cpu.named_parameters()})
     del cpu
     card = dpo.to_device(batch, "cuda")
 
@@ -4293,8 +4317,8 @@ def drive_green_dpo(torch, F, fa, da, tmp: str, card: str) -> tuple:
 # ``eval-predictions``), and ``quant-report`` at μ²Qwen3-1.7B, bench.py's
 # model. Scores of seeded weights mean only that the machinery runs.
 # the users' 768 tokens cut for the script's time (256 until the ablation
-# phase came)
-EVAL_CASES, EVAL_TOKENS = 3, 128
+# phase came, 128 until the M3D phase came)
+EVAL_CASES, EVAL_TOKENS = 3, 64
 EVAL_FAULT_TOKENS = 32             # the planted prompt-length fault's steps
 QR_GREEDY_TOKENS = 32              # quant-report's greedy leg
 # depth chunks of its reduced-depth check: 4 x 256 projected tokens, as the
@@ -6151,6 +6175,575 @@ def drive_qwen3_8b(torch, F, fa, da, volume, tmp: str, tok,
     return counts, checks, legs_s
 
 
+# The M3D phase (``drive_m3d``, after the ablation phase): segmentation and
+# M3D-Bench at the released μ²Llama-3.2-1B configuration with the full
+# SegVol head (``SegConfig``: a 12 x 768 encoder over the whole (32, 256,
+# 256) chunk in (4, 16, 16) patches, a two-way decoder of depth 2), seeded
+# weights, on a synthetic M3D root in the reference layout (no M3D volume,
+# mask or trained seg weight is in the repository: Dice, IoU and recall
+# show only that the machinery runs).
+M3D_CASES = 4
+M3D_TOKENS = 64                # --max-new-tokens of each generated case
+M3D_TASK_CASES = {"rec": 2, "reg": 2, "seg": 3, "refseg": 2, "itr": 4}
+# a generated case: the ViT's 12 layers over its 8 chunks (K1) and the
+# 16-layer prefill (K2); the decode takes the bf16 cache in plain PyTorch,
+# as do the SegVol head and the '[SEG]' re-run under its explicit mask
+M3D_LAUNCHES = {"flash_fwd_noncausal": 12, "flash_fwd_causal": 16}
+ITR_LAUNCHES = {"flash_fwd_noncausal": 12}   # an ITR image; text: none
+# the joint step without remat: the ViT's and the decoder's forward once,
+# the backward of both through K4a-c
+M3D_TRAIN_STEPS = 3
+M3D_TRAIN_SEQ, M3D_TRAIN_VALID, M3D_TRAIN_PROMPT = 512, 420, 300
+M3D_TRAIN_LAUNCHES = {"flash_fwd_noncausal": 12, "flash_fwd_causal": 16,
+                      "flash_bwd_lse": 28, "flash_bwd_dq": 28,
+                      "flash_bwd_dkv": 28}
+# the '[SEG]' id of the seg tasks: greedy decoding's first token of case 0
+# (seeded weights never emit a given '[SEG]'), bound when case 0 has run
+SEG_FIRST = -1
+# The reduced '[SEG]' generate check: the card (bf16) against the CPU
+# (fp32) on the mask logits and on the prompt's part of them (the logits
+# less those of no prompt), each within LOGIT_TOL of the CPU's largest, as
+# the other reduced checks; the same limits must reject the '[SEG]' state
+# taken one row late and the pad gap left open in the re-run.
+SEG_CHECK_TOKENS = 8
+SEG_FAULTS = ("seg_state_one_row_late", "pad_gap_unmasked")
+
+
+def m3d_config():
+    from u2tokenizer_torch.config import SegConfig
+
+    return dataclasses.replace(released_config(), seg=SegConfig(enable=True))
+
+
+def seg_reduced_config():
+    """``m3d_config`` cut as ``reduced_config`` (2 ViT, 1 μ²tokenizer, 2
+    decoder layers, 4 chunks), the SegVol encoder to 2 layers, and the
+    head untied: a seeded 2-layer model with the tied head emits its
+    input token again and again (its hidden state stays near that token's
+    embedding), and the '[SEG]' state one row late is then nearly the
+    same state."""
+    cfg = reduced_config(num_chunks=4, base=m3d_config())
+    return dataclasses.replace(
+        cfg, seg=dataclasses.replace(cfg.seg, encoder_layers=2),
+        llm=dataclasses.replace(cfg.llm, tie_word_embeddings=False))
+
+
+def sphere(torch, shape, centre, radius: float, device="cuda"):
+    """A float mask of the ball around ``centre`` ([-1, 1] coordinates)."""
+    axes = [torch.linspace(-1, 1, n, device=device) for n in shape]
+    grid = torch.meshgrid(*axes, indexing="ij")
+    dist = sum((g - c) ** 2 for g, c in zip(grid, centre))
+    return (dist < radius ** 2).float()
+
+
+def write_m3d_data(torch, root: str) -> None:
+    """M3D_CASES seeded (8, 32, 256, 256) fp32 volumes in [0, 1], a
+    (1, 32, 256, 256) uint8 ball mask each, report texts, ``cap.json``,
+    the seg split ``0000/test.json`` and ``refseg.csv``, in the layout the
+    JAX package's tests use."""
+    import csv
+
+    import numpy as np
+
+    cfg = released_config()
+    shape = cfg.vision.input_spatial
+    g = torch.Generator(device="cuda").manual_seed(11)
+    os.makedirs(os.path.join(root, "0000"), exist_ok=True)
+    split, caps = [], []
+    for i in range(M3D_CASES):
+        vol = torch.rand(cfg.num_chunks, *shape, generator=g, device="cuda")
+        np.save(os.path.join(root, f"vol{i}.npy"), vol.cpu().numpy())
+        mask = sphere(torch, shape, (0.2 * i - 0.3, 0.1 * i, -0.1 * i), 0.4)
+        np.save(os.path.join(root, f"mask{i}.npy"),
+                mask[None].to(torch.uint8).cpu().numpy())
+        with open(os.path.join(root, f"txt{i}.txt"), "w") as f:
+            f.write(green_answer(i))
+        split.append({"image": f"vol{i}.npy", "label": f"mask{i}.npy",
+                      "cls_id": 0})
+        caps.append({"image": f"vol{i}.npy", "text": f"txt{i}.txt"})
+    with open(os.path.join(root, "0000", "test.json"), "w") as f:
+        json.dump(split, f)
+    with open(os.path.join(root, "cap.json"), "w") as f:
+        json.dump({"test": caps}, f)
+    with open(os.path.join(root, "refseg.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["Image", "Mask", "Question",
+                                          "Answer"])
+        w.writeheader()
+        for i in range(M3D_CASES):
+            w.writerow({"Image": f"vol{i}.npy", "Mask": f"mask{i}.npy",
+                        "Question": f"Segment the lesion of case {i} .",
+                        "Answer": "It is [SEG] ."})
+
+
+def m3d_tokenizer():
+    """The whitespace tokenizer; its '[SEG]' is SEG_FIRST, which
+    ``seg_bound_to`` binds. The M3D prompts hold a few hundred words, so
+    every id stays far below the vocabulary."""
+    from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
+
+    class SegTokenizer(MockTokenizer):
+        def convert_tokens_to_ids(self, tokens):
+            if tokens == "[SEG]":
+                return SEG_FIRST
+            return super().convert_tokens_to_ids(tokens)
+
+    return SegTokenizer()
+
+
+def seg_bound_to(make, pick):
+    """``make_seg_generate_fn`` whose '[SEG]' id, when SEG_FIRST, is bound
+    to ``pick(row 0's tokens)`` once its first case's tokens are generated,
+    before the re-run reads it."""
+    def build(model, gen, seg_token_id, *a, **kw):
+        fn = make(model, gen, seg_token_id, *a, **kw)
+        if seg_token_id == SEG_FIRST:
+            inner = fn.gen_fn
+
+            def bound(embeds, prompt_len, generator=None):
+                tokens = inner(embeds, prompt_len, generator)
+                if fn.seg_token_id == SEG_FIRST:
+                    fn.seg_token_id = pick(tokens[0].tolist())
+                return tokens
+
+            fn.gen_fn = bound
+        return fn
+
+    return build
+
+
+def first_token(tokens) -> int:
+    return tokens[0]
+
+
+def varied_token(tokens) -> int:
+    """The first token that no earlier one equals and the next differs
+    from (a seeded model repeats tokens, and the state one row past a
+    repeat is nearly the same)."""
+    pick = next((t for j, t in enumerate(tokens[:-1])
+                 if t not in tokens[:j] and tokens[j + 1] != t), None)
+    if pick is None:
+        raise AssertionError(f"no token to bind '[SEG]' to in {tokens}")
+    return pick
+
+
+def seg_record(args, out) -> dict:
+    """A ``SegGenerate`` call's prompt length, tokens and has_seg (B=1)."""
+    return {"prompt_len": int(args[3][0]), "tokens": out[0][0].tolist(),
+            "has_seg": bool(out[2][0])}
+
+
+@contextlib.contextmanager
+def itr_probe(torch, fa, da, m3d_bench):
+    """``make_u2_itr_encoders`` with every image encode timed and its
+    launches kept; yields the records."""
+    make, records = m3d_bench.make_u2_itr_encoders, []
+
+    def probed(model):
+        enc_img, enc_txt = make(model)
+
+        def run(images):
+            before = read_launches(fa, da)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = enc_img(images)
+            after = read_launches(fa, da)
+            records.append({"s": time.perf_counter() - t0,
+                            "launches": {k: n - before[k]
+                                         for k, n in after.items()}})
+            return out
+
+        return run, enc_txt
+
+    m3d_bench.make_u2_itr_encoders = probed
+    try:
+        yield records
+    finally:
+        m3d_bench.make_u2_itr_encoders = make
+
+
+def m3d_task(torch, fa, da, root: str, cfg_path: str, task: str) -> tuple:
+    """``cli eval-m3d --task task`` over M3D_TASK_CASES[task] cases, in
+    this process, every case timed with its launches (M3D_LAUNCHES; an ITR
+    image ITR_LAUNCHES). Returns (the line, the launches)."""
+    from u2tokenizer_torch.eval import m3d_bench
+    from u2tokenizer_torch.models import generate
+
+    n = M3D_TASK_CASES[task]
+    out = os.path.join(root, f"eval_m3d_{task}.json")
+    argv = ["eval-m3d", "--task", task, "--config", cfg_path, "--data-root",
+            root, "--seg-data-path", root, "--refseg-data-path",
+            os.path.join(root, "refseg.csv"), "--cap-data-path",
+            os.path.join(root, "cap.json"), "--max-new-tokens",
+            str(M3D_TOKENS), "--max-cases", str(n), "--output", out]
+    if task == "itr":
+        probe, want = itr_probe(torch, fa, da, m3d_bench), ITR_LAUNCHES
+    elif task in ("seg", "refseg"):
+        probe, want = step_probe(torch, fa, da, generate,
+                                 "make_seg_generate_fn",
+                                 record=seg_record), M3D_LAUNCHES
+    else:
+        probe, want = step_probe(torch, fa, da, generate,
+                                 "make_multimodal_generate_fn",
+                                 record=generate_record), M3D_LAUNCHES
+    reset_launches(fa, da)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with planted(generate, {"make_seg_generate_fn": seg_bound_to(
+            generate.make_seg_generate_fn, first_token)}), probe as cases:
+        result = cli_run(argv, tokenizer=m3d_tokenizer())
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    expect_launches(f"eval-m3d {task} case", cases, want)
+    if len(cases) != n or len(result.rows) != n:
+        raise AssertionError(f"eval-m3d {task}: {len(cases)} cases run, "
+                             f"{len(result.rows)} rows")
+    line = {"cases": n, "cli_total_s": total_s,
+            "s_per_case": statistics.median(c["s"] for c in cases),
+            "case_s": [c["s"] for c in cases],
+            "launches_per_case": cases[-1]["launches"],
+            "metrics": result.metrics,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if task in ("seg", "refseg"):
+        has = [c["has_seg"] for c in cases]
+        if not has[0] or [r["has_seg"] for r in result.rows] != has:
+            raise AssertionError(f"eval-m3d {task}: the '[SEG]' branch of "
+                                 f"case 0 not taken: {has}")
+        line["has_seg"] = has
+        line["dice"] = [r["dice"] for r in result.rows]
+    if task != "itr":
+        line["prompt_lens"] = [c["prompt_len"] for c in cases]
+    return line, launches
+
+
+def seg_generate_run(torch, model, inputs, seg_id: int, cache_dtype,
+                     no_prompt=True):
+    """((tokens, mask logits, has_seg, and with ``no_prompt`` the logits
+    of no prompt), the '[SEG]' id) of one '[SEG]' generate on ``model``'s
+    device; a ``seg_id`` of SEG_FIRST is bound to ``varied_token``."""
+    from u2tokenizer_torch.config import GenerationConfig
+    from u2tokenizer_torch.models import generate
+
+    dev = model.device
+    gen = GenerationConfig(max_new_tokens=SEG_CHECK_TOKENS, eos_token_id=-2)
+    fn = seg_bound_to(generate.make_seg_generate_fn, varied_token)(
+        model, gen, seg_id, cache_dtype=cache_dtype)
+    ids, images, qids, plen, seg_image = (x.to(dev) for x in inputs)
+    tokens, logits, has = fn(ids, images, qids, plen, seg_image)
+    none = None
+    if no_prompt:
+        with torch.inference_mode():
+            none = model.segment(seg_image, None).float().cpu()
+    return ((tokens.cpu(), logits.float().cpu(), has.cpu(), none),
+            fn.seg_token_id)
+
+
+def seg_readings(cpu_run, gpu_run) -> dict:
+    """The card's mask logits and their prompt part against the CPU's."""
+    _, ref, ref_has, ref_none = cpu_run
+    _, out, has, none = gpu_run
+    part_ref, part = ref - ref_none, out - none
+    return {"logits_rel_err": ((out - ref).abs().max()
+                               / ref.abs().max()).item(),
+            "prompt_part_rel_err": ((part - part_ref).abs().max()
+                                    / part_ref.abs().max()).item(),
+            "has_seg_equal": bool((has == ref_has).all())}
+
+
+def seg_rejected(r: dict) -> bool:
+    return not (r["logits_rel_err"] <= LOGIT_TOL
+                and r["prompt_part_rel_err"] <= LOGIT_TOL
+                and r["has_seg_equal"])
+
+
+def seg_generate_check(torch, cpu) -> dict:
+    """``make_seg_generate_fn`` of ``seg_reduced_config`` on the card (bf16
+    weights and cache, the kernels) against the CPU model ``cpu`` (fp32,
+    plain versions) on the same seeded weights: B=1, a 384-token prompt valid for 300 (a
+    pad gap of 84 rows), SEG_CHECK_TOKENS greedy tokens, '[SEG]' the CPU's
+    ``varied_token``. Tokens under the near-tie rule;
+    has_seg equal; the mask logits and their prompt part within
+    LOGIT_TOL; each of SEG_FAULTS rejected by the same limits."""
+    from u2tokenizer_torch.models import generate
+    from u2tokenizer_torch.models.quantize import cast_for_inference
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+
+    t0 = time.perf_counter()
+    cfg = cpu.cfg
+    gpu = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
+                                        device="cuda", seed=2))
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(3)
+    d, h, w = cfg.vision.input_spatial
+    inputs = (torch.randint(0, cfg.llm.vocab_size, (1, 384), generator=g),
+              torch.randn(1, cfg.num_chunks, d, h, w, generator=g),
+              torch.randint(0, cfg.llm.vocab_size, (1, 32), generator=g),
+              torch.tensor([300], dtype=torch.int32),
+              torch.randn(1, 1, *cfg.seg.image_size, generator=g))
+    with top_two(torch, cpu) as top:
+        cpu_run, seg_id = seg_generate_run(torch, cpu, inputs, SEG_FIRST,
+                                           torch.float32)
+    tokens = cpu_run[0][0].tolist()
+    gpu_run = seg_generate_run(torch, gpu, inputs, seg_id,
+                               torch.bfloat16)[0]
+    tie = tie_verdict(tokens, gpu_run[0][0].tolist(), top, -2)
+    sound = seg_readings(cpu_run, gpu_run)
+    if not (tie["holds"] and bool(cpu_run[2][0])) or seg_rejected(sound):
+        raise AssertionError(f"reduced '[SEG]' generate: card vs CPU "
+                             f"{sound}, tokens {tokens} / {gpu_run[0]}, "
+                             f"{tie}")
+    right_state = generate.seg_hidden_state
+    right_layout = generate.teacher_forced_layout
+
+    def late(hidden, tokens, s, seg_token_id):
+        shifted = torch.cat([hidden[:, 1:], hidden[:, -1:]], dim=1)
+        return right_state(shifted, tokens, s, seg_token_id)
+
+    def gap_open(prompt_len, s, t):
+        return right_layout(torch.full_like(prompt_len, s), s, t)
+
+    faults = {}
+    for label, (name, fn) in zip(SEG_FAULTS, (
+            ("seg_hidden_state", late), ("teacher_forced_layout", gap_open))):
+        with planted(generate, {name: fn}):
+            wrong = seg_generate_run(torch, gpu, inputs, seg_id,
+                                     torch.bfloat16, no_prompt=False)[0]
+        r = seg_readings(cpu_run, (*wrong[:3], gpu_run[3]))
+        if not seg_rejected(r):
+            raise AssertionError(f"the '[SEG]' check does not reject the "
+                                 f"planted fault {label}: {r}")
+        faults[label] = {"rejected": True, **r}
+    return {"model": "mu2Llama-3.2-1B + SegVol", "layers": {
+        "vit": cfg.vision.num_layers, "decoder": cfg.llm.num_layers,
+        "seg_encoder": cfg.seg.encoder_layers}, "seg_token": seg_id,
+        **sound, "tol": LOGIT_TOL, "tokens_cpu": tokens,
+        "tokens_gpu": gpu_run[0][0].tolist(), "near_tie": tie,
+        "planted_faults": faults, "check_s": time.perf_counter() - t0}
+
+
+def seg_batch(torch, cfg, seq: int, valid: int, prompt: int, seed: int):
+    """``training_batch`` (B=1) with a '[SEG]' token 4 rows before the end
+    of the valid span, its labels, a seeded volume for the head and a ball
+    for its target."""
+    from u2tokenizer_torch.train.sft import seg_positions_from_ids
+
+    batch = training_batch(torch, cfg, seq, [valid], prompt, seed)
+    seg_id = cfg.llm.vocab_size - 1
+    batch["input_ids"][0, valid - 4] = seg_id
+    batch["labels"][0, valid - 4] = seg_id
+    pos, has = seg_positions_from_ids(batch["input_ids"].numpy(), seg_id)
+    g = torch.Generator().manual_seed(seed + 1)
+    batch.update({
+        "seg_image": torch.randn(1, 1, *cfg.seg.image_size, generator=g),
+        "seg": sphere(torch, cfg.seg.image_size, (0.1, -0.2, 0.2), 0.5,
+                      device="cpu")[None, None],
+        "seg_positions": torch.from_numpy(pos),
+        "has_seg": torch.from_numpy(has)})
+    return batch
+
+
+def seg_left_out(name: str):
+    """``ablation_left_out``, and "seg_key_bias" for the SegVol
+    attentions' key biases, whose gradient is zero in exact arithmetic for
+    the reason ``left_out`` gives for the μ²tokenizer's."""
+    if name.startswith("seg_module.") and name.endswith("k_proj.bias"):
+        return "seg_key_bias"
+    return ablation_left_out(name)
+
+
+def seg_judged(name: str) -> bool:
+    return seg_left_out(name) is None
+
+
+SEG_LEFT_OUT = ABLATION_LEFT_OUT + ("seg_key_bias",)
+SEG_TRAIN_COS_MIN, SEG_TRAIN_NORM_TOL = 0.99, 8e-2
+
+
+def seg_misfits(readings):
+    """The judged parameters (``seg_judged``) whose gradient the joint
+    step's limits reject."""
+    return {name: r for name, r in readings.items()
+            if seg_judged(name)
+            and not (r["cos"] >= SEG_TRAIN_COS_MIN
+                     and abs(r["norm_ratio"] - 1) <= SEG_TRAIN_NORM_TOL)}
+
+
+def seg_train_reference(torch, fa, cpu) -> dict:
+    """One joint step (``make_seg_train_step``) of ``seg_reduced_config``
+    on the CPU model ``cpu`` (fp32, plain versions) and on the card (bf16
+    compute; the kernels, then the plain attention) from the same weights,
+    B=1, 384 tokens valid for 300, the '[SEG]' row gated in: the loss and
+    its two parts within TRAIN_LOSS_TOL, and every parameter's gradient
+    held to SEG_TRAIN_COS_MIN and SEG_TRAIN_NORM_TOL but SEG_LEFT_OUT's
+    (named, their medians reported); the same limits must reject each of
+    ``planted_faults``."""
+    from u2tokenizer_torch.config import TrainConfig
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.train import sft
+
+    t0 = time.perf_counter()
+    cfg = cpu.cfg
+    batch = seg_batch(torch, cfg, 384, 300, 280, seed=5)
+    gpu = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=2)
+    gpu.load_state_dict(cpu.state_dict())
+    weights = {k: v.clone() for k, v in gpu.state_dict().items()}
+
+    def step(model, device_batch):
+        state, _ = sft.make_trainer(model, TrainConfig(), 1)
+        _, metrics = sft.make_seg_train_step(model)(state, device_batch)
+        return ({k: float(metrics[k]) for k in ("loss", "lm_loss",
+                                                "seg_loss")},
+                model_grads(model))
+
+    loss_cpu, grads = step(cpu, batch)
+    ref = card_reference(grads)
+    del grads
+    card_batch = {k: v.to("cuda") for k, v in batch.items()}
+
+    def card_step(replacements):
+        gpu.load_state_dict(weights)
+        with planted(fa, replacements):
+            loss, grads = step(gpu, card_batch)
+        return loss, gradient_readings(torch, grads, ref)
+
+    loss_gpu, sound = card_step({})
+    plain = card_step(plain_attention(fa))[1]
+    caught = {}
+    for label, rep in planted_faults(torch, fa).items():
+        readings = card_step(rep)[1]
+        caught[label] = {**worst_leaves(readings, seg_judged),
+                         "leaves_rejected": len(seg_misfits(readings))}
+    rel = {k: abs(loss_gpu[k] - loss_cpu[k]) / abs(loss_cpu[k])
+           for k in loss_cpu}
+    seg_leaves = [n for n in sound if n.startswith("seg_")]
+    line = {"model": "mu2Llama-3.2-1B + SegVol, joint seg step",
+            "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel_err": rel,
+            "loss_tol": TRAIN_LOSS_TOL, "grad_cos_min": SEG_TRAIN_COS_MIN,
+            "grad_norm_tol": SEG_TRAIN_NORM_TOL,
+            "leaves_held": sum(map(seg_judged, sound)), "leaves": len(sound),
+            "seg_leaves_held": sum(map(seg_judged, seg_leaves)),
+            "seg_leaves": len(seg_leaves),
+            "held": worst_leaves(sound, seg_judged),
+            "held_seg": worst_leaves({n: sound[n] for n in seg_leaves},
+                                     seg_judged),
+            "left_out": left_out_medians(sound, seg_left_out, SEG_LEFT_OUT),
+            "plain_attention": worst_leaves(plain, seg_judged),
+            "plain_attention_rejected": len(seg_misfits(plain)),
+            "planted_faults": caught, "check_s": time.perf_counter() - t0}
+    bad = seg_misfits(sound)
+    missed = [f for f, r in caught.items() if not r["leaves_rejected"]]
+    if not max(rel.values()) <= TRAIN_LOSS_TOL or bad or missed:
+        raise AssertionError(f"reduced joint seg step: loss or gradients "
+                             f"off the CPU's ({bad}), or planted faults not "
+                             f"rejected ({missed}): {line}")
+    return line
+
+
+def m3d_train_leg(torch, fa, da) -> tuple:
+    """M3D_TRAIN_STEPS joint steps of full-width μ²Llama-3.2-1B with the
+    SegVol head (fp32 parameters, bf16 compute, AdamW through
+    ``sft.make_trainer``'s optimizer, no remat), B=1, one row of
+    M3D_TRAIN_SEQ tokens with a '[SEG]' and a ball target, timed by
+    ``step_probe``. Returns (the line, the launches)."""
+    from u2tokenizer_torch.config import TrainConfig
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+    from u2tokenizer_torch.train import sft
+
+    cfg = m3d_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = U2CausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch = {k: v.to("cuda") for k, v in seg_batch(
+        torch, cfg, M3D_TRAIN_SEQ, M3D_TRAIN_VALID, M3D_TRAIN_PROMPT,
+        seed=4).items()}
+    state, _ = sft.make_trainer(model, TrainConfig(), M3D_TRAIN_STEPS)
+    reset_launches(fa, da)
+    with step_probe(torch, fa, da, sft, "make_seg_train_step") as recs:
+        step = sft.make_seg_train_step(model)
+        for _ in range(M3D_TRAIN_STEPS):
+            state, _ = step(state, batch)
+    launches = read_launches(fa, da)
+    expect_launches("joint seg step", recs, M3D_TRAIN_LAUNCHES)
+    readings = step_readings(recs)
+    params = sum(p.numel() for p in model.parameters())
+    seg = sum(p.numel() for n, p in model.named_parameters()
+              if n.startswith("seg_"))
+    line = {"steps": M3D_TRAIN_STEPS, "batch": 1, "seq": M3D_TRAIN_SEQ,
+            "valid": M3D_TRAIN_VALID, "build_s": build_s,
+            "params": params, "seg_params": seg, **readings,
+            "lm_loss": [r["metrics"]["lm_loss"] for r in recs],
+            "seg_loss": [r["metrics"]["seg_loss"] for r in recs],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not all(math.isfinite(x) for x in line["loss"] + line["grad_norm"]):
+        raise AssertionError(f"joint seg steps not finite: {line}")
+    del model, state, step, batch
+    return line, launches
+
+
+def drive_m3d(torch, F, fa, da, tmp: str, card: str) -> tuple:
+    """The M3D phase: a synthetic M3D root (``write_m3d_data``), ``cli
+    eval-m3d`` for each task of M3D_TASK_CASES at ``m3d_config`` (seeded
+    weights, no checkpoint), the reduced '[SEG]' generate check, the joint
+    seg steps and their reduced check, and K2 and K4a-c at this phase's
+    512-row calls (untimed). One printed line each; returns (the launches
+    by path, the kernel checks, the phase's seconds by leg)."""
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+
+    root = os.path.join(tmp, "m3d")
+    legs, counts, line = {}, {}, {}
+    t0 = time.perf_counter()
+    write_m3d_data(torch, root)
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        f.write(m3d_config().to_json())
+    legs["write_data"] = time.perf_counter() - t0
+    for task in M3D_TASK_CASES:
+        t0 = time.perf_counter()
+        line[task], counts[f"m3d_{task}"] = m3d_task(torch, fa, da, root,
+                                                     cfg_path, task)
+        legs[task] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the reduced checks' fp32 model, drawn on the card and moved: the
+    # CPU's generator draws several times slower
+    cpu = U2CausalLM(seg_reduced_config(), dtype=torch.float32,
+                     device="cuda", seed=1).to("cpu")
+    line["seg_generate_check"] = seg_generate_check(torch, cpu)
+    legs["seg_generate_check"] = time.perf_counter() - t0
+    line["note"] = ("seeded weights, synthetic volumes: Dice, IoU and "
+                    "recall show only that the machinery runs")
+    line["card"] = card
+    print(json.dumps({"m3d": line}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train, counts["m3d_seg_train"] = m3d_train_leg(torch, fa, da)
+    legs["seg_train"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train["reference_check"] = seg_train_reference(torch, fa, cpu)
+    del cpu
+    legs["seg_train_reference"] = time.perf_counter() - t0
+    train["card"] = card
+    print(json.dumps({"m3d_seg_train": train}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plens = line["seg"]["prompt_lens"]
+    checks = [check_flash(torch, F, fa, dict(LLAMA_PREFILL_CALL, s=512,
+                                             lens=plens[:1]),
+                          40, timed=False),
+              *check_flash_bwd(torch, F, fa, dict(
+                  LLAMA_PREFILL_CALL, s=M3D_TRAIN_SEQ,
+                  lens=[M3D_TRAIN_VALID]), 41, timed=False)]
+    for k in checks:
+        print(json.dumps({"kernel_check": k}), flush=True)
+    return counts, checks, legs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--max-new", type=int, default=B4_MAX_NEW)
@@ -6404,6 +6997,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        m3d_counts, m3d_calls, m3d_legs = drive_m3d(torch, F, fa, da, tmp,
+                                                    card)
+        m3d_s = time.perf_counter() - t0
+        counts.update(m3d_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         q8_counts, q8_calls, q8_legs = drive_qwen3_8b(
             torch, F, fa, da, volume, tmp, tok, card)
         q8_s = time.perf_counter() - t0
@@ -6444,8 +7044,8 @@ def main() -> int:
     print(json.dumps({"train_reference_check": check_train_reference(
         torch, fa)}), flush=True)
 
-    # the stage-2 phase's own calls of K2 and K4a-c, checked untimed
-    for new in green_calls:
+    # the stage-2 and M3D phases' own calls of K2 and K4a-c, checked untimed
+    for new in green_calls + m3d_calls:
         entry = next(k for k in kernels if k["name"] == new["name"])
         entry["max_abs_err"] = max(entry["max_abs_err"], new["max_abs_err"])
     # the QLoRA steps' other valid lengths, checked untimed
@@ -6483,6 +7083,7 @@ def main() -> int:
                       "phi_phase_s": phi_s,
                       "qlora_phase_s": qlora_s,
                       "ablation_phase_s": ablation_s,
+                      "m3d_phase_s": m3d_s, "m3d_legs_s": m3d_legs,
                       "qwen3_8b_phase_s": q8_s,
                       "qwen3_8b_legs_s": q8_legs}), flush=True)
     print(card, flush=True)

@@ -20,9 +20,10 @@ import pytest
 import torch
 from flax import linen as nn
 
-from u2tokenizer_torch.config import LLMConfig, VisionConfig
+from u2tokenizer_torch.config import LLMConfig, SegConfig, VisionConfig
 from u2tokenizer_torch.models import generate as t_generate
 from u2tokenizer_torch.models.llm.decoder import CausalLM
+from u2tokenizer_torch.models import seg as t_seg
 from u2tokenizer_torch.models.layers import Dense
 from u2tokenizer_torch.models.u2tok.svr import DynamicMultiScalePooling
 from u2tokenizer_torch.models.vit3d import PatchEmbed3D, _ConvProj
@@ -63,10 +64,17 @@ def _dmtp_gate():
             2 * 2.0 ** -10 / 0.87962566103423978)
 
 
+def _conv_transpose():
+    # the seg head's (2, 2, 2, in, out) kernel: flax's fan-in is 8 * in = 256
+    m = t_seg.ConvTranspose3d(32, 4096)
+    return (m, m.kernel, (2, 2, 2, 32, 4096), nn.initializers.lecun_normal(),
+            LECUN_BOUND)
+
+
 @pytest.mark.parametrize("make", [_dense, _conv_proj, _position_embeddings,
-                                  _dmtp_gate],
+                                  _dmtp_gate, _conv_transpose],
                          ids=["Dense", "_ConvProj", "position_embeddings",
-                              "DMTP gate_kernel"])
+                              "DMTP gate_kernel", "seg ConvTranspose3d"])
 def test_init_matches_flax(make):
     module, param, jax_shape, init, bound = make()
     with torch.no_grad():
@@ -83,15 +91,50 @@ def test_init_matches_flax(make):
     assert abs(ours.mean()) <= 0.01 * theirs.std()
 
 
+# The seg head's plain normals (flax's initializers.normal: untruncated):
+# (module, parameter name, std). The encoder's position embedding without
+# blocks holds 1.6 M values; the others are held at their own sizes.
+SEG_NORMALS = [
+    (lambda: t_seg.SegImageEncoder3D(SegConfig(encoder_layers=0)),
+     "pos_embed", 0.02),
+    (lambda: t_seg.PromptEncoder3D(SegConfig()), "pe_gaussian", 1.0),
+    (lambda: t_seg.PromptEncoder3D(SegConfig()), "no_mask_embed", 0.02),
+    (lambda: t_seg.MaskDecoder3D(SegConfig(decoder_layers=0)), "iou_token",
+     0.02),
+    (lambda: t_seg.MaskDecoder3D(SegConfig(decoder_layers=0)), "mask_token",
+     0.02),
+]
+
+
+@pytest.mark.parametrize("make,name,std", SEG_NORMALS,
+                         ids=[n for _, n, _ in SEG_NORMALS])
+def test_seg_normal_inits_match_flax(make, name, std):
+    module = make()
+    with torch.no_grad():
+        module.reset_parameters(torch.Generator().manual_seed(0))
+    ours = getattr(module, name).detach().double().numpy().ravel()
+    theirs = np.asarray(nn.initializers.normal(std)(
+        jax.random.PRNGKey(0), (ours.size,), jnp.float32), np.float64)
+    spread = 5 / np.sqrt(ours.size)  # five standard errors of a std
+    for x in (ours, theirs):
+        assert abs(x.std() / std - 1) <= spread
+        assert abs(x.mean()) <= spread * std
+    if ours.size >= 10 ** 6:  # untruncated: past two stds, as flax's
+        assert np.abs(ours).max() > 4 * std
+        assert np.abs(theirs).max() > 4 * std
+
+
 def test_generate_default_cache_is_bf16():
     """The port's generate entry points default to a bf16 KV cache, as the
     JAX package's default to jnp.bfloat16."""
-    for name in ("make_generate_fn", "make_multimodal_generate_fn"):
+    for name in ("make_generate_fn", "make_multimodal_generate_fn",
+                 "make_seg_generate_fn"):
         j = inspect.signature(getattr(j_generate, name)).parameters
         assert j["cache_dtype"].default == jnp.bfloat16
     for obj in (t_generate.Generate, t_generate.make_generate_fn,
                 t_generate.MultimodalGenerate,
-                t_generate.make_multimodal_generate_fn):
+                t_generate.make_multimodal_generate_fn,
+                t_generate.SegGenerate, t_generate.make_seg_generate_fn):
         default = inspect.signature(obj).parameters["cache_dtype"].default
         assert default is torch.bfloat16, (obj, default)
 

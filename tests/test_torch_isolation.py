@@ -88,7 +88,12 @@ def test_port_imports_without_jax():
             "u2tokenizer_torch.models.u2tok.attention, "
             "u2tokenizer_torch.train.lora, u2tokenizer_torch.train.sft, "
             "u2tokenizer_torch.train.checkpoint, "
-            "u2tokenizer_torch.utils.msgpack; "
+            "u2tokenizer_torch.utils.msgpack, u2tokenizer_torch.models.seg, "
+            "u2tokenizer_torch.utils.box, "
+            "u2tokenizer_torch.data.prompt_templates, "
+            "u2tokenizer_torch.data.dataset_info, "
+            "u2tokenizer_torch.data.m3d_datasets, "
+            "u2tokenizer_torch.eval.m3d_bench; "
             "sys.exit(any(m.split('.')[0] in %r for m in sys.modules))"
             % (FORBIDDEN + OTHERS,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -99,7 +104,8 @@ def test_port_imports_without_jax():
     ("U2ModelConfig", "default"), ("U2ModelConfig", "tiny"),
     ("LLMConfig", "tiny"), ("LLMConfig", "qwen3_8b"),
     ("LLMConfig", "llama_3_2_1b"), ("GenerationConfig", "default"),
-    ("TrainConfig", "default"), ("DPOConfig", "default")])
+    ("TrainConfig", "default"), ("DPOConfig", "default"),
+    ("SegConfig", "default"), ("SegConfig", "tiny")])
 def test_config_copies_match(name, variant):
     jcls, tcls = getattr(j_config, name), getattr(t_config, name)
     jcfg = jcls() if variant == "default" else getattr(jcls, variant)()

@@ -10,6 +10,8 @@
   python -m u2tokenizer_torch.cli dpo         stage-2 DPO on those pairs
   python -m u2tokenizer_torch.cli eval        MRG / VQA evaluation of a
                                               model over a jsonl of cases
+  python -m u2tokenizer_torch.cli eval-m3d    M3D-Bench: rec, reg, seg,
+                                              refseg, itr
   python -m u2tokenizer_torch.cli eval-predictions
                                               the metric battery over any
                                               model's predictions jsonl
@@ -582,6 +584,77 @@ def cmd_eval(args, tokenizer=None, judge_tokenizer=None):
     return result
 
 
+def cmd_eval_m3d(args, tokenizer=None):
+    """M3D-Bench tasks (eval/M3D-Bench/eval/eval_pos.py,
+    eval_seg.py, eval_itr.py): rec (box IoU, acc@0.5), reg (box -> term
+    NLG), seg and refseg (Dice through the '[SEG]' path; the config must
+    enable the seg head), itr (retrieval recall@k). Greedy, one case at a
+    time, over a bf16 cache. Without ``--checkpoint`` every parameter,
+    the seg head's included, is drawn from seed 0. Returns the
+    ``EvalResult``."""
+    from .config import GenerationConfig
+    from .data.m3d_datasets import (M3DITRDataset, M3DPosRECDataset,
+                                    M3DPosREGDataset, M3DRefSegDataset,
+                                    M3DSegDataset)
+    from .eval.evaluators import ReportGenerator
+    from .eval.m3d_bench import (evaluate_itr, evaluate_rec, evaluate_reg,
+                                 evaluate_seg, make_u2_itr_encoders)
+    from .models.generate import (make_multimodal_generate_fn,
+                                  make_seg_generate_fn)
+    from .models.u2_model import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = _config_for(args, args.checkpoint)
+    if args.task in ("seg", "refseg") and not cfg.seg.enable:
+        raise ValueError(f"--task {args.task} needs the segmentation head: "
+                         "give a --config whose seg.enable is true")
+    tokenizer = tokenizer or _load_tokenizer(args.tokenizer)
+    dkw = dict(tokenizer=tokenizer, max_length=args.max_length,
+               proj_out_num=cfg.proj_out_num, mode="test")
+    if args.task == "rec":
+        ds = M3DPosRECDataset(args.data_root, args.seg_data_path,
+                              tag=args.tag, **dkw)
+    elif args.task == "reg":
+        ds = M3DPosREGDataset(args.data_root, args.seg_data_path,
+                              tag=args.tag, **dkw)
+    elif args.task == "seg":
+        ds = M3DSegDataset(args.data_root, args.seg_data_path,
+                           tag=args.tag, **dkw)
+    elif args.task == "refseg":
+        ds = M3DRefSegDataset(args.data_root, args.refseg_data_path, **dkw)
+    else:
+        ds = M3DITRDataset(args.data_root, args.cap_data_path, **dkw)
+
+    gen = GenerationConfig(max_new_tokens=args.max_new_tokens,
+                           do_sample=False,
+                           eos_token_id=tokenizer.eos_token_id,
+                           pad_token_id=tokenizer.pad_token_id or 0)
+    model = _init_or_load(args, cfg, dev)
+    if args.task in ("rec", "reg"):
+        generator = ReportGenerator(model, tokenizer,
+                                    make_multimodal_generate_fn(model, gen),
+                                    pad_id=gen.pad_token_id,
+                                    eos_id=tokenizer.eos_token_id)
+        fn = evaluate_rec if args.task == "rec" else evaluate_reg
+        result = fn(ds, generator, max_cases=args.max_cases)
+    elif args.task in ("seg", "refseg"):
+        seg_fn = make_seg_generate_fn(
+            model, gen, tokenizer.convert_tokens_to_ids("[SEG]"))
+        result = evaluate_seg(ds, seg_fn, tokenizer,
+                              max_cases=args.max_cases,
+                              pad_id=gen.pad_token_id,
+                              eos_id=tokenizer.eos_token_id,
+                              seg_image_size=cfg.seg.image_size, device=dev)
+    else:
+        enc_img, enc_txt = make_u2_itr_encoders(model)
+        result = evaluate_itr(ds, enc_img, enc_txt, max_cases=args.max_cases)
+    with open(args.output, "w") as f:
+        f.write(result.to_json())
+    print(json.dumps(result.metrics))
+    print(f"wrote {args.output}", file=sys.stderr)
+    return result
+
+
 def cmd_eval_predictions(args, tokenizer=None):
     """Score an external predictions jsonl (any model's outputs) with the
     full metric battery: the generic replacement for the reference's
@@ -1015,6 +1088,25 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--max-cases", type=int, default=100)
     _add_device(ev)
     ev.set_defaults(fn=cmd_eval)
+
+    em = sub.add_parser("eval-m3d")
+    _add_common(em)
+    em.add_argument("--task", choices=["rec", "reg", "seg", "refseg", "itr"],
+                    required=True)
+    em.add_argument("--tokenizer", default=None)
+    em.add_argument("--data-root", dest="data_root", required=True)
+    em.add_argument("--seg-data-path", dest="seg_data_path", default=None)
+    em.add_argument("--refseg-data-path", dest="refseg_data_path",
+                    default=None)
+    em.add_argument("--cap-data-path", dest="cap_data_path", default=None)
+    em.add_argument("--tag", default="0000")
+    em.add_argument("--checkpoint", default=None)
+    em.add_argument("--output", required=True)
+    em.add_argument("--max-length", type=int, default=512)
+    em.add_argument("--max-new-tokens", type=int, default=256)
+    em.add_argument("--max-cases", type=int, default=10**9)
+    _add_device(em)
+    em.set_defaults(fn=cmd_eval_m3d)
 
     qr = sub.add_parser("quant-report",
                         help="int8/int4 serving-quality gate: per-layer "

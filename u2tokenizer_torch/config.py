@@ -211,8 +211,10 @@ class LLMConfig:
 
 @dataclass(frozen=True)
 class SegConfig:
-    """Segmentation head geometry; carried so that configs round-trip
-    between the two packages. The port has no segmentation head yet."""
+    """Promptable 3D segmentation head (``models/seg.py``): the reference
+    SegVol geometry, a 12 x 768 encoder over the whole (32, 256, 256)
+    volume in (4, 16, 16) patches and a two-way decoder of depth 2 with 8
+    heads."""
 
     enable: bool = False
     image_size: Tuple[int, int, int] = (32, 256, 256)
@@ -223,6 +225,16 @@ class SegConfig:
     prompt_dim: int = 768
     decoder_layers: int = 2
     decoder_heads: int = 8
+
+    @property
+    def feat_shape(self) -> Tuple[int, int, int]:
+        return tuple(i // p for i, p in zip(self.image_size, self.patch_size))
+
+    @classmethod
+    def tiny(cls) -> "SegConfig":
+        return cls(enable=True, image_size=(16, 32, 32), patch_size=(4, 8, 8),
+                   encoder_dim=32, encoder_layers=1, encoder_heads=2,
+                   prompt_dim=32, decoder_layers=1, decoder_heads=2)
 
 
 @dataclass(frozen=True)

@@ -17,8 +17,10 @@ phases for rows that share a prompt prefix (``shared_prefix``: the prefix
 once a group through K2, then each row's continuation as one per-row
 block). ``make_fanout_generate_fn`` prefills once a case and decodes n
 sample rows against the case's shared prompt cache
-(``ops.attention.gqa_sdpa_fanout``). Speculative decoding is in
-``models.speculative``.
+(``ops.attention.gqa_sdpa_fanout``). ``make_seg_generate_fn`` adds the
+segmentation path: the hidden state of the first generated '[SEG]' token,
+from one teacher-forced re-run, prompts the SegVol head. Speculative
+decoding is in ``models.speculative``.
 
 The model may hold float or weight-only quantized decoder weights
 (``models.quantize.quantize_llm_weights``); the cache is float (bf16 by
@@ -411,3 +413,75 @@ def make_fanout_multimodal_generate_fn(model: U2CausalLM,
         return gen_fn(embeds, prompt_len, generator)
 
     return generate
+
+
+def teacher_forced_layout(prompt_len: torch.Tensor, s: int, t: int):
+    """The decode loop's layout over [prompt (S rows) ; t generated]: (mask
+    (B, 1, S+t, S+t), positions (B, S+t)). Generated token i sits at row
+    S+i with RoPE position prompt_len+i, and the pad gap [prompt_len, S) is
+    masked out of the keys."""
+    dev = prompt_len.device
+    idx = torch.arange(s + t, device=dev)
+    valid_key = (idx[None, :] < prompt_len[:, None]) | (idx[None, :] >= s)
+    causal = torch.ones(s + t, s + t, dtype=torch.bool, device=dev).tril()
+    mask = causal[None, None] & valid_key[:, None, None, :]
+    positions = torch.where(idx[None, :] < s, idx[None, :],
+                            prompt_len[:, None] + (idx[None, :] - s))
+    return mask, positions.to(torch.int32)
+
+
+def seg_hidden_state(hidden: torch.Tensor, tokens: torch.Tensor, s: int,
+                     seg_token_id: int):
+    """(B, S+t, E) re-run hidden states -> ((B, E) the state at each row's
+    first generated '[SEG]', zero where a row has none; (B,) has_seg)."""
+    is_seg = tokens == seg_token_id
+    has_seg = is_seg.any(dim=1)
+    first = is_seg.int().argmax(dim=1)  # 0 if none; gated by has_seg
+    state = _at(hidden, s + first)[:, 0]
+    return torch.where(has_seg[:, None], state, torch.zeros_like(state)), \
+        has_seg
+
+
+class SegGenerate:
+    """generate(input_ids, images, question_ids, prompt_len, seg_image (B,
+    1, D, H, W), generator=None) -> (tokens (B, max_new), seg_logits (B,
+    1, D, H, W), has_seg (B,)), ``generate(..., seg_enable=True)``
+    (src/demo/demo.py:64): the multimodal generate, then one
+    teacher-forced forward over [prompt ; generated] in the decode loop's
+    layout (``teacher_forced_layout``; plain attention under its explicit
+    mask, as in the JAX package) for the hidden state at the first
+    generated '[SEG]' (``seg_hidden_state``), then the seg projector and
+    SegVol. A row with no '[SEG]' gets logits from a zeroed prompt, to be
+    ignored."""
+
+    def __init__(self, model: U2CausalLM, gen: GenerationConfig,
+                 seg_token_id: int, cache_dtype=torch.bfloat16):
+        self.model = model
+        self.seg_token_id = seg_token_id
+        self.gen_fn = make_generate_fn(model, gen, cache_dtype)
+
+    @torch.inference_mode()
+    def __call__(self, input_ids, images, question_ids, prompt_len,
+                 seg_image, generator=None):
+        model = self.model
+        embeds = model.prepare_inputs_embeds(input_ids, images, question_ids)
+        prompt_len = prompt_len.to(device=embeds.device, dtype=torch.int32)
+        tokens = self.gen_fn(embeds, prompt_len, generator)
+        s, t = embeds.shape[1], tokens.shape[1]
+        tok_embeds = model.embed_tokens(tokens)
+        full = torch.cat([embeds.to(tok_embeds.dtype), tok_embeds], dim=1)
+        mask, positions = teacher_forced_layout(prompt_len, s, t)
+        _, hidden, _ = model.forward_embeds(full, mask=mask,
+                                            positions=positions,
+                                            compute_logits=False)
+        seg_hidden, has_seg = seg_hidden_state(hidden, tokens, s,
+                                               self.seg_token_id)
+        return tokens, model.segment(seg_image, seg_hidden), has_seg
+
+
+def make_seg_generate_fn(model: U2CausalLM, gen: GenerationConfig,
+                         seg_token_id: int, cache_dtype=torch.bfloat16
+                         ) -> SegGenerate:
+    """The '[SEG]' generate (``SegGenerate``); the cache is bf16 by
+    default, as in the JAX package."""
+    return SegGenerate(model, gen, seg_token_id, cache_dtype)

@@ -93,8 +93,14 @@ def init_weights(model: nn.Module, seed: int) -> None:
 def cast_for_inference(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     """Cast float parameters with ndim >= 2 to ``dtype`` and keep 1-D ones
     (norm weights, biases) in fp32, as the JAX package's
-    ``quantize.cast_for_inference`` does."""
-    for param in model.parameters():
-        if param.is_floating_point() and param.ndim >= 2:
-            param.data = param.data.to(dtype)
+    ``quantize.cast_for_inference`` does. A module's ``keep_fp32`` names
+    parameters that stay fp32 because it reads them in fp32 (the seg
+    head's Fourier matrix), so that casting ahead of time changes no
+    value."""
+    for module in model.modules():
+        keep = getattr(module, "keep_fp32", ())
+        for name, param in module.named_parameters(recurse=False):
+            if (param.is_floating_point() and param.ndim >= 2
+                    and name not in keep):
+                param.data = param.data.to(dtype)
     return model

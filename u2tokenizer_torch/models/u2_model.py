@@ -5,10 +5,14 @@
 (with the question tokens' embeddings as text condition), or with
 ``cfg.u2t.enable`` off the chunks' tokens concatenated (the LinVT-style
 baseline) -> image tokens spliced over prompt rows [1, 1 + n_img) ->
-decoder.
+decoder. With ``cfg.seg.enable`` the model also holds the SegVol head
+(``models/seg.py``) and its projector, read from the '[SEG]' token's
+hidden state (``forward_seg``, ``segment``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -17,6 +21,7 @@ from ..config import U2ModelConfig
 from .layers import init_weights
 from .llm.decoder import CausalLM
 from .projector import build_projector
+from .seg import SegProjector, SegVol3D
 from .u2tok.u2tokenizer import U2Tokenizer
 from .vit3d import ViT3DTower
 
@@ -77,6 +82,12 @@ class U2CausalLM(nn.Module):
             self.u2tokenizer = U2Tokenizer(cfg.llm.hidden_size, cfg.u2t,
                                            dtype, device)
         self.llm = CausalLM(cfg.llm, dtype, device, remat)
+        if cfg.seg.enable:
+            # registered after the decoder, so that enabling the head
+            # leaves every other parameter's seeded draw as it was
+            self.seg_module = SegVol3D(cfg.seg, dtype, device)
+            self.seg_projector = SegProjector(
+                cfg.llm.hidden_size, cfg.seg.prompt_dim, dtype, device)
         init_weights(self, seed)
 
     @property
@@ -194,3 +205,28 @@ class U2CausalLM(nn.Module):
 
     def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return self.llm.lm_logits(hidden)
+
+    # --- segmentation ---
+
+    def forward_seg(self, input_ids, images, question_ids, seg_image,
+                    seg_positions, attention_mask=None):
+        """LM forward and mask logits from the hidden state at
+        ``seg_positions`` (B,), each row's '[SEG]' index: the joint
+        training forward (LM cross-entropy + BCE/Dice). Returns (logits,
+        masks (B, 1, D, H, W))."""
+        logits, hidden, _ = self(input_ids, images, question_ids,
+                                 attention_mask)
+        seg_hidden = hidden.gather(1, seg_positions.long()[:, None, None]
+                                   .expand(-1, 1, hidden.shape[-1]))[:, 0]
+        return logits, self.segment(seg_image, seg_hidden)
+
+    def segment(self, seg_image: torch.Tensor,
+                seg_hidden: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, 1, D, H, W) volume + (B, llm_hidden) '[SEG]' hidden state,
+        or None for no prompt -> (B, 1, D, H, W) mask logits
+        (``generate(..., seg_enable=True)``, src/demo/demo.py:64)."""
+        if not self.cfg.seg.enable:
+            raise ValueError("this model has no segmentation head: build "
+                             "it with cfg.seg.enable")
+        prompt = None if seg_hidden is None else self.seg_projector(seg_hidden)
+        return self.seg_module(seg_image, prompt)

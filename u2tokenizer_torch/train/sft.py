@@ -17,8 +17,12 @@ The JAX package's semantics, kept exactly:
 
 Training runs on fp32 parameters with the model's bf16 compute
 (``U2CausalLM(cfg, dtype=torch.bfloat16)``, no ``cast_for_inference``).
-Not ported yet: meshes (``make_sharded_trainer``; ``make_trainer`` is the
-single-card counterpart), the segmentation loss.
+Joint report and segmentation training (the reference's seg_enable
+collator): ``make_seg_loss_fn`` adds each row's BCE + Dice of the SegVol
+head's mask logits, gated by ``has_seg``, to the LM loss;
+``make_seg_train_step`` takes AdamW steps on it. Not ported yet: meshes
+(``make_sharded_trainer``; ``make_trainer`` is the single-card
+counterpart).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -221,13 +226,15 @@ def set_trainable(model: nn.Module,
 
 
 def make_train_step(model: nn.Module, trainable_filter=None,
-                    ce_chunk: int = 0):
+                    ce_chunk: int = 0, loss_fn=None):
     """train_step(state, batch) -> (state, metrics): loss, token_accuracy
     and grad_norm. ``trainable_filter`` freezes the parameters whose flax
-    path it rejects (reference freeze_vision_tower / freeze_backbone)."""
+    path it rejects (reference freeze_vision_tower / freeze_backbone);
+    ``loss_fn`` (model, batch) -> (loss, metrics) replaces
+    ``make_loss_fn(ce_chunk)``'s."""
     if trainable_filter is not None:
         set_trainable(model, trainable_filter)
-    loss_fn = make_loss_fn(ce_chunk)
+    loss_fn = loss_fn or make_loss_fn(ce_chunk)
 
     def train_step(state: TrainState, batch):
         params = state.optimizer.params
@@ -254,3 +261,51 @@ def make_trainer(model: nn.Module, cfg: TrainConfig, total_steps: int,
     optimizer = make_optimizer(cfg, model.parameters(), total_steps)
     state = TrainState(step=0, model=model, optimizer=optimizer)
     return state, make_train_step(model, trainable_filter, cfg.ce_chunk)
+
+
+def make_seg_loss_fn(seg_weight: float = 1.0):
+    """loss_fn(model, batch) -> (loss, {"loss", "lm_loss", "seg_loss",
+    "token_accuracy"}): the LM loss plus ``seg_weight`` times the mean over
+    rows with ``has_seg`` of each row's BCE + soft Dice (fp32). The batch
+    holds the SFT keys and seg_image (B, 1, D, H, W), seg (the target
+    mask, same shape), seg_positions (B,) and has_seg (B,) {0, 1}."""
+
+    def loss_fn(model, batch: Dict[str, torch.Tensor]):
+        logits, masks = model.forward_seg(
+            batch["input_ids"], batch.get("images"),
+            batch.get("question_ids"), batch["seg_image"],
+            batch["seg_positions"], batch.get("attention_mask"))
+        lm_loss, acc = cross_entropy_loss(logits, batch["labels"])
+        b = masks.shape[0]
+        z = masks.reshape(b, -1).float()
+        t = batch["seg"].reshape(b, -1).float()
+        bce_row = (z.clamp_min(0) - z * t
+                   + torch.log1p(torch.exp(-z.abs()))).mean(-1)
+        p = torch.sigmoid(z)
+        dice_row = 1.0 - (2.0 * (p * t).sum(-1) + 1.0) / (
+            (p * p).sum(-1) + (t * t).sum(-1) + 1.0)
+        gate = batch["has_seg"].float()
+        seg = ((bce_row + dice_row) * gate).sum() / gate.sum().clamp_min(1.0)
+        loss = lm_loss + seg_weight * seg
+        return loss, {"loss": loss.detach(), "lm_loss": lm_loss.detach(),
+                      "seg_loss": seg.detach(), "token_accuracy": acc}
+
+    return loss_fn
+
+
+def make_seg_train_step(model: nn.Module, trainable_filter=None,
+                        seg_weight: float = 1.0):
+    """train_step(state, batch) -> (state, metrics) for joint report and
+    segmentation training: ``make_train_step``'s AdamW update and
+    grad_norm on ``make_seg_loss_fn``'s loss."""
+    return make_train_step(model, trainable_filter,
+                           loss_fn=make_seg_loss_fn(seg_weight))
+
+
+def seg_positions_from_ids(input_ids, seg_token_id: int):
+    """(B, S) ids -> ((B,) int32 first '[SEG]' index, (B,) float32 has_seg
+    {0, 1}), numpy arrays."""
+    ids = np.asarray(input_ids)
+    is_seg = ids == seg_token_id
+    return (np.argmax(is_seg, axis=1).astype(np.int32),
+            is_seg.any(axis=1).astype(np.float32))
