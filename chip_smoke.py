@@ -17,7 +17,7 @@ Run from the root of a checkout. It
      same function, that call (CUDA events, median of 7), with the
      kernel's own device time beside (torch.profiler, ``device_ms``) and a
      bound that counts FLOPs, bytes and exponentials (``bound_ms``); K3 at
-     steps 0, 127 and 255 of both serving paths, with a 3-token prompt in
+     steps 0, 63 and 127 of both serving paths, with a 3-token prompt in
      the batch and at B=1, each also called twice for the same bits, with
      a ``decode_calls`` line of its split counts and times; the flash
      forward K1/K2 and backward K4a-c at every call the paths make (K1
@@ -38,9 +38,13 @@ Run from the root of a checkout. It
      ``phi_calls`` line and both K4 calls on the ``flash_bwd_calls`` line;
      the μ²Qwen3-8B forms (``qwen8b_kernel_checks``, D=128 at a GQA
      group of 4): K2 at its B=16 prefill, K3-int4 at its B=16 decode
-     (1024 + 128 slots, timed at step 63, checked at 0 and 127) and K4a-c
+     (1024 + 64 slots, timed at step 31, checked at 0 and 63) and K4a-c
      at its QLoRA call (B=1, 423 valid), timed, with a ``qwen3_8b_calls``
-     line;
+     line; the tiny configs' forms (``tiny_kernel_checks``): K1 at D=16
+     (the tiny ViT's call, 65 tokens, fused q/k/v) and K2 at D=32 (the
+     tiny decoder's, GQA group 2), K4a-c at both, timed, with a
+     ``tiny_calls`` line and both K4 calls on the ``flash_bwd_calls``
+     line, and every form at both dims on the tile edges, untimed;
      K1 at D=80 and 96 (no path either) on 1024 tokens, timed by events
      beside SDPA alone (``flash_fwd_no_path``); K1/K2 at both on
      the tile edge, K3 at groups 2, 4 and 8, its first and last steps and
@@ -50,7 +54,7 @@ Run from the root of a checkout. It
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
      tokens and a greedy decode: first bf16 weights, the int8 KV cache, 4
-     volumes and 128 tokens (``--max-new``); then, 256 tokens (its 768
+     volumes and 128 tokens (``--max-new``); then, 128 tokens (its 768
      cut for the script's time), the configuration of the JAX package's
      ``bench.py``: decoder weights quantized to int8, the int4 KV cache,
      112 volumes, the ViT over groups of 128 chunks. Each asserts the
@@ -62,7 +66,7 @@ Run from the root of a checkout. It
      512x512x300 int16 CT written as .nii and ingested by
      ``U2VolumeTransform`` on the card (held to the CPU's), random weights
      from seed 0 written by ``save_hf_checkpoint`` and loaded back by
-     ``U2InferenceModel``, one greedy report of 256 tokens through
+     ``U2InferenceModel``, one greedy report of 192 tokens through
      ``inference`` (K1 12 and K2 16 launches), its tokens bit for bit
      those of ``make_multimodal_generate_fn`` on the exported in-memory
      model (timed by stage), two sampled reports (top-p 0.9) of one seed
@@ -88,7 +92,7 @@ Run from the root of a checkout. It
      must answer /health and one report; twelve questions one at a time
      through the single-request model ``cli serve`` builds (the reference
      tokens, and the sequential reports/min); the server ``cli serve
-     --slots 8 --max-new-tokens 64`` builds, started by
+     --slots 8 --max-new-tokens 32`` builds, started by
      ``serve_background``: the CT uploaded (ingest on the card), the
      twelve questions from twelve client threads at once and one streamed
      (K1 12 and K2 16 launches a request, K3 none), each report's tokens
@@ -135,11 +139,12 @@ Run from the root of a checkout. It
      leg's KL and top-1 within limits that must reject int4 scales of
      max/8;
   8. drives the Phi phase (``drive_phi``) on the same CT: μ²Phi-3-mini
-     (the default μ² stack on the ``phi3_mini`` decoder, 32 heads of 96,
-     seeded weights) through ``drive_report``: exported by
+     (the default μ² stack on the ``phi3_mini`` decoder cut to 16 of its 32
+     layers, 32 heads of 96, seeded weights) through ``drive_report``:
+     exported by
      ``save_hf_checkpoint`` (fp32, as users write it) and read through
      its config.json alone by ``U2InferenceModel``, one greedy report
-     (K1 12, K2 32) bit for bit the exported model's; its stage 1 on the
+     (K1 12, K2 16) bit for bit the exported model's; its stage 1 on the
      same directory, ``cli train --qlora int8`` (``qlora_phase``: the
      decoder cut to 8 of its 32 layers by ``--config``, 4 steps of B=1
      at 1024 tokens on the stage-2 phase's cases, remat; each step's
@@ -191,7 +196,7 @@ Run from the root of a checkout. It
      μ²Llama-3.2-1B configuration with the full SegVol head (seeded
      weights) on a synthetic M3D root (4 volumes of (8, 32, 256, 256),
      ball masks): ``cli eval-m3d`` for rec and reg (2 cases), seg (3) and
-     refseg (2), 64 greedy tokens a case (K1 12, K2 16 a case; '[SEG]'
+     refseg (2), 32 greedy tokens a case (K1 12, K2 16 a case; '[SEG]'
      is the first token greedy decoding emits on case 0, so the branch is
      taken), and itr (4 images, K1 12 each); the '[SEG]' generate of a
      2-layer model on the card against the CPU's fp32 (tokens under the
@@ -205,11 +210,12 @@ Run from the root of a checkout. It
  12b. drives μ²Qwen3-8B (``drive_qwen3_8b``, the ``qwen3_8b`` decoder
      under the default μ² stack, seeded weights, full width and depth):
      ``bench.py``'s 8B serving configuration (int8 weights, the int4
-     cache, B=16, 1024-token prompts, the last 900, 128 greedy tokens,
+     cache, B=16, 1024-token prompts, the last 900, 64 greedy tokens,
      bench.py's 768 cut; K1 12, K2 36 and K3-int4 36 a step) and its
      2-layer model against the CPU's fp32; ``cli train --qlora int4
      --freeze-vision-tower --remat dots_no_batch`` (the head in 8 tiles,
-     3 steps of B=1 at 1024 tokens; K1 12, K2 72 and K4a-c 36 a step;
+     the decoder at 18 of its 36 layers, 3 steps of B=1 at 1024 tokens;
+     K1 12, K2 36 and K4a-c 18 a step;
      the adapters file read back bit for bit); the remat policies
      'nothing', 'dots_no_batch' and 'dots' on one step of the same model
      at 4 decoder layers (gradients within cosine 0.99999 and a norm
@@ -219,6 +225,20 @@ Run from the root of a checkout. It
      directory's) and ``U2InferenceModel(lora_path=)`` (equal bit for
      bit to the adapters folded by hand, off the base, and an
      ``adapter_config.json`` with alpha = r rejected);
+ 12c. drives data preparation and the operator commands
+     (``drive_dataprep``): ``cli preprocess`` over the report phase's CT
+     copied into two directories under one name and a corrupt volume (exit
+     1 with one FAILED line, the names ``a__ct`` and ``b__ct``, each array
+     ``U2VolumeTransform()``'s bit for bit); the AMOS-MM, CT-RATE and
+     AbdomenAtlas converters over synthetic trees; an ``AMOSMRGDataset``
+     training item of the CT at full size against the CPU's; ``cli
+     selftest`` on the card (its launches held to SELFTEST_LAUNCHES, one
+     train step under ``utils.profiling.trace``, whose Chrome trace must
+     name every tiny kernel); ``cli serve-llm`` at its default tiny preset
+     answering a chat request (K2 2 at D=32); and a failing command's
+     crash report naming the card. The serving phase's ``serve-llm`` also
+     runs the synthesis loop: rewrite, translate, QA and thinking through
+     ``OpenAIProtocolClient`` (K2 16 a request);
  13. prints one JSON line per kernel table, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -291,12 +311,15 @@ TOL = {"flash_fwd_noncausal": (4e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_dq": (1e-3, 1e-2, 2.0 ** -8),
        "flash_bwd_dkv": (1e-3, 1e-2, 2.0 ** -8)}
 # the B=112 path decodes MAX_NEW tokens (bench.py's 768, cut for the
-# script's time to 512 when the ablation phase came and to 256 when the
-# μ²Qwen3-8B phase came), and K3 is checked at its steps
-PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 256, 4, 8
-# the μ²Llama report and speculative phases decode 256 tokens (the users'
-# 768 cut when the serving phase came, for the script's time)
-REPORT_TOKENS = 256
+# script's time to 512 when the ablation phase came, to 256 when the
+# μ²Qwen3-8B phase came and to 128 when the data-preparation phase came),
+# and K3 is checked at its steps
+PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 128, 4, 8
+# the μ²Llama report and speculative phases decode 192 tokens (the users'
+# 768 cut to 256 when the serving phase came and to 192 when the
+# data-preparation phase came, for the script's time; the verify-fault
+# runs compare FAULT_TOKENS of them)
+REPORT_TOKENS = 192
 # the B=4 bf16 path decodes 128 tokens (256 until the evaluation phase
 # came), for the script's time on a slow host
 B4_MAX_NEW = 128
@@ -1476,13 +1499,14 @@ def full_vocab_tokenizer(vocab: int):
 
 
 def drive_report(torch, fa, da, volume, tmp: str, cfg=None,
-                 sampled: bool = True, config_json: bool = False):
+                 sampled: bool = True, config_json: bool = False,
+                 max_new: int = REPORT_TOKENS):
     """The report path of ``cfg`` (μ²Llama-3.2-1B by default) at full width
     and depth: random weights from seed 0 written by ``save_hf_checkpoint``
     (fp32) to ``tmp/mu2<model_type>``, loaded back by ``U2InferenceModel``
     (bf16, bf16 cache; with ``config_json`` through config.json alone,
     ``u2_tpu_config.json`` removed), one greedy report of up to
-    REPORT_TOKENS tokens through ``inference`` with the kernel launches of
+    ``max_new`` tokens through ``inference`` with the kernel launches of
     that call (K1 once per ViT layer, K2 once per decoder layer); its
     tokens against ``make_multimodal_generate_fn`` on the in-memory model
     that was exported, cast the same way, stage by stage (timed); then,
@@ -1523,7 +1547,7 @@ def drive_report(torch, fa, da, volume, tmp: str, cfg=None,
         t0 = time.perf_counter()
         im = U2InferenceModel(ckpt, tokenizer=tok, do_sample=False,
                               speculative=False,
-                              max_new_tokens=REPORT_TOKENS)
+                              max_new_tokens=max_new)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
     seen, generate_tokens = [], im.generate_tokens
@@ -1603,7 +1627,7 @@ def drive_report(torch, fa, da, volume, tmp: str, cfg=None,
     for _ in range(2):
         sim = U2InferenceModel(ckpt, tokenizer=tok, do_sample=True,
                                top_p=SAMPLE_TOP_P, speculative=False, seed=1,
-                               max_new_tokens=REPORT_TOKENS)
+                               max_new_tokens=max_new)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         samples.append(sim.inference(volume, REPORT_QUESTION))
@@ -2092,11 +2116,12 @@ def drive_speculative(torch, fa, da, volume, tmp: str, plain_greedy,
 # builds them, with concurrent requests.
 SERVING_SLOTS = 8
 # cli serve --max-new-tokens (the users' 768; 256 before the Phi phase
-# came, 128 before the evaluation phase, cut for the script's time; the
-# serving paths launch no K3)
-SERVING_TOKENS = 64
+# came, 128 before the evaluation phase, 64 before the data-preparation
+# phase, cut for the script's time; the serving paths launch no K3)
+SERVING_TOKENS = 32
 SUBPROCESS_TOKENS = 16     # the subprocess server's one report
-LLM_TOKENS = 128           # serve-llm's requests
+LLM_TOKENS = 64            # serve-llm's requests (128 until the
+                           # data-preparation phase came)
 LOGIT_STEPS = 8            # decode steps whose logits are held to B=1's
 LOGIT_TOL = 5e-2           # the reduced-depth check's relative limit
 # twelve questions, so that twelve requests over eight slots force
@@ -2123,13 +2148,14 @@ LLM_PROMPTS = ("Rewrite the report : the lungs are clear .",
 SLOT_FAULTS = ("write_index_late", "rope_plus_one", "prefill_wrong_slot")
 
 
-def serving_tokenizer(vocab: int):
-    """A MockTokenizer with every word the serving phase sends first, then
-    a word for every other id of the vocabulary."""
+def serving_tokenizer(vocab: int, extra=()):
+    """A MockTokenizer with every word the serving phase sends first (and
+    those of the texts ``extra``), then a word for every other id of the
+    vocabulary."""
     from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
 
     tok = MockTokenizer()
-    tok(" ".join(SERVING_QUESTIONS + LLM_PROMPTS))
+    tok(" ".join(SERVING_QUESTIONS + LLM_PROMPTS + tuple(extra)))
     tok(" ".join(f"w{i}" for i in range(vocab - len(tok.vocab))))
     return tok
 
@@ -2762,6 +2788,84 @@ def spec_slot_phase(torch, ckpt, volume, tok, refs, plain_tokens) -> dict:
                          for q, v in verdicts.items()}}
 
 
+# The synthesis loop (``data/synthesis.py``) against serve-llm: one report
+# rewritten, translated, turned into QA pairs and given a refined chain of
+# thought, each one request of the OpenAI-protocol client, whose
+# ``max_tokens`` is set to the server's LLM_TOKENS (its default of 2048 is
+# kept: a random-weights model rarely stops early).
+SYNTHESIS_REPORT = ("The lungs are clear . There is no pleural effusion . "
+                    "The heart is normal in size .")
+SYNTHESIS_QUESTION = "Is there a pleural effusion ?"
+
+
+def synthesis_ops():
+    """(name, operation of a backend, the prompt it sends) of each
+    synthesis request."""
+    from u2tokenizer_torch.data import synthesis as syn
+
+    r, q = SYNTHESIS_REPORT, SYNTHESIS_QUESTION
+    return (
+        ("rewrite", lambda b: syn.rewrite_report(b, r),
+         f"{syn.rewrite_prompt}\n\nReport:\n{r}"),
+        ("translate", lambda b: syn.translate_report(b, r),
+         f"{syn.translate_prompt}\n\n{r}"),
+        ("qa", lambda b: syn.generate_qa_pairs(b, r, 2),
+         syn.qa_generation_prompt.format(n=2) + "\n\nReport:\n" + r),
+        ("thinking", lambda b: syn.refine_thinking(b, r, q, "", r),
+         syn.REFINE_PROMPT.format(report=r, question=q, thinking="",
+                                  answer=r)))
+
+
+@contextlib.contextmanager
+def no_proxy():
+    """The client's requests go to a local server: urllib asks no proxy of
+    the environment inside the block."""
+    saved = {k: os.environ.get(k) for k in ("no_proxy", "NO_PROXY")}
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "*"
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def synthesis_loop(url: str) -> dict:
+    """Each synthesis operation through ``OpenAIProtocolClient`` to the
+    server at ``url``; a request that gets no reply raises ``NoReply``
+    with this process's threads' stacks, as ``http`` does."""
+    import urllib.error
+
+    from u2tokenizer_torch.data.synthesis import (LLMClientConfig,
+                                                  OpenAIProtocolClient)
+
+    client = OpenAIProtocolClient(LLMClientConfig(base_url=url + "/v1",
+                                                  max_tokens=LLM_TOKENS))
+
+    def backend(prompt: str) -> str:
+        try:
+            return client(prompt)
+        except (TimeoutError, urllib.error.URLError) as e:
+            if not isinstance(getattr(e, "reason", e), TimeoutError):
+                raise
+            raise NoReply(f"{url}: a synthesis request got no reply; "
+                          f"threads here: {thread_stacks()}") from e
+
+    out, times = {}, {}
+    with no_proxy():
+        for name, op, _ in synthesis_ops():
+            t0 = time.perf_counter()
+            result = op(backend)
+            times[name] = time.perf_counter() - t0
+            out[name] = (len(result) if isinstance(result, list)
+                         else [len(x or "") for x in result]
+                         if isinstance(result, tuple) else len(result))
+    return {"requests": len(times), "request_s": times,
+            "reply_sizes": out}
+
+
 def serve_llm_phase(torch, fa, da) -> tuple:
     """``cli serve-llm --preset llama_3_2_1b`` (seeded weights, bf16)
     built by ``cli.build_llm_server`` and served as ``cmd_serve_llm``
@@ -2775,7 +2879,8 @@ def serve_llm_phase(torch, fa, da) -> tuple:
     from u2tokenizer_torch.models.generate import make_generate_fn
     from u2tokenizer_torch.serve import TextLMServer, serve_background
 
-    tok = serving_tokenizer(LLMConfig.llama_3_2_1b().vocab_size)
+    tok = serving_tokenizer(LLMConfig.llama_3_2_1b().vocab_size,
+                            [prompt for _, _, prompt in synthesis_ops()])
     args = cli.build_parser().parse_args(
         ["serve-llm", "--preset", "llama_3_2_1b", "--max-new-tokens",
          str(LLM_TOKENS), "--host", "127.0.0.1", "--port", "0"])
@@ -2820,6 +2925,9 @@ def serve_llm_phase(torch, fa, da) -> tuple:
                 chat_text = out["choices"][0]["message"]["content"]
         launches = read_launches(fa, da)
         config = http_ok(url + "/v1/config")
+        reset_launches(fa, da)
+        synthesis = synthesis_loop(url)
+        synthesis_launches = nonzero(read_launches(fa, da, by_dim=True))
     finally:
         for s in servers:
             s.shutdown()
@@ -2827,6 +2935,14 @@ def serve_llm_phase(torch, fa, da) -> tuple:
     expected["flash_fwd_causal"] = 3 * lm.model.cfg.num_layers
     if launches != expected:
         raise AssertionError(f"serve-llm launches {launches} != {expected}")
+    # one prefill a request (the verify blocks attend in plain PyTorch)
+    expected = {"flash_fwd_causal_d64": synthesis["requests"]
+                * lm.model.cfg.num_layers}
+    if synthesis["requests"] < 4 or synthesis_launches != expected:
+        raise AssertionError(f"synthesis loop: {synthesis['requests']} "
+                             f"requests, launches {synthesis_launches} != "
+                             f"{expected}")
+    synthesis["launches"] = synthesis_launches
     if len(choices) != FANOUT or not all(isinstance(c, str)
                                          for c in choices):
         raise AssertionError(f"fan-out: {len(choices)} choices")
@@ -2856,7 +2972,10 @@ def serve_llm_phase(torch, fa, da) -> tuple:
             "spec_stats": stats, "tie_rule": verdict["first_diff"],
             "fanout_choices": len(choices),
             "fanout_distinct": len(set(choices)),
-            "launches": launches}, launches
+            "synthesis": synthesis,
+            "launches": launches}, dict(
+                launches, flash_fwd_causal=launches["flash_fwd_causal"]
+                + synthesis_launches["flash_fwd_causal_d64"])
 
 
 def drive_serving(torch, fa, da, volume, tmp: str, card: str) -> dict:
@@ -4743,6 +4862,13 @@ def drive_eval(torch, fa, da, tmp: str, tok, card: str) -> dict:
 # tokens of the B=4 batches: 1024 + 32 slots (256 until the evaluation
 # phase came, cut for the script's time); K3's Phi forms are checked there
 PHI_NEW = 32
+# μ²Phi-3-mini's greedy report (REPORT_TOKENS until the data-preparation
+# phase came, cut for the script's time)
+PHI_REPORT_TOKENS = 128
+# μ²Phi-3-mini's report and B=4 batches at PHI3_LAYERS of its 32 decoder
+# layers (the full depth until the data-preparation phase came, cut for the
+# script's time; the QLoRA leg reads the same export at QLORA_LAYERS)
+PHI3_LAYERS = 16
 PHI3_PREFILL_CALL = dict(PREFILL_CALL, h=32, hkv=32, d=96)
 PHI2_JUDGE_CALL = dict(JUDGE_CALL, hkv=32, d=80)
 PHI_HEADS = {96: (32, 32, 96), 80: (32, 32, 80)}
@@ -4817,12 +4943,15 @@ def phi_kernel_checks(torch, F, fa, da, attn) -> tuple:
     return timed, checks
 
 
-def phi3_config():
+def phi3_config(layers: int = 0):
     """μ²Phi-3-mini: the default μ² stack (ViT3D 12 x 768, SPP, the
-    μ²tokenizer) on the ``phi3_mini`` decoder."""
+    μ²tokenizer) on the ``phi3_mini`` decoder, cut to ``layers`` decoder
+    layers where given."""
     from u2tokenizer_torch.config import LLMConfig, U2ModelConfig
 
-    return U2ModelConfig(llm=LLMConfig.phi3_mini())
+    llm = LLMConfig.phi3_mini()
+    return U2ModelConfig(llm=dataclasses.replace(
+        llm, num_layers=layers or llm.num_layers))
 
 
 def phi2_judge_phase(torch, fa, da, tmp: str, preds: str) -> tuple:
@@ -5125,9 +5254,9 @@ def drive_phi(torch, F, fa, da, volume, tmp: str, preds: str, card: str):
     valid lengths, the QLoRA part's seconds)."""
     counts = {}
     t0 = time.perf_counter()
-    cfg = phi3_config()
+    cfg = phi3_config(PHI3_LAYERS)
     _, line = drive_report(torch, fa, da, volume, tmp, cfg, sampled=False,
-                           config_json=True)
+                           config_json=True, max_new=PHI_REPORT_TOKENS)
     counts["report_mu2phi3"] = line["launches"]
     line["card"] = card
     print(json.dumps({"report_mu2phi3": line}), flush=True)
@@ -5743,9 +5872,10 @@ def drive_ablation(torch, fa, da, volume, tmp: str, card: str) -> dict:
 # bench.py's 8B serving configuration (BENCH_MODEL=8b; bench.py:47-58,
 # 123-126, 197-206): int8 decoder weights, the int4 KV cache, B=16 volumes,
 # the ViT over one group of 128 chunks, QWEN8B_NEW greedy tokens (bench.py's
-# 768 cut for the script's time). Each decode step launches K3-int4 36 times
-# (36 layers, 32 query heads over 8 kv heads of 128).
-QWEN8B_BATCH, QWEN8B_NEW = 16, 128
+# 768 cut for the script's time, to 64 from 128 when the data-preparation
+# phase came). Each decode step launches K3-int4 36 times (36 layers, 32
+# query heads over 8 kv heads of 128).
+QWEN8B_BATCH, QWEN8B_NEW = 16, 64
 QWEN8B_HEADS = (32, 8, 128)
 # The 8B's kernel forms, D=128 at a GQA group of 4: K2 at its serving
 # prefill (16 rows of 1024, the last 900), K3-int4 at its decode (1024 +
@@ -5758,15 +5888,19 @@ QWEN8B_QLORA_CALL = dict(QWEN8B_PREFILL_CALL, b=1, lens=[QLORA_VALID])
 # Its QLoRA stage 1 from the CLI, as the JAX package's 8B tool sets it up
 # (tools_train_8b_qlora.py:74-83: an int4 base, the int8 head in 8 tiles),
 # with the vision tower frozen and the 'dots_no_batch' remat policy,
-# QWEN8B_QLORA_STEPS steps of B=1 at 1024 tokens from seeded weights. Each
-# step launches K1 12 (the frozen ViT), K2 72 at D=128 (36 layers, the
-# forward again in the recompute: the flash Function is no aten op, so no
-# policy keeps its output) and K4a-c 36 each.
+# QWEN8B_QLORA_STEPS steps of B=1 at 1024 tokens from seeded weights, the
+# decoder at QWEN8B_QLORA_LAYERS of its 36 layers (all 36 until the
+# data-preparation phase came, cut for the script's time). Each step
+# launches K1 12 (the frozen ViT), K2 36 at D=128 (18 layers, the forward
+# again in the recompute: the flash Function is no aten op, so no policy
+# keeps its output) and K4a-c 18 each.
 QWEN8B_QLORA_STEPS, QWEN8B_TILES, QWEN8B_REMAT = 3, 8, "dots_no_batch"
+QWEN8B_QLORA_LAYERS = 18
 QWEN8B_QLORA_LAUNCHES = {"flash_fwd_noncausal_d64": 12,
-                         "flash_fwd_causal_d128": 72,
-                         "flash_bwd_lse_d128": 36, "flash_bwd_dq_d128": 36,
-                         "flash_bwd_dkv_d128": 36}
+                         "flash_fwd_causal_d128": 2 * QWEN8B_QLORA_LAYERS,
+                         "flash_bwd_lse_d128": QWEN8B_QLORA_LAYERS,
+                         "flash_bwd_dq_d128": QWEN8B_QLORA_LAYERS,
+                         "flash_bwd_dkv_d128": QWEN8B_QLORA_LAYERS}
 # The remat policies on the card: the same QLoRA model with POLICY_LAYERS
 # decoder layers, one step on one batch under each of REMAT_POLICIES, every
 # trainable leaf's gradient within POLICY_COS_MIN and POLICY_NORM_TOL of
@@ -5786,7 +5920,8 @@ POLICY_COS_MIN, POLICY_NORM_TOL = 0.99999, 1e-4
 # sigma, a tenth of the weights', as QLORA_B_STD reasons; LORA_TOKENS greedy
 # tokens and the first step's logits against the same adapters folded by
 # hand; the adapted logits at least LORA_MIN_REL (relative) off the base's.
-CONVERT_TOKENS, LORA_TOKENS = 128, 64
+CONVERT_TOKENS, LORA_TOKENS = 64, 64  # CONVERT_TOKENS 128 until the
+                                      # data-preparation phase came
 LORA_RANK, LORA_ALPHA, LORA_B_SCALE, LORA_MIN_REL = 16, 32, 0.05, 1e-2
 
 
@@ -5854,7 +5989,7 @@ def qwen8b_qlora(torch, F, fa, da, tmp: str, tok, card: str) -> tuple:
     stage-2 phase's tokenizer, whose ids all lie below the 8B's
     vocabulary), then K4a-c at its steps' other valid lengths, checked.
     Returns (the launches, the checks)."""
-    cfg = qwen8b_config(tiles=QWEN8B_TILES)
+    cfg = qwen8b_config(layers=QWEN8B_QLORA_LAYERS, tiles=QWEN8B_TILES)
     line, launches, lens = qlora_cli_leg(
         torch, fa, da, tmp, cfg, "int4", QWEN8B_QLORA_STEPS,
         QWEN8B_QLORA_LAUNCHES, QWEN8B_QLORA_CALL,
@@ -6183,7 +6318,8 @@ def drive_qwen3_8b(torch, F, fa, da, volume, tmp: str, tok,
 # mask or trained seg weight is in the repository: Dice, IoU and recall
 # show only that the machinery runs).
 M3D_CASES = 4
-M3D_TOKENS = 64                # --max-new-tokens of each generated case
+M3D_TOKENS = 32                # --max-new-tokens of each generated case
+                               # (64 until the data-preparation phase came)
 M3D_TASK_CASES = {"rec": 2, "reg": 2, "seg": 3, "refseg": 2, "itr": 4}
 # a generated case: the ViT's 12 layers over its 8 chunks (K1) and the
 # 16-layer prefill (K2); the decode takes the bf16 cache in plain PyTorch,
@@ -6682,6 +6818,51 @@ def m3d_train_leg(torch, fa, da) -> tuple:
     return line, launches
 
 
+# The tiny configs' forms (``U2ModelConfig.tiny()``, the path of ``cli
+# selftest``, ``drive_dataprep``): K1 at the tiny ViT's call (2 volumes x
+# 2 chunks of 64 patches and the cls token, 4 heads of 16, q/k/v views of
+# the fused qkv) and K2 at the tiny decoder's training call (2 rows of 64
+# tokens, 4 q / 2 kv heads of 32, 23 valid), K4a-c at both, timed; the
+# ViT's last row 18 keys short, so that the lens mutants move its mask.
+# Untimed: K1/K2 and K4a-c at both dims on the tile-edge shapes (193
+# tokens; group 1 with fused q/k/v and group 2), causal and not, so that
+# no tiny form goes unchecked.
+TINY_VIT_CALL = dict(causal=False, b=4, s=65, h=4, hkv=4, d=16,
+                     lens=[65, 65, 65, 47], fused=True)
+TINY_DECODER_CALL = dict(causal=True, b=2, s=64, h=4, hkv=2, d=32,
+                         lens=[23, 23], fused=False)
+TINY_EDGE_CALLS = [dict(call, causal=causal, d=d) for d in (16, 32)
+                   for call in EDGE_CALLS for causal in (False, True)]
+
+
+def tiny_kernel_checks(torch, F, fa) -> tuple:
+    """The tiny forms: K1 at D=16 and K2 at D=32 at the selftest's calls,
+    K4a-c at both, timed; every form at both dims on the tile edges,
+    untimed. Returns (the timed entries, named by form, each with the
+    largest error of its form's checks; every check)."""
+    timed = {"flash_fwd_noncausal_d16": check_flash(torch, F, fa,
+                                                    TINY_VIT_CALL, 90),
+             "flash_fwd_causal_d32": check_flash(torch, F, fa,
+                                                 TINY_DECODER_CALL, 91)}
+    for d, call, seed in ((16, TINY_VIT_CALL, 92), (32, TINY_DECODER_CALL,
+                                                     93)):
+        for entry in check_flash_bwd(torch, F, fa, call, seed):
+            timed[f"{entry['name']}_d{d}"] = entry
+    checks = []
+    for i, call in enumerate(TINY_EDGE_CALLS):
+        checks.append(check_flash(torch, F, fa, call, 94 + i, timed=False))
+        checks += check_flash_bwd(torch, F, fa, call, 110 + i, timed=False)
+    for form, entry in timed.items():
+        entry["head_dim"], entry["tiny"] = int(form[-2:]), True
+        entry["kernel"], entry["name"] = entry["name"], form
+        entry["max_abs_err"] = max(
+            [entry["max_abs_err"]] + [c["max_abs_err"] for c in checks
+                                      if c["name"] == entry["kernel"]
+                                      and c["shape"]["q"][-1]
+                                      == entry["head_dim"]])
+    return timed, checks
+
+
 def drive_m3d(torch, F, fa, da, tmp: str, card: str) -> tuple:
     """The M3D phase: a synthetic M3D root (``write_m3d_data``), ``cli
     eval-m3d`` for each task of M3D_TASK_CASES at ``m3d_config`` (seeded
@@ -6742,6 +6923,368 @@ def drive_m3d(torch, F, fa, da, tmp: str, card: str) -> tuple:
     for k in checks:
         print(json.dumps({"kernel_check": k}), flush=True)
     return counts, checks, legs
+
+
+# The data-preparation and operator phase (``drive_dataprep``): ``cli
+# preprocess`` over the report phase's CT (``tmp/ct.nii``) copied into two
+# directories under one name, with a corrupt file beside; the converters
+# over synthetic AMOS-MM, CT-RATE and AbdomenAtlas trees; one
+# ``AMOSMRGDataset`` item of that CT at full size (training, scripted
+# draws) against the same item on the CPU within INGEST_TOL; ``cli
+# selftest`` on the card, one of its train steps under
+# ``utils.profiling.trace``, with its launches held to SELFTEST_LAUNCHES;
+# ``cli serve-llm`` at its default (tiny) preset answering one chat
+# request (K2 at D=32 on each of its 2 layers); a failing command's crash
+# report. The selftest's launches (derived from the code: the tiny ViT's 2
+# layers and the tiny decoder's 2, on 2 train steps of B=2 with the
+# decoder under remat, then 2 cases x 2 greedy samples of 8 tokens, each
+# sample one vision encode and one prefill):
+#     K1 d16   2 x 2 (train) + 2 x 2 x 2 (generate) = 12
+#     K2 d32   2 x 2 x 2 (train, with remat)  + 2 x 2 x 2 = 16
+#     K4a-c    2 x 2 each at d16 and at d32 (train)
+SELFTEST_LAUNCHES = {"flash_fwd_noncausal_d16": 12,
+                     "flash_fwd_causal_d32": 16,
+                     **{f"{name}_d{d}": 4 for d in (16, 32)
+                        for name in ("flash_bwd_lse", "flash_bwd_dq",
+                                     "flash_bwd_dkv")}}
+# the kernels a traced selftest train step must show by name: the
+# ``__global__`` names with their head-dim template argument. The trace of
+# the card lost the step's first launches, the ViT's K1 at D=16, with a
+# lead-in of 0.5 s as without one (two whole runs on the H100); it kept
+# them once the window opened with TRACE_WARMUP small kernels of its own.
+SELFTEST_TRACED = tuple(f"{k}<{d}," for k in ("flash_fwd_kernel",
+                                              "lse_kernel", "dq_kernel",
+                                              "dkv_kernel")
+                        for d in (16, 32))
+TRACE_WARMUP = 64
+TINY_CHAT = "Rewrite the report : the lungs are clear ."
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def preprocess_leg(torch, tmp: str) -> dict:
+    """``cli preprocess`` over two directories holding the CT under one
+    name and a corrupt volume: exit 1 with one FAILED line, JAX's
+    collision names, each array ``U2VolumeTransform()`` of its file on the
+    card bit for bit."""
+    import numpy as np
+
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.data.transforms import U2VolumeTransform
+
+    src = os.path.join(tmp, "preprocess_in")
+    out = os.path.join(tmp, "preprocess_out")
+    paths = []
+    for sub in ("a", "b"):
+        os.makedirs(os.path.join(src, sub))
+        paths.append(os.path.join(src, sub, "ct.nii"))
+        shutil.copyfile(os.path.join(tmp, "ct.nii"), paths[-1])
+    with open(os.path.join(src, "b", "corrupt.nii.gz"), "wb") as f:
+        f.write(b"\x1f\x8b\x08 truncated")
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        try:
+            cli.main(["preprocess", os.path.join(src, "a"),
+                      os.path.join(src, "b"), "--out-dir", out,
+                      "--workers", "4"])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    seconds = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    if code != 1 or lines[0] != f"preprocess: 2/3 volumes -> {out}" or \
+            len(lines) != 2 or not lines[1].startswith(
+                f"  FAILED {os.path.join(src, 'b', 'corrupt.nii.gz')}: "):
+        raise AssertionError(f"cli preprocess: exit {code}, {lines}")
+    names = sorted(os.listdir(out))
+    if names != ["a__ct.npy", "b__ct.npy"]:
+        raise AssertionError(f"cli preprocess wrote {names}")
+    transform = U2VolumeTransform()
+    for path, name in zip(paths, names):
+        got = torch.from_numpy(np.load(os.path.join(out, name)))
+        if not torch.equal(got, transform(path).cpu()):
+            raise AssertionError(f"cli preprocess: {name} is not "
+                                 "U2VolumeTransform()'s output bit for bit")
+    shutil.rmtree(src)
+    shutil.rmtree(out)
+    return {"volumes": 3, "written": names, "exit": code,
+            "failed_line": lines[1][:120], "s": seconds,
+            "bit_for_bit": True}
+
+
+def converters_leg(tmp: str) -> dict:
+    """The converters over synthetic trees in the datasets' layouts:
+    AMOS-MM's dataset.json, CT-RATE's report csv, AbdomenAtlas's
+    <case>/report.txt; rows counted against the trees."""
+    import csv
+
+    from u2tokenizer_torch.data import converters as conv
+
+    root = os.path.join(tmp, "convert")
+    os.makedirs(os.path.join(root, "atlas"))
+    amos = {"training": [], "validation": []}
+    for split, n in (("training", 4), ("validation", 2)):
+        for i in range(n):
+            amos[split].append({
+                "image": f"./imagesTr/amos_{i:04d}.nii.gz",
+                "labels": {"report": {"findings": {
+                    "chest": f"clear lungs {i}", "abdomen": "normal liver",
+                    "pelvis": "" if i % 2 else "normal bladder"}},
+                    "qa": [{"question": f"Which organ {i}?",
+                            "options": dict(zip("ABCD", ("liver", "spleen",
+                                                         "kidney", "lung"))),
+                            "answer": "A"}]}})
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump(amos, f)
+    with open(os.path.join(root, "reports.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, ["VolumeName", "Findings_EN"])
+        w.writeheader()
+        for i in range(5):
+            w.writerow({"VolumeName": f"train_{i}_a_1.nii.gz",
+                        "Findings_EN": f"nodule {i} mm" if i else ""})
+    for i in range(3):
+        os.makedirs(os.path.join(root, "atlas", f"BDMAP_{i:08d}"))
+        with open(os.path.join(root, "atlas", f"BDMAP_{i:08d}",
+                               "report.txt"), "w") as f:
+            f.write(f"liver lesion {i}")
+    out = lambda name: os.path.join(root, "out", name + ".jsonl")
+    rows = {
+        "amos_mm_extract_qa": conv.amos_mm_extract_qa(
+            os.path.join(root, "dataset.json"), out("qa")),
+        "amos_mm_reports": conv.amos_mm_reports(
+            os.path.join(root, "dataset.json"), out("reports")),
+        "amos_mm_report_choice_questions":
+            conv.amos_mm_report_choice_questions(
+                os.path.join(root, "dataset.json"), out("choices")),
+        "ct_rate_reports": conv.ct_rate_reports(
+            os.path.join(root, "reports.csv"), out("ct_rate")),
+        "abdomen_atlas_reports": conv.abdomen_atlas_reports(
+            os.path.join(root, "atlas"), out("atlas"))}
+    want = {"amos_mm_extract_qa": 2, "amos_mm_reports": 10,
+            "amos_mm_report_choice_questions": 10, "ct_rate_reports": 4,
+            "abdomen_atlas_reports": 3}
+    if rows != want:
+        raise AssertionError(f"converters: rows {rows} != {want}")
+    return rows
+
+
+def amos_item_leg(torch, tmp: str) -> dict:
+    """An ``AMOSMRGDataset`` training item of the 512x512x300 CT on the
+    card and on the CPU, each with draws from numpy's generator of one
+    seed: tokens equal, images within INGEST_TOL."""
+    import numpy as np
+
+    from u2tokenizer_torch.data.amos_ct_datasets import AMOSMRGDataset
+    from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
+
+    root = os.path.join(tmp, "amos")
+    os.makedirs(os.path.join(root, "imagesTr"))
+    os.symlink(os.path.join(tmp, "ct.nii"),
+               os.path.join(root, "imagesTr", "amos_0001.nii"))
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump({"training": [{"image": "imagesTr/amos_0001.nii",
+                                 "labels": {"report": {"findings": {
+                                     "chest": "clear lungs",
+                                     "abdomen": "", "pelvis": ""}}}}]}, f)
+    items, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        ds = AMOSMRGDataset(root, os.path.join(root, "dataset.json"),
+                            MockTokenizer(), 512, device=dev)
+        ds.draws = np.random.default_rng(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items[dev] = ds[0]
+        seconds[dev] = time.perf_counter() - t0
+    card, cpu = items["cuda"], items["cpu"]
+    for key in ("input_id", "label", "attention_mask", "question_ids"):
+        if not torch.equal(card[key], cpu[key]):
+            raise AssertionError(f"AMOS item: {key} differs card vs CPU")
+    img = card["image"]
+    if tuple(img.shape) != (1, 32, 256, 256) or not torch.isfinite(img).all():
+        raise AssertionError(f"AMOS item: image {tuple(img.shape)}")
+    err = (img - cpu["image"]).abs().max().item()
+    if not err <= INGEST_TOL:
+        raise AssertionError(f"AMOS item: card vs CPU {err:.3g} over "
+                             f"{INGEST_TOL}")
+    return {"shape": list(img.shape), "max_abs_err_vs_cpu": err,
+            "tol": INGEST_TOL, "card_s": seconds["cuda"],
+            "cpu_s": seconds["cpu"],
+            "labels": int((card["label"] != -100).sum())}
+
+
+def selftest_leg(torch, fa, da, tmp: str) -> tuple:
+    """``cli selftest`` on the card: its launches by head dim, its second
+    train step traced by ``utils.profiling.trace`` (the trace must name
+    every tiny kernel), SELFTEST OK and the artifacts' rows."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.train import sft
+    from u2tokenizer_torch.utils import profiling
+
+    trace_dir = os.path.join(tmp, "selftest_trace")
+    make = sft.make_trainer
+    steps = []
+
+    def traced_trainer(*a, **kw):
+        state, step = make(*a, **kw)
+
+        def run(*args):
+            steps.append(1)
+            if len(steps) != 2:
+                return step(*args)
+            with profiling.trace(trace_dir):
+                x = torch.zeros(1, device="cuda")
+                for _ in range(TRACE_WARMUP):
+                    x.add_(1)
+                torch.cuda.synchronize()
+                out = step(*args)
+                torch.cuda.synchronize()
+            return out
+
+        return state, run
+
+    printed = io.StringIO()
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = tmp
+    sft.make_trainer = traced_trainer
+    reset_launches(fa, da)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            work = cli.main(["selftest"])
+        torch.cuda.synchronize()
+    finally:
+        sft.make_trainer = make
+        tempfile.tempdir = old_tmp
+    seconds = time.perf_counter() - t0
+    launches = nonzero(read_launches(fa, da, by_dim=True))
+    if launches != SELFTEST_LAUNCHES:
+        raise AssertionError(f"selftest launches {launches} != "
+                             f"{SELFTEST_LAUNCHES}")
+    if printed.getvalue().splitlines()[-1] != "SELFTEST OK":
+        raise AssertionError(f"selftest: {printed.getvalue()[-300:]!r}")
+    rows = {}
+    for name in ("preds", "greened", "dpo"):
+        with open(os.path.join(work, name + ".jsonl")) as f:
+            rows[name] = [json.loads(line) for line in f]
+    if [len(r["predictions"]) for r in rows["preds"]] != [2, 2] or \
+            len(rows["dpo"]) != 2:
+        raise AssertionError(f"selftest rows: {rows}")
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    forms = {k: sum(k in n for n in names) for k in SELFTEST_TRACED}
+    missing = [k for k, n in forms.items() if not n]
+    if missing:
+        raise AssertionError(f"selftest trace names no {missing}")
+    return {"s": seconds, "launches": launches, "steps": len(steps),
+            "traced_kernels": len(names), "traced_forms": forms,
+            "predictions": [r["predictions"][0] for r in rows["preds"]],
+            "dpo_pairs": len(rows["dpo"]),
+            "chosen_equals_rejected": [p["chosen"] == p["rejected"]
+                                       for p in rows["dpo"]]}, work
+
+
+def serve_llm_tiny_leg(torch, fa, da) -> tuple:
+    """``cli serve-llm`` with no preset flag (``tiny``) on the card, one
+    chat request over HTTP: a reply, and K2 at D=32 once a layer (the
+    prompt's prefill; speculative verify blocks attend in plain PyTorch)."""
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.serve import serve_background
+    from u2tokenizer_torch.utils.mock_tokenizer import MockTokenizer
+
+    args = cli.build_parser().parse_args(
+        ["serve-llm", "--host", "127.0.0.1", "--port", "0"])
+    lm = cli.build_llm_server(args, tokenizer=MockTokenizer())
+    server = serve_background(lm, port=0, transform=False)
+    reset_launches(fa, da)
+    t0 = time.perf_counter()
+    try:
+        out = http_ok(f"http://127.0.0.1:{server.server_address[1]}"
+                      "/v1/chat/completions",
+                      {"messages": [{"role": "user", "content": TINY_CHAT}]})
+    finally:
+        server.shutdown()
+    seconds = time.perf_counter() - t0
+    launches = nonzero(read_launches(fa, da, by_dim=True))
+    want = {"flash_fwd_causal_d32": lm.model.cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"serve-llm tiny launches {launches} != {want}")
+    text = out["choices"][0]["message"]["content"]
+    if not isinstance(text, str):
+        raise AssertionError(f"serve-llm tiny: {out}")
+    return {"preset": args.preset, "s": seconds, "reply_chars": len(text),
+            "launches": launches}, launches
+
+
+def crash_report_leg(torch, tmp: str, work: str) -> dict:
+    """A command that fails after building its model on the card
+    (``generate`` into a directory that does not exist), run through
+    ``cli.main`` from ``tmp``: the report in ``tmp/error_reports`` names
+    the card and its bytes."""
+    from u2tokenizer_torch import cli
+
+    here = os.getcwd()
+    os.chdir(tmp)
+    try:
+        cli.main(["generate", "--tiny", "--base-path", work, "--jsonl-path",
+                  "train.jsonl", "--max-length", "64", "--max-new-tokens",
+                  "4", "--output", os.path.join(tmp, "absent", "p.jsonl")])
+        raise AssertionError("generate into a missing directory did not "
+                             "fail")
+    except FileNotFoundError:
+        pass
+    finally:
+        os.chdir(here)
+    (name,) = os.listdir(os.path.join(tmp, "error_reports"))
+    with open(os.path.join(tmp, "error_reports", name)) as f:
+        report = json.load(f)
+    want = torch.cuda.get_device_name(0)
+    if (report.get("device_name"), report.get("backend"),
+            report.get("exception_type")) != (want, "cuda",
+                                              "FileNotFoundError") or \
+            not report.get("memory_allocated"):
+        raise AssertionError(f"crash report: {report}")
+    return {k: report[k] for k in ("exception_type", "backend",
+                                   "device_name", "memory_allocated",
+                                   "max_memory_allocated", "process_index",
+                                   "process_count")}
+
+
+def drive_dataprep(torch, fa, da, tmp: str, card: str) -> tuple:
+    """The data-preparation and operator phase (after the M3D phase; needs
+    the report phase's ``tmp/ct.nii``). One printed line; returns the
+    launches of its paths by head dim and each leg's seconds."""
+    legs, line = {}, {}
+    for name, leg in (("preprocess", lambda: preprocess_leg(torch, tmp)),
+                      ("converters", lambda: converters_leg(tmp)),
+                      ("amos_item", lambda: amos_item_leg(torch, tmp))):
+        t0 = time.perf_counter()
+        line[name] = leg()
+        legs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = {}
+    t0 = time.perf_counter()
+    line["selftest"], work = selftest_leg(torch, fa, da, tmp)
+    counts["selftest"] = line["selftest"]["launches"]
+    legs["selftest"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["serve_llm_tiny"], counts["serve_llm_tiny"] = serve_llm_tiny_leg(
+        torch, fa, da)
+    legs["serve_llm_tiny"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["crash_report"] = crash_report_leg(torch, tmp, work)
+    legs["crash_report"] = time.perf_counter() - t0
+    line["card"] = card
+    print(json.dumps({"dataprep": line}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, legs
 
 
 def main() -> int:
@@ -6928,6 +7471,17 @@ def main() -> int:
         )}, "card": card}), flush=True)
     bwd_calls.update(flash_bwd_summary({"qlora_mu2qwen3_8b_d128_g4": tuple(
         q8_timed[f"{name}_d128_g4"] for name in fa.BWD_KERNELS)}))
+    # the tiny forms: K1 at D=16, K2 at D=32, K4a-c at both
+    tiny_timed, tiny_checks = tiny_kernel_checks(torch, F, fa)
+    for k in list(tiny_timed.values()) + tiny_checks:
+        print(json.dumps({"kernel_check": k}), flush=True)
+    print(json.dumps({"tiny_calls": {"flash_fwd": flash_fwd_summary(
+        {f: e for f, e in tiny_timed.items() if f.startswith("flash_fwd")})},
+        "card": card}), flush=True)
+    bwd_calls.update(flash_bwd_summary(
+        {label: tuple(tiny_timed[f"{name}_d{d}"] for name in fa.BWD_KERNELS)
+         for label, d in (("selftest_vit_d16", 16),
+                          ("selftest_decoder_d32", 32))}))
     print(json.dumps({"flash_bwd_calls": bwd_calls, "card": card}),
           flush=True)
     for entry in phi_timed.values():
@@ -6938,7 +7492,8 @@ def main() -> int:
                                       == entry["head_dim"]])
     kernels += phi_timed.values()
     kernels += q8_timed.values()
-    del phi_checks, q8_checks
+    kernels += tiny_timed.values()
+    del phi_checks, q8_checks, tiny_checks
     gc.collect()
     torch.cuda.empty_cache()
     if args.kernels_only:
@@ -7004,6 +7559,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        tiny_counts, dataprep_legs = drive_dataprep(torch, fa, da, tmp, card)
+        dataprep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         q8_counts, q8_calls, q8_legs = drive_qwen3_8b(
             torch, F, fa, da, volume, tmp, tok, card)
         q8_s = time.perf_counter() - t0
@@ -7059,7 +7617,10 @@ def main() -> int:
     # to the D=64 entry); the QLoRA steps are held to it by head dim
     family = {96: "mu2phi3", 80: "phi2"}
     for k in kernels:
-        if k.get("group") == 4:  # the μ²Qwen3-8B forms: its paths' launches
+        if k.get("tiny"):  # the selftest's and serve-llm's by head dim
+            by_path = {path: n.get(f"{k['kernel']}_d{k['head_dim']}", 0)
+                       for path, n in tiny_counts.items()}
+        elif k.get("group") == 4:  # the μ²Qwen3-8B forms: its paths' launches
             by_path = {path: n.get(k["kernel"], 0)
                        for path, n in q8_counts.items()}
         elif "head_dim" in k:
@@ -7076,7 +7637,7 @@ def main() -> int:
         if not k["launches"] and k["name"] not in NO_PATH_FORMS:
             raise AssertionError(f"{k['name']}: no launch on its paths")
         for key in ("shape", "check", "ref_scale", "plain_rows",
-                    "device_ms_traced"):
+                    "device_ms_traced", "tiny"):
             k.pop(key, None)
     print(json.dumps({"script_s": time.perf_counter() - t_start,
                       "green_dpo_phase_s": green_s, "eval_phase_s": eval_s,
@@ -7084,6 +7645,8 @@ def main() -> int:
                       "qlora_phase_s": qlora_s,
                       "ablation_phase_s": ablation_s,
                       "m3d_phase_s": m3d_s, "m3d_legs_s": m3d_legs,
+                      "dataprep_phase_s": dataprep_s,
+                      "dataprep_legs_s": dataprep_legs,
                       "qwen3_8b_phase_s": q8_s,
                       "qwen3_8b_legs_s": q8_legs}), flush=True)
     print(card, flush=True)

@@ -6,9 +6,12 @@ A library is named by the hash of its source, the shared headers
 library and an unchanged tree reuses what was built.
 """
 
+import re
+
 import pytest
 
 from u2tokenizer_torch.ops import _build
+from u2tokenizer_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.fast
 
@@ -62,3 +65,16 @@ def test_flash_sources_share_the_hopper_header():
     """K1/K2 and K4b/K4c build on the one shared header."""
     for name in ("flash_fwd.cu", "flash_bwd.cu"):
         assert '#include "hopper.cuh"' in (_build.CSRC / name).read_text()
+
+
+@pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_bwd.cu"])
+def test_flash_switches_instantiate_the_wrappers_head_dims(source):
+    """The launch switch of K1/K2 (flash_fwd.cu) and of K4a-c
+    (flash_bwd.cu) instantiates every head dim the wrappers let through,
+    the tiny configs' 16 and 32 among them, and no other."""
+    text = (_build.CSRC / source).read_text()
+    cases = tuple(sorted(int(d) for d in re.findall(r"case (\d+):", text)))
+    assert cases == fa.FWD_HEAD_DIMS == fa.BWD_HEAD_DIMS
+    assert {16, 32} <= set(cases)
+    assert set(fa.launches) == {f"{name}_d{d}" for d in cases
+                                for name in fa.KERNELS + fa.BWD_KERNELS}

@@ -85,7 +85,8 @@ def test_flash_gradient_at_d96_matches_jax_grad(causal):
 def test_launch_counters_by_head_dim():
     """Every kernel has one counter at each head dim it takes, and the
     backward takes the forward's head dims."""
-    assert t_flash.BWD_HEAD_DIMS == t_flash.FWD_HEAD_DIMS == (64, 80, 96, 128)
+    assert t_flash.BWD_HEAD_DIMS == t_flash.FWD_HEAD_DIMS == (16, 32, 64, 80,
+                                                              96, 128)
     assert set(t_flash.launches) == {
         f"{name}_d{d}" for name in t_flash.KERNELS + t_flash.BWD_KERNELS
         for d in t_flash.FWD_HEAD_DIMS}

@@ -311,11 +311,12 @@ def test_cli_green_with_a_phi2_judge(tmp_path, monkeypatch):
     assert len(row["green_scores"]) == 3
 
 
-@pytest.mark.parametrize("d", [64, 80, 96, 128, 48, 112])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128, 48, 112])
 def test_kernel_wrappers_take_phi_head_dims(d):
     """The CUDA wrappers' operand checks, made before a launch: the flash
-    forward (K1/K2), the flash backward (K4a-c) and the decode kernel (K3)
-    take D in {64, 80, 96, 128}; any other D raises."""
+    forward (K1/K2) and the flash backward (K4a-c) take D in {16, 32, 64,
+    80, 96, 128}, the decode kernel (K3) D in {64, 80, 96, 128}; any other
+    D raises."""
     from u2tokenizer_torch.ops import decode_attention as t_dec
     from u2tokenizer_torch.ops import flash_attention as t_flash
 
@@ -328,8 +329,8 @@ def test_kernel_wrappers_take_phi_head_dims(d):
         else:
             with pytest.raises(ValueError, match="head dim"):
                 t_flash._check_attention(q, q, q, lens, dims)
-    assert t_flash.FWD_HEAD_DIMS == (64, 80, 96, 128)
-    assert t_flash.BWD_HEAD_DIMS == (64, 80, 96, 128)
+    assert t_flash.FWD_HEAD_DIMS == (16, 32, 64, 80, 96, 128)
+    assert t_flash.BWD_HEAD_DIMS == (16, 32, 64, 80, 96, 128)
     cache = torch.zeros(b, h, s, d, dtype=torch.int8)
     scales = torch.zeros(b, h, s, dtype=torch.bfloat16)
     args = (q[:, :1].contiguous(), cache, scales, cache, scales, lens, lens)

@@ -1,5 +1,5 @@
 """Command-line entry points of the port (counterpart of
-``u2tokenizer_tpu/cli.py``, whose other subcommands are not ported yet):
+``u2tokenizer_tpu/cli.py``; its ``verify-checkpoint`` is not ported yet):
 
   python -m u2tokenizer_torch.cli train       stage-1 SFT from a jsonl
   python -m u2tokenizer_torch.cli generate    CT volumes -> predictions
@@ -32,6 +32,15 @@
       pool of decode slots (``models.slot_serving.EngineInference``)
   python -m u2tokenizer_torch.cli serve-llm [--model-dir DIR | --preset P]
       OpenAI-protocol serving of a bare decoder (``serve.TextLMServer``)
+  python -m u2tokenizer_torch.cli preprocess IN... --out-dir D
+                                              NIfTI files -> preprocessed
+                                              .npy (``data/preprocess.py``)
+  python -m u2tokenizer_torch.cli selftest    train -> generate -> green ->
+                                              dpo-convert at the tiny
+                                              config on synthetic volumes
+
+``main`` writes a JSON crash report (``utils/errors.record``) into
+``./error_reports`` when a subcommand raises.
 
 Every subcommand that runs a model runs it on the GPU unless ``--device
 cpu`` is given. The model subcommands take the μ²tokenizer ablation flags
@@ -965,6 +974,93 @@ def cmd_serve_llm(args):
     httpd.serve_forever()
 
 
+# ---------------------------------------------------------------------------
+# preprocess / selftest
+# ---------------------------------------------------------------------------
+
+def cmd_preprocess(args):
+    """Offline bulk ingest: NIfTI volumes -> preprocessed (T, D, H, W)
+    ``.npy`` files through ``data.preprocess.bulk_preprocess`` (host
+    threads read and write, the ingest runs on ``--device``; reference
+    counterpart: src/utils/ct_rate_reduction.py /
+    abdomen_atlas_reduction.py). Exits 1 if any volume failed. Returns the
+    results."""
+    from .data.preprocess import bulk_preprocess
+
+    paths = []
+    for inp in args.inputs:
+        if os.path.isdir(inp):
+            for name in sorted(os.listdir(inp)):
+                if name.endswith((".nii", ".nii.gz")):
+                    paths.append(os.path.join(inp, name))
+        else:
+            paths.append(inp)
+    results = bulk_preprocess(
+        paths, target=args.target,
+        chunk_depth=args.chunk_depth, num_chunks=args.num_chunks,
+        num_workers=args.workers, out_dir=args.out_dir, device=args.device)
+    failed = [(p, e) for p, _, e in results if e]
+    print(f"preprocess: {len(results) - len(failed)}/{len(results)} volumes "
+          f"-> {args.out_dir}")
+    for p, e in failed:
+        print(f"  FAILED {p}: {e}")
+    if failed:
+        raise SystemExit(1)
+    return results
+
+
+def cmd_selftest(args, tokenizer=None):
+    """Tiny end-to-end pipeline on synthetic data (the JAX CLI's
+    ``selftest``): two NIfTI volumes and a jsonl in a new temporary
+    directory, then ``train --tiny`` for 2 steps, ``generate`` (2 cases x 2
+    greedy samples of 8 tokens), ``green`` with the stub judge and
+    ``dpo-convert``, each through this parser, so its defaults apply; every
+    model stage runs on ``--device``. Returns the directory."""
+    import tempfile
+
+    import numpy as np
+
+    from .data.nifti import write_nifti
+
+    tmp = tempfile.mkdtemp(prefix="u2selftest_")
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        write_nifti(os.path.join(tmp, f"case{i}.nii.gz"),
+                    rng.uniform(-1000, 400, (40, 48, 36)).astype(np.float32))
+    with open(os.path.join(tmp, "train.jsonl"), "w") as f:
+        for i in range(2):
+            f.write(json.dumps({
+                "image": f"case{i}.nii.gz",
+                "question": "Please describe the findings",
+                "answer": f"The study {i} shows clear lungs and a normal heart"
+            }) + "\n")
+    tokenizer = tokenizer or _load_tokenizer(args.tokenizer)
+    model_args = ["--tiny", "--device", args.device]
+    parser = build_parser()
+    cmd_train(parser.parse_args([
+        "train", *model_args, "--train-base-path", tmp,
+        "--train-jsonl-path", "train.jsonl", "--learning-rate", "1e-4",
+        "--epochs", "1", "--batch-size", "2", "--max-length", "64",
+        "--output-dir", os.path.join(tmp, "out"), "--save-steps", "1000",
+        "--max-steps", "2", "--num-workers", "1"]), tokenizer=tokenizer)
+    cmd_generate(parser.parse_args([
+        "generate", *model_args, "--base-path", tmp, "--jsonl-path",
+        "train.jsonl", "--max-length", "64", "--max-new-tokens", "8",
+        "--num-samples", "2", "--end", "2",
+        "--output", os.path.join(tmp, "preds.jsonl")]),
+        tokenizer=tokenizer)
+    cmd_green(parser.parse_args([
+        "green", "--predictions", os.path.join(tmp, "preds.jsonl"),
+        "--no-summary", "--output", os.path.join(tmp, "greened.jsonl"),
+        "--device", args.device]))
+    cmd_dpo_convert(parser.parse_args([
+        "dpo-convert", "--greened", os.path.join(tmp, "greened.jsonl"),
+        "--output", os.path.join(tmp, "dpo.jsonl")]))
+    print(f"selftest artifacts in {tmp}")
+    print("SELFTEST OK")
+    return tmp
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="u2tokenizer_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1210,12 +1306,35 @@ def build_parser() -> argparse.ArgumentParser:
     sl.add_argument("--top-p", dest="top_p", type=float, default=0.9)
     _add_device(sl)
     sl.set_defaults(fn=cmd_serve_llm)
+
+    st = sub.add_parser("selftest")
+    st.add_argument("--tokenizer", default=None,
+                    help="HF tokenizer dir; omit to use the built-in mock")
+    _add_device(st)
+    st.set_defaults(fn=cmd_selftest)
+
+    pp = sub.add_parser(
+        "preprocess",
+        help="bulk NIfTI -> preprocessed .npy (host threads read and "
+             "write, the ingest runs on --device)")
+    pp.add_argument("inputs", nargs="+", help="NIfTI files or directories")
+    pp.add_argument("--out-dir", dest="out_dir", required=True)
+    pp.add_argument("--target", type=int, default=256)
+    pp.add_argument("--chunk-depth", dest="chunk_depth", type=int, default=32)
+    pp.add_argument("--num-chunks", dest="num_chunks", type=int, default=8)
+    pp.add_argument("--workers", type=int, default=None)
+    _add_device(pp)
+    pp.set_defaults(fn=cmd_preprocess)
     return p
 
 
 def main(argv=None):
+    from .utils.errors import record
+
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    # a JSON crash report for every entry point (the reference wraps its
+    # train mains with torch elastic's @record, train_stage1.py:30-31)
+    return record(args.fn)(args)
 
 
 if __name__ == "__main__":

@@ -71,6 +71,11 @@
 //     and Q columns and stay zero; the stores write d columns. The three
 //     N = 128 products do 128/d times the work they need (N = d, which
 //     wgmma allows, is later work).
+//   * Head dims 16 and 32 (the tiny configs' ViT and decoder) take D=64's
+//     tiles the same way: the one 64-column box is wider than the head dim
+//     and arrives zero-filled past d; S and dP sum d/16 k-steps, the N = 64
+//     products meet zero columns, and every store of dQ, dK and dV (and
+//     K4c's zeros for a fully masked key tile) writes d columns.
 //   * Masks: only tiles that cross lens[b], the sequence end or the causal
 //     diagonal test each (query, key) pair; a masked pair gets P = 0. A
 //     K4c block whose keys all lie at or past lens[b] writes zeros without
@@ -118,8 +123,9 @@ namespace {
 
 // ---------------------------------------------------------------- K4a ----
 
-// Tile width: 64 columns at D=64, 128 at D=80, 96 and 128 (Phi-2's and
-// Phi-3's head dims take D=128's tiles, as in flash_fwd.cu).
+// Tile width: 64 columns at D=16, 32 and 64, 128 at D=80, 96 and 128
+// (the tiny configs' head dims take D=64's tiles, Phi-2's and Phi-3's
+// D=128's, as in flash_fwd.cu).
 template <int D>
 struct Width {
   static constexpr int value = D <= 64 ? 64 : 128;
@@ -621,6 +627,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 template <typename F, typename... A>
 int dispatch(int d, int causal, A... a) {
   switch (d) {
+    case 16: return causal ? F::template run<16, true>(a...) : F::template run<16, false>(a...);
+    case 32: return causal ? F::template run<32, true>(a...) : F::template run<32, false>(a...);
     case 64: return causal ? F::template run<64, true>(a...) : F::template run<64, false>(a...);
     case 80: return causal ? F::template run<80, true>(a...) : F::template run<80, false>(a...);
     case 96: return causal ? F::template run<96, true>(a...) : F::template run<96, false>(a...);
@@ -645,8 +653,8 @@ struct Dkv {
 }  // namespace
 
 // All entry points: bf16 q (B, Sq, H, D), k/v (B, Sk, Hkv, D), dout like q;
-// fp32 lse/dd (B, H, Sq) contiguous; int32 lens (B,); d in {64, 80, 96,
-// 128}; `strides` is host memory holding 3 int64 (batch, sequence, head)
+// fp32 lse/dd (B, H, Sq) contiguous; int32 lens (B,); d in {16, 32, 64,
+// 80, 96, 128}; `strides` is host memory holding 3 int64 (batch, sequence, head)
 // strides in elements per tensor, in the order of the tensor arguments.
 
 // strides: q, k.

@@ -61,6 +61,13 @@
 //     hold data; O += P V runs at N = 128 with columns past d zero, and the
 //     store writes d columns. Shared memory, registers and blocks an SM are
 //     those of D=128; the P V product does 128/d times the work it needs.
+//   * Head dims 16 (the tiny ViT) and 32 (the tiny decoder) take D=64's
+//     tile in the same way: its one 64-column box is wider than the head
+//     dim, and the TMA map, which keeps d, fills the columns past d with
+//     zeros (the box's bytes still count in full on its mbarrier). S = Q K^T
+//     sums d/16 k-steps, O += P V runs at N = 64, the store writes d columns
+//     and the scale is the caller's (1/sqrt(d) of the true d). Shared
+//     memory, registers and blocks an SM are D=64's.
 // P is rounded to bf16 before its product, unnormalised (the TPU kernel
 // rounds it after normalising, in _kernel); chip_smoke.py's limit for K1/K2
 // allows for that.
@@ -69,7 +76,7 @@
 // non-causal, no spills), blocks an SM (of 233,472 B, 1 KB of it reserved
 // a block, and 65,536 registers):
 //     D=64   42,024 B   90 / 92   5      D=128  66,592 B  133 / 128  3
-//     D=80, D=96: D=128's layout and blocks an SM
+//     D=80, D=96: D=128's layout and blocks an SM; D=16, D=32: D=64's
 //
 // Not yet done (later work): tile t+1's S product overlapping tile t's
 // softmax inside the warpgroup (FA3's intra-warpgroup pipelining, with a
@@ -281,6 +288,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* lens,
   const long long* st = static_cast<const long long*>(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 16: return launch<16, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
+    case 32: return launch<32, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
     case 64: return launch<64, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
     case 80: return launch<80, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);
     case 96: return launch<96, CAUSAL>(q, k, v, l, out, b, h, hkv, sq, sk, scale, st, s);

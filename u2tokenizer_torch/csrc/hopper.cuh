@@ -333,8 +333,9 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 // strides (in elements: batch, row, head; the head dim contiguous), read in
 // boxes of 64 rows x 64 values of one head, 128-byte swizzled (the Tile
 // layout); rows past `rows`, and columns past `d` (a head dim of 80 or 96
-// in a tile of two column blocks), read as zeros, and a box's bytes count
-// in full on its mbarrier.
+// in a tile of two column blocks, or of 16 or 32 in one block wider than
+// the tensor), read as zeros, and a box's bytes count in full on its
+// mbarrier.
 int tensor_map(CUtensorMap* map, const void* data, int b, int rows, int heads, int d,
                const Strides& st) {
   static EncodeTiled encode = nullptr;

@@ -216,7 +216,13 @@ def apply_augmentations(x: torch.Tensor, draws,
 def _upload_nifti(path: str, device) -> torch.Tensor:
     """A NIfTI file's (X, Y, Z) voxels as float32 on ``device``, scaled
     by the header's slope and intercept where they apply."""
-    raw, slope, inter = read_nifti_raw(path)
+    return upload_raw(*read_nifti_raw(path), device)
+
+
+def upload_raw(raw: np.ndarray, slope: float, inter: float,
+               device) -> torch.Tensor:
+    """``read_nifti_raw``'s voxels as float32 on ``device``: moved in
+    their stored type, then cast and scaled there."""
     vol = torch.from_numpy(raw.astype(raw.dtype.newbyteorder("=")))
     vol = vol.to(device).float()
     if scaling_applies(slope, inter):

@@ -41,9 +41,10 @@ NEG_INF = -1e30
 KERNELS = ("flash_fwd_noncausal", "flash_fwd_causal")
 BWD_KERNELS = ("flash_bwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
 # head dims the CUDA sources instantiate: both the forward
-# (csrc/flash_fwd.cu) and the backward (csrc/flash_bwd.cu) take Phi-2's 80
-# and Phi-3's 96 in D=128's tiles
-FWD_HEAD_DIMS = BWD_HEAD_DIMS = (64, 80, 96, 128)
+# (csrc/flash_fwd.cu) and the backward (csrc/flash_bwd.cu) take the tiny
+# configs' 16 (ViT) and 32 (decoder) in D=64's tiles, and Phi-2's 80 and
+# Phi-3's 96 in D=128's
+FWD_HEAD_DIMS = BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 launches = {f"{name}_d{d}": 0 for name in KERNELS + BWD_KERNELS
             for d in FWD_HEAD_DIMS}
 
