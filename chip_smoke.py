@@ -42,9 +42,12 @@ Run from the root of a checkout. It
      at its QLoRA call (B=1, 423 valid), timed, with a ``qwen3_8b_calls``
      line; the tiny configs' forms (``tiny_kernel_checks``): K1 at D=16
      (the tiny ViT's call, 65 tokens, fused q/k/v) and K2 at D=32 (the
-     tiny decoder's, GQA group 2), K4a-c at both, timed, with a
-     ``tiny_calls`` line and both K4 calls on the ``flash_bwd_calls``
-     line, and every form at both dims on the tile edges, untimed;
+     tiny decoder's, GQA group 2), K4a-c at both, K3-int8 and K3-int4 at
+     D=32 (the tiny decoder's decode call, B=2, 4/2 heads, step 3 of
+     64 + 8 slots), timed, with a ``tiny_calls`` line and both K4 calls on
+     the ``flash_bwd_calls`` line, and every flash form at both dims on the
+     tile edges and K3 at D=32 on its split path and a 3-token prompt,
+     untimed;
      K1 at D=80 and 96 (no path either) on 1024 tokens, timed by events
      beside SDPA alone (``flash_fwd_no_path``); K1/K2 at both on
      the tile edge, K3 at groups 2, 4 and 8, its first and last steps and
@@ -54,7 +57,7 @@ Run from the root of a checkout. It
      random weights from a fixed seed cast to bf16, CT volumes of
      (8, 32, 256, 256), a 1024-token prompt (the last row 900), 64 question
      tokens and a greedy decode: first bf16 weights, the int8 KV cache, 4
-     volumes and 128 tokens (``--max-new``); then, 128 tokens (its 768
+     volumes and 64 tokens (``--max-new``); then, 128 tokens (its 768
      cut for the script's time), the configuration of the JAX package's
      ``bench.py``: decoder weights quantized to int8, the int4 KV cache,
      112 volumes, the ViT over groups of 128 chunks. Each asserts the
@@ -107,14 +110,21 @@ Run from the root of a checkout. It
      this process (``drive_green_dpo``), on the same checkpoint, two more
      seeded CTs and a jsonl of three cases, with a closed
      ``MockTokenizer``: ``train`` from files (3 steps, B=1, the training
-     augmentations on the card), ``generate --do-sample --num-samples 8``
+     augmentations on the card), the same ``train`` on the
+     (data, fsdp, tensor) mesh of one rank a card under
+     ``torch.distributed.run`` (``start_mesh_train``: this script in
+     ``--mesh-train-rank`` mode a rank; losses within 2e-3 of the one-card
+     leg's, the same launches a step), ``generate --do-sample --num-samples 8``
      (256 tokens, the users' 768 cut for the script's time) on two cases,
      ``green`` with a judge directory (the Llama-3.2-1B preset, seeded
      bf16 weights: 16 prompts in batches of 4 padded to 2048,
      JUDGE_TOKENS greedy tokens, speculative with the shared prefix), one batch held to the
      plain judge under the near-tie rule, which must reject a shared
      prefix one bucket too long, and one batch with ``--judge-weights
-     int8``; ``green`` with the stub judge and ``dpo-convert`` (2 pairs);
+     int8``; ``distributed_green`` through an initialised NCCL group of one
+     rank over 4 of the judge's pairs, rows equal to the plain scorer's
+     (``green_distributed_leg``); ``green`` with the stub judge and
+     ``dpo-convert`` (2 pairs);
      ``dpo`` (4 steps at the JAX defaults: step 0 an identity, loss ln 2
      and rewards 0; one step profiled), again with ``--ce-chunk 256``
      (losses within 1e-3), and on one repeated pair at the default lr
@@ -139,7 +149,7 @@ Run from the root of a checkout. It
      leg's KL and top-1 within limits that must reject int4 scales of
      max/8;
   8. drives the Phi phase (``drive_phi``) on the same CT: μ²Phi-3-mini
-     (the default μ² stack on the ``phi3_mini`` decoder cut to 16 of its 32
+     (the default μ² stack on the ``phi3_mini`` decoder cut to 8 of its 32
      layers, 32 heads of 96, seeded weights) through ``drive_report``:
      exported by
      ``save_hf_checkpoint`` (fp32, as users write it) and read through
@@ -169,8 +179,9 @@ Run from the root of a checkout. It
      the CPU) with the int4 cache, and μ²Llama-3.2-1B with the bf16 cache;
      and (μ²Qwen3) with the chunked prefill, the shared-prefix prefill
      and a verify block written per row;
- 10. drives the SFT training path: full-width μ²Qwen3-1.7B with fp32
-     parameters and bf16 compute, AdamW at the ``TrainConfig`` defaults,
+ 10. drives the SFT training path: full-width μ²Qwen3-1.7B, the decoder
+     at 14 of its 28 layers (TRAIN_LAYERS), with fp32 parameters and bf16
+     compute, AdamW at the ``TrainConfig`` defaults,
      decoder layers rematerialised, 6 steps of ``run_training`` on one
      seeded (1, 8, 32, 256, 256) volume and a 1024-token row (900 valid),
      a checkpoint at the end; asserts finite, falling loss, moving
@@ -181,9 +192,9 @@ Run from the root of a checkout. It
      flash backward's wiring;
  12. drives the paper's stage-1 ablation matrix (``drive_ablation``) from
      the stage-2 phase's files and CT: ``cli train --attn-type rope`` at
-     the released μ²Llama-3.2-1B config (2 steps, K1 12, K2 32 and K4a-c
-     28 a step), its fp32 export and ``cli demo --attention`` on it (K1
-     24, K2 16), the answer's tokens held to ``make_multimodal_generate_fn``
+     the released μ²Llama-3.2-1B config at 8 of its 16 decoder layers
+     (``ablation_cli_config``; 2 steps, K1 12, K2 16 and K4a-c 20 a step),
+     its fp32 export and ``cli demo --attention`` on it (K1 24, K2 8), the answer's tokens held to ``make_multimodal_generate_fn``
      driven here, the capture's image tokens to ``encode_vision``'s, every
      map's rows summing to 1 and the PNG's size; then the vanilla, LinVT
      (one chunk, no μ²tokenizer), sequence-pool and linear-projector
@@ -208,14 +219,15 @@ Run from the root of a checkout. It
      planted faults of the flash backward's wiring); K2 and K4a-c at the
      phase's 512-row calls (untimed);
  12b. drives μ²Qwen3-8B (``drive_qwen3_8b``, the ``qwen3_8b`` decoder
-     under the default μ² stack, seeded weights, full width and depth):
+     under the default μ² stack, seeded weights, full width):
      ``bench.py``'s 8B serving configuration (int8 weights, the int4
      cache, B=16, 1024-token prompts, the last 900, 64 greedy tokens,
-     bench.py's 768 cut; K1 12, K2 36 and K3-int4 36 a step) and its
+     bench.py's 768 cut; the decoder at 18 of its 36 layers; K1 12, K2 18
+     and K3-int4 18 a step) and its
      2-layer model against the CPU's fp32; ``cli train --qlora int4
      --freeze-vision-tower --remat dots_no_batch`` (the head in 8 tiles,
-     the decoder at 18 of its 36 layers, 3 steps of B=1 at 1024 tokens;
-     K1 12, K2 36 and K4a-c 18 a step;
+     the decoder at 12 of its 36 layers, 3 steps of B=1 at 1024 tokens;
+     K1 12, K2 24 and K4a-c 12 a step;
      the adapters file read back bit for bit); the remat policies
      'nothing', 'dots_no_batch' and 'dots' on one step of the same model
      at 4 decoder layers (gradients within cosine 0.99999 and a norm
@@ -235,7 +247,9 @@ Run from the root of a checkout. It
      selftest`` on the card (its launches held to SELFTEST_LAUNCHES, one
      train step under ``utils.profiling.trace``, whose Chrome trace must
      name every tiny kernel); ``cli serve-llm`` at its default tiny preset
-     answering a chat request (K2 2 at D=32); and a failing command's
+     answering a chat request (K2 2 at D=32); the tiny model's greedy
+     decode over an int8 and an int4 cache (K3 at D=32, 14 each); and a
+     failing command's
      crash report naming the card. The serving phase's ``serve-llm`` also
      runs the synthesis loop: rewrite, translate, QA and thinking through
      ``OpenAIProtocolClient`` (K2 16 a request);
@@ -320,16 +334,19 @@ PROMPT, MAX_NEW, BATCH, VISION_MICROBATCH = 1024, 128, 4, 8
 # data-preparation phase came, for the script's time; the verify-fault
 # runs compare FAULT_TOKENS of them)
 REPORT_TOKENS = 192
-# the B=4 bf16 path decodes 128 tokens (256 until the evaluation phase
-# came), for the script's time on a slow host
-B4_MAX_NEW = 128
+# the B=4 bf16 path decodes 64 tokens (256 until the evaluation phase
+# came, 128 until the mesh leg came), for the script's time on a slow host
+B4_MAX_NEW = 64
 RAGGED = 900               # the last row's prompt length
 QUESTION = 64              # question tokens, the μ²tokenizer's text condition
 # The serving configuration of the JAX package's bench.py: int8 decoder
 # weights, int4 KV cache, 112 volumes, the ViT over groups of 128 chunks.
 QUANT_BATCH, QUANT_WEIGHTS, QUANT_CACHE, QUANT_MICROBATCH = 112, "int8", \
     "int4", 128
-TRAIN_STEPS = 6
+# the training path: TRAIN_STEPS steps of μ²Qwen3-1.7B at full width, the
+# decoder at TRAIN_LAYERS of its 28 layers (all 28 until the mesh leg came,
+# cut for the script's time: the checkpoint and the steps scale with it)
+TRAIN_STEPS, TRAIN_LAYERS = 6, 14
 TRAIN_VALID, TRAIN_PROMPT = 900, 320  # the training row: valid, unlabelled
 # Train step of the reduced model, card (bf16 compute) against CPU (fp32),
 # held parameter by parameter: the cosine of each gradient to its fp32
@@ -684,7 +701,7 @@ def flash_fwd_summary(calls: dict) -> dict:
     """Per call of K1 or K2: its time, its share of the bound
     (bound_ms / ms) and its ratio to SDPA's call with the same mask."""
     return {label: {"kernel": e["name"], "ms": e["ms"],
-                    "device_ms": e["device_ms"],
+                    "device_ms": e["device_ms"], "plain_ms": e["plain_ms"],
                     "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
                     "share_of_bound": e["bound_ms"] / e["ms"],
                     "device_share_of_bound": (e["bound_ms"] / e["device_ms"]
@@ -874,18 +891,19 @@ def nibbles(p, torch, order: str):
 
 def check_decode(torch, da, attn, bits: int, b: int,
                  step: int = (MAX_NEW - 1) // 2, prompt=None,
-                 timed: bool = True, heads=(16, 8, 128), new: int = MAX_NEW):
+                 timed: bool = True, heads=(16, 8, 128), new: int = MAX_NEW,
+                 slots: int = PROMPT):
     """K3 at decode step ``step`` of a serving path: ``b`` rows, ``heads``
     (q heads, kv heads, head dim; μ²Qwen3-1.7B's 16 / 8 of 128 by
-    default), an int8 (``bits`` 8) or packed int4 (4) cache of 1024 +
-    ``new`` slots, the rows' prompts ``prompt`` long (by default 1024, the
-    last row 900). Holds it to its plain version under TOL, shows that the same
+    default), an int8 (``bits`` 8) or packed int4 (4) cache of ``slots``
+    (1024) + ``new`` slots, the rows' prompts ``prompt`` long (by default
+    1024, the last row 900). Holds it to its plain version under TOL, shows that the same
     limits reject prompt_len[-1] and end one key off (and, at int4,
     nibbles read wrongly) and that a second call gives the same bits. With
     ``timed`` it is timed (CUDA events and device time) on caches cycled
     out of L2."""
     h, hkv, d = heads
-    s_total = PROMPT + new
+    s_total = slots + new
     name = da.KERNELS[bits]
     plen_l = list(prompt or [PROMPT] * (b - 1) + [RAGGED])
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -908,33 +926,33 @@ def check_decode(torch, da, attn, bits: int, b: int,
                             (kq, ks[..., 0], vq, vs[..., 0])))
         del kf, vf
     plen = torch.tensor(plen_l, dtype=torch.int32, device="cuda")
-    end = torch.full((b,), PROMPT + step + 1, dtype=torch.int32,
+    end = torch.full((b,), slots + step + 1, dtype=torch.int32,
                      device="cuda")
     kq, ks, vq, vs = caches[0]
-    out = da.decode_attention_quantized(q, kq, ks, vq, vs, plen, end, PROMPT)
+    out = da.decode_attention_quantized(q, kq, ks, vq, vs, plen, end, slots)
     n_split = da.split_count(b, hkv, s_total, da.sm_count(q.device))
     again = da.decode_attention_quantized(q, kq, ks, vq, vs, plen, end,
-                                          PROMPT)
-    ref = da.decode_attention_reference(q, kq, ks, vq, vs, plen, end, PROMPT)
-    visible = da.visible_keys(plen, end, PROMPT, s_total)
+                                          slots)
+    ref = da.decode_attention_reference(q, kq, ks, vq, vs, plen, end, slots)
+    visible = da.visible_keys(plen, end, slots, s_total)
     mutants = {}
     for shift in (-1, 1):  # each that moves the mask by a key
         off = plen.clone()
         off[-1] += shift
-        if not torch.equal(da.visible_keys(off, end, PROMPT, s_total),
+        if not torch.equal(da.visible_keys(off, end, slots, s_total),
                            visible):
             mutants[f"prompt_len[-1]{shift:+d}"] = \
                 da.decode_attention_reference(q, kq, ks, vq, vs, off, end,
-                                              PROMPT)
-        if not torch.equal(da.visible_keys(plen, end + shift, PROMPT,
+                                              slots)
+        if not torch.equal(da.visible_keys(plen, end + shift, slots,
                                            s_total), visible):
             mutants[f"end{shift:+d}"] = da.decode_attention_reference(
-                q, kq, ks, vq, vs, plen, end + shift, PROMPT)
+                q, kq, ks, vq, vs, plen, end + shift, slots)
     if bits == 4:
         for order in ("swapped", "unsigned"):
             mutants[f"nibbles {order}"] = da.decode_attention_reference(
                 q, nibbles(kq, torch, order), ks, nibbles(vq, torch, order),
-                vs, plen, end, PROMPT)
+                vs, plen, end, slots)
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError(f"{name}: two calls on the same inputs differ")
@@ -948,13 +966,13 @@ def check_decode(torch, da, attn, bits: int, b: int,
         def run():
             kq, ks, vq, vs = caches[next(it) % len(caches)]
             da.decode_attention_quantized(q, kq, ks, vq, vs, plen, end,
-                                          PROMPT)
+                                          slots)
 
         ms = time_ms(torch, run, inner=32)
         dev_ms, traced = device_ms(torch, run, "decode_attn_kernel",
                                    calls=32)
         plain_ms = time_ms(torch, lambda: da.decode_attention_reference(
-            q, kq, ks, vq, vs, plen, end, PROMPT), inner=4)
+            q, kq, ks, vq, vs, plen, end, slots), inner=4)
     rows = int(visible.sum())  # visible cache rows
     # per visible row and kv head: D*bits/8 bytes of K and of V, two bf16
     # scales; q read and the output written once; one exponential per
@@ -973,7 +991,7 @@ def check_decode(torch, da, attn, bits: int, b: int,
             "shape": {"q": list(q.shape), "k": list(kq.shape),
                       "prompt_len": plen_l if b <= 8 else
                       f"{plen_l[0]} x{b - 1}, {plen_l[-1]}",
-                      "end": PROMPT + step + 1, "step": step}}
+                      "end": slots + step + 1, "step": step}}
 
 
 def decode_summary(calls: dict) -> dict:
@@ -3157,15 +3175,18 @@ def training_batch(torch, cfg, seq: int, valid, prompt: int, seed: int = 0):
 
 
 def drive_training(torch, fa, da, steps: int):
-    """SFT of full-width μ²Qwen3-1.7B through ``make_trainer`` and
-    ``run_training``: ``steps`` steps on one seeded batch, a checkpoint at
-    the end into a temporary directory, one more step profiled."""
+    """SFT of full-width μ²Qwen3-1.7B, the decoder at TRAIN_LAYERS, through
+    ``make_trainer`` and ``run_training``: ``steps`` steps on one seeded
+    batch, a checkpoint at the end into a temporary directory, one more
+    step profiled."""
     from u2tokenizer_torch.config import TrainConfig, U2ModelConfig
     from u2tokenizer_torch.models.u2_model import U2CausalLM
     from u2tokenizer_torch.train.loop import MetricLogger, run_training
     from u2tokenizer_torch.train.sft import make_trainer
 
     cfg = U2ModelConfig()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=TRAIN_LAYERS))
     with tempfile.TemporaryDirectory() as out:
         tcfg = TrainConfig(max_steps=steps, log_steps=1, output_dir=out)
         t0 = time.perf_counter()
@@ -3225,7 +3246,8 @@ def drive_training(torch, fa, da, steps: int):
         raise AssertionError(f"loss did not fall: {losses}")
     s_step = statistics.median(times[1:])
     seq = tcfg.model_max_length
-    return {"model": "mu2Qwen3-1.7B", "params": "fp32", "compute": "bf16",
+    return {"model": "mu2Qwen3-1.7B", "decoder_layers": TRAIN_LAYERS,
+            "params": "fp32", "compute": "bf16",
             "n_params": n_params,
             "batch": 1, "seq": seq, "valid_tokens": TRAIN_VALID,
             "remat": tcfg.remat, "optimizer": "AdamW",
@@ -3767,7 +3789,7 @@ def train_record(args, out) -> dict:
 def step_probe(torch, fa, da, module, name: str, unpack: bool = False,
                profile_at=None, record=train_record):
     """``module.<name>``, a factory of steps (returning the step, or
-    (state, step) with ``unpack``): train steps, or with another
+    (state, step, ...) with ``unpack``): train steps, or with another
     ``record`` any callable such as ``make_multimodal_generate_fn``'s,
     wrapped inside the block so that every step it makes is timed (host
     clock around a synchronize), and its kernel launches and ``record(step
@@ -3798,7 +3820,7 @@ def step_probe(torch, fa, da, module, name: str, unpack: bool = False,
                 "launches_by_dim": by_dim, **record(args, out)})
             return out
 
-        return (made[0], run) if unpack else run
+        return (made[0], run, *made[2:]) if unpack else run
 
     setattr(module, name, probed)
     try:
@@ -3829,6 +3851,15 @@ def expect_launches(label: str, records, want: dict,
                                  f"{want}")
 
 
+def train_file_argv(data: str, ckpt: str) -> list:
+    """The stage-1 ``cli train`` leg's arguments but the output directory
+    (the mesh leg's too)."""
+    return ["train", "--pretrained", ckpt, "--tokenizer", "mock",
+            "--train-base-path", data, "--train-jsonl-path", "cases.jsonl",
+            "--max-steps", str(TRAIN_FILE_STEPS), "--batch-size", "1",
+            "--max-length", "1024", "--num-workers", "2"]
+
+
 def green_train_phase(torch, fa, da, tok, data: str, ckpt: str,
                       tmp: str) -> tuple:
     """``cli train`` from files: TRAIN_FILE_STEPS steps of B=1 over the
@@ -3842,11 +3873,7 @@ def green_train_phase(torch, fa, da, tok, data: str, ckpt: str,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with step_probe(torch, fa, da, sft, "make_trainer", unpack=True) as recs:
-        state = cli_run(["train", "--pretrained", ckpt, "--tokenizer", "mock",
-                         "--train-base-path", data, "--train-jsonl-path",
-                         "cases.jsonl", "--max-steps", str(TRAIN_FILE_STEPS),
-                         "--batch-size", "1", "--max-length", "1024",
-                         "--num-workers", "2", "--output-dir", out],
+        state = cli_run(train_file_argv(data, ckpt) + ["--output-dir", out],
                         tokenizer=tok)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
@@ -4344,6 +4371,207 @@ def check_dpo_reference(torch, fa, tok) -> dict:
             "planted_faults": caught}
 
 
+# The mesh leg: the stage-1 ``cli train`` leg's files, checkpoint, config
+# and seeds on the (data, fsdp, tensor) mesh of one rank a visible card (at
+# most one a case of the jsonl) under ``torch.distributed.run``, each rank
+# this script in MESH_RANK_FLAG mode. At one card its losses are the
+# one-card leg's within MESH_LOSS_RTOL (the same rows and weights through
+# ``sft.make_sharded_trainer``, whose loss sums in another order), its
+# launches a step the same. The ranks start before the stage-2 files are
+# written and wait, their imports and kernel loads done, for the go file
+# (``start_mesh_train``), which the phase writes after the one-card leg
+# (``finish_mesh_train``): their start-up runs beside the files' writing
+# and the one-card leg, and the leg's seconds count from the go.
+MESH_RANK_FLAG = "--mesh-train-rank"
+MESH_LOSS_RTOL = 2e-3
+MESH_GO_POLL_S = 0.2
+MESH_GO_WAIT_S = 900  # a rank gives up if the go file has not come
+
+
+def mesh_train_rank(out: str, argv) -> int:
+    """One rank of the mesh leg: once ``out``.go exists, ``cli train``
+    (``argv``) with the phase's closed tokenizer, every step timed and its
+    launches kept by ``step_probe`` around ``sft.make_sharded_trainer``;
+    rank 0 writes the readings to ``out``."""
+    t_setup = time.perf_counter()
+    import torch
+
+    from u2tokenizer_torch.ops import _build
+    from u2tokenizer_torch.ops import decode_attention as da
+    from u2tokenizer_torch.ops import flash_attention as fa
+    from u2tokenizer_torch.train import sft
+
+    _build.build_all()
+    tok = green_tokenizer(released_config().llm.vocab_size)
+    ready_s = time.perf_counter() - t_setup
+    while not os.path.exists(out + ".go"):
+        if time.perf_counter() - t_setup > MESH_GO_WAIT_S:
+            log("mesh leg: no go file; the script that started it is gone")
+            return 1
+        time.sleep(MESH_GO_POLL_S)
+    reset_launches(fa, da)
+    t0 = time.perf_counter()
+    with step_probe(torch, fa, da, sft, "make_sharded_trainer",
+                    unpack=True) as recs:
+        state = cli_run(argv, tokenizer=tok)
+    total = time.perf_counter() - t0
+    launches = read_launches(fa, da)
+    if os.environ.get("RANK", "0") == "0":
+        with open(out, "w") as f:
+            json.dump({"records": [{k: r[k] for k in ("s", "metrics",
+                                                      "launches")}
+                                   for r in recs],
+                       "world": int(os.environ.get("WORLD_SIZE", "1")),
+                       "mesh": dataclasses.asdict(state.mesh.cfg),
+                       "launches": launches,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "rank_ready_s": ready_s, "cli_total_s": total}, f)
+    return 0
+
+
+def start_mesh_train(torch, argv, tmp: str) -> dict:
+    """Start the mesh leg's ranks (a ``torch.distributed.run`` subprocess,
+    its output in ``tmp/mesh_train.log``) on the stage-1 leg's ``argv``
+    with ``--mesh-fsdp`` the number of cards; they wait for the go file of
+    ``finish_mesh_train``. Returns what that and ``stop_mesh_train``
+    take."""
+    cards = min(torch.cuda.device_count(), len(GREEN_CT_SEEDS))
+    out = os.path.join(tmp, "mesh_train.json")
+    log_path = os.path.join(tmp, "mesh_train.log")
+    argv = [*argv, "--output-dir", os.path.join(tmp, "sft_mesh"),
+            "--mesh-fsdp", str(cards)]
+    log_file = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(cards), os.path.abspath(__file__),
+         MESH_RANK_FLAG, out, *argv], stdout=log_file,
+        stderr=subprocess.STDOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return {"proc": proc, "log": log_file, "log_path": log_path, "out": out,
+            "cards": cards, "tmp": tmp}
+
+
+def stop_mesh_train(started: dict) -> None:
+    """Stop the mesh leg's ranks if they still run (a failure before or
+    during the leg), and close its log."""
+    proc = started["proc"]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    started["log"].close()
+
+
+def finish_mesh_train(torch, started: dict, single: dict) -> dict:
+    """Let the started ranks train and read them: losses within
+    MESH_LOSS_RTOL of the one-card leg's (``single``) at one card, K1, K2
+    and K4a-c launches a step equal to its, the run's launches its steps'
+    alone, s/step and peak memory with the world size and the mesh."""
+    proc, out, cards = started["proc"], started["out"], started["cards"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(out + ".go", "w"):
+        pass
+    try:
+        proc.wait(600)
+    except subprocess.TimeoutExpired:
+        stop_mesh_train(started)
+    total = time.perf_counter() - t0
+    started["log"].flush()
+    if proc.returncode:
+        with open(started["log_path"]) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"the mesh leg exited {proc.returncode}: "
+                             f"{tail}")
+    with open(out) as f:
+        got = json.load(f)
+    shutil.rmtree(os.path.join(started["tmp"], "sft_mesh"),
+                  ignore_errors=True)
+    recs = got.pop("records")
+    loss = [r["metrics"]["loss"] for r in recs]
+    if len(recs) != TRAIN_FILE_STEPS or not all(map(math.isfinite, loss)):
+        raise AssertionError(f"mesh leg: {recs}")
+    want = {k: n for k, n in single["launches_per_step"].items() if n}
+    for i, r in enumerate(recs):
+        got_launches = {k: n for k, n in r["launches"].items() if n}
+        if got_launches != want:
+            raise AssertionError(f"mesh leg step {i}: launches "
+                                 f"{got_launches} != the one-card leg's "
+                                 f"{want}")
+    summed = {k: sum(r["launches"][k] for r in recs) for k in got["launches"]}
+    if summed != got["launches"]:
+        raise AssertionError(f"mesh leg: launches {got['launches']} outside "
+                             f"its steps' {summed}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss, single["loss"])]
+    if cards == 1 and max(rel) > MESH_LOSS_RTOL:
+        raise AssertionError(f"mesh leg losses {loss} against the one-card "
+                             f"leg's {single['loss']}")
+    return {**got, "cards": cards, "loss": loss,
+            "grad_norm": [r["metrics"]["grad_norm"] for r in recs],
+            "loss_rel_err_vs_one_card": rel, "tol": MESH_LOSS_RTOL,
+            "step_s": [r["s"] for r in recs],
+            "s_per_step": statistics.median(r["s"] for r in recs[1:]),
+            "launches_per_step": recs[-1]["launches"],
+            "subprocess_s_after_go": total}
+
+
+# distributed_green's pairs: the first case's first GREEN_DIST_PAIRS
+# samples against its reference, at JUDGE_TOKENS
+GREEN_DIST_PAIRS = 4
+
+
+def green_distributed_leg(torch, fa, da, tok, data: str, tmp: str) -> tuple:
+    """``distributed_green`` through an initialised NCCL group (one rank,
+    this card) with the stage-2 judge (``tmp/judge``, JUDGE_TOKENS) over
+    GREEN_DIST_PAIRS of the phase's pairs: its scores and rows, exchanged
+    through the group as JSON bytes, equal the plain scorer's on the same
+    pairs, and K2 launched. Returns (the line, its launches)."""
+    import torch.distributed as dist
+
+    from u2tokenizer_torch import cli
+    from u2tokenizer_torch.eval.green import GreenScorer
+    from u2tokenizer_torch.eval.green_distributed import distributed_green
+
+    with open(os.path.join(data, "preds.jsonl")) as f:
+        row = json.loads(f.readline())
+    hyps = row["predictions"][:GREEN_DIST_PAIRS]
+    refs = [row["answer"]] * len(hyps)
+    args = cli.build_parser().parse_args(
+        ["green", "--predictions", "-", "--judge", os.path.join(tmp, "judge"),
+         "--output", "-"])
+    judge = cli._build_judge(args, tok)
+    judge.gen_cfg = dataclasses.replace(judge.gen_cfg,
+                                        max_new_tokens=JUDGE_TOKENS)
+    scorer = GreenScorer(judge, compute_summary_stats=False)
+    plain = scorer(refs, hyps)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        reset_launches(fa, da)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = distributed_green(scorer, refs, hyps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches(fa, da)
+    finally:
+        dist.destroy_process_group()
+    del judge, scorer
+    if got.scores != plain.scores or got.rows != json.loads(
+            json.dumps(plain.rows)):
+        raise AssertionError(f"distributed_green {got.scores} against the "
+                             f"plain scorer's {plain.scores}")
+    if not launches["flash_fwd_causal"]:
+        raise AssertionError(f"distributed_green launched no K2: {launches}")
+    return {"pairs": len(hyps), "backend": "nccl", "world": 1,
+            "s": seconds, "scores": got.scores,
+            "rows_equal_plain": True, "launches": nonzero(launches)}, launches
+
+
 def drive_green_dpo(torch, F, fa, da, tmp: str, card: str) -> tuple:
     """Stage 1 from files and stage 2 of the paper through the port's CLI
     in this process, each subcommand with a closed ``MockTokenizer``
@@ -4358,20 +4586,35 @@ def drive_green_dpo(torch, F, fa, da, tmp: str, card: str) -> tuple:
     cfg = released_config()
     ckpt = os.path.join(tmp, "mu2llama")
     tok = green_tokenizer(cfg.llm.vocab_size)
-    t0 = time.perf_counter()
-    data = write_green_data(tmp)
-    counts = {}
-    line = {"write_data_s": time.perf_counter() - t0}
-    line["train"], counts["green_dpo_train"] = green_train_phase(
-        torch, fa, da, tok, data, ckpt, tmp)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mesh = start_mesh_train(torch, train_file_argv(
+        os.path.join(tmp, "green_dpo"), ckpt), tmp)
+    try:
+        t0 = time.perf_counter()
+        data = write_green_data(tmp)
+        counts = {}
+        line = {"write_data_s": time.perf_counter() - t0}
+        line["train"], counts["green_dpo_train"] = green_train_phase(
+            torch, fa, da, tok, data, ckpt, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        line["train_mesh"] = finish_mesh_train(torch, mesh, line["train"])
+        line["train_mesh"]["phase_s"] = time.perf_counter() - t0
+    finally:
+        stop_mesh_train(mesh)
+    counts["green_dpo_train_mesh"] = line["train_mesh"]["launches"]
     line["generate"], counts["green_dpo_generate"], rows = \
         green_generate_phase(torch, fa, da, tok, data, ckpt)
     gc.collect()
     torch.cuda.empty_cache()
     line["judge"], counts["green_dpo_judge"], judge_lens = green_judge_phase(
         torch, fa, da, tok, data, tmp, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["green_distributed"], counts["green_dpo_green_distributed"] = \
+        green_distributed_leg(torch, fa, da, tok, data, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
     line["stub_green_and_convert"] = green_stub_phase(data, rows)
     line["card"] = card
     print(json.dumps({"green_dpo_files": line}), flush=True)
@@ -4866,9 +5109,10 @@ PHI_NEW = 32
 # phase came, cut for the script's time)
 PHI_REPORT_TOKENS = 128
 # μ²Phi-3-mini's report and B=4 batches at PHI3_LAYERS of its 32 decoder
-# layers (the full depth until the data-preparation phase came, cut for the
-# script's time; the QLoRA leg reads the same export at QLORA_LAYERS)
-PHI3_LAYERS = 16
+# layers (the full depth until the data-preparation phase came, 16 until the
+# mesh leg came, cut for the script's time; the QLoRA leg reads the same
+# export at QLORA_LAYERS)
+PHI3_LAYERS = 8
 PHI3_PREFILL_CALL = dict(PREFILL_CALL, h=32, hkv=32, d=96)
 PHI2_JUDGE_CALL = dict(JUDGE_CALL, hkv=32, d=80)
 PHI_HEADS = {96: (32, 32, 96), 80: (32, 32, 80)}
@@ -4919,9 +5163,9 @@ def phi_kernel_checks(torch, F, fa, da, attn) -> tuple:
             timed[f"{da.KERNELS[bits]}_d{d}"] = check_decode(
                 torch, da, attn, bits, BATCH, (PHI_NEW - 1) // 2,
                 heads=heads, new=PHI_NEW)
-    # K1 at D=80 and 96 (the first two) timed by events alone, beside SDPA
-    checks = [check_flash(torch, F, fa, call, 42 + i, timed=i < 2,
-                          profiled=False)
+    # K1 at D=80 and 96 (the first two; no path launches them) timed, with
+    # their device time and plain version, beside SDPA
+    checks = [check_flash(torch, F, fa, call, 42 + i, timed=i < 2)
               for i, call in enumerate(PHI_EDGE_FWD)]
     for d in PHI_HEADS:
         for bits in (8, 4):
@@ -5652,15 +5896,30 @@ def demo_prompt(torch, tok, cfg, question: str, max_length: int = 1024):
             torch.tensor([len(ids)], dtype=torch.int32, device="cuda"))
 
 
+# the ablation's CLI leg trains and demos the released μ²Llama-3.2-1B with
+# 'rope' at ABLATION_CLI_LAYERS of its 16 decoder layers (all 16 until the
+# mesh leg came, cut for the script's time: its checkpoint and export scale
+# with them)
+ABLATION_CLI_LAYERS = 8
+
+
+def ablation_cli_config():
+    """The released configuration, the decoder at ABLATION_CLI_LAYERS."""
+    cfg = released_config()
+    return dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=ABLATION_CLI_LAYERS))
+
+
 def ablation_cli_leg(torch, fa, da, tok, data: str, volume,
                      tmp: str) -> tuple:
-    """``cli train --config <released> --attn-type rope`` for
-    ABLATION_STEPS steps from the stage-2 phase's files (no
-    ``--pretrained``: an 'rma' checkpoint's bias tables have no place in
-    a rope model), each step K1 12, K2 32 and K4a-c 28; the trained state
+    """``cli train --config <released> --attn-type rope``, the decoder at
+    ABLATION_CLI_LAYERS of its 16 layers, for ABLATION_STEPS steps from
+    the stage-2 phase's files (no ``--pretrained``: an 'rma' checkpoint's
+    bias tables have no place in a rope model), each step K1 12, K2 twice
+    and K4a-c once a decoder layer and K4a-c 12 more (the ViT); the trained state
     exported by ``save_hf_checkpoint`` (fp32); then ``cli demo
     --checkpoint --attention`` on one question, timed by stage (load,
-    capture, answer), K1 24 and K2 16 in all. Held: the answer's tokens
+    capture, answer), K1 24 and K2 once a decoder layer in all. Held: the answer's tokens
     and text those of ``make_multimodal_generate_fn`` driven here, stage
     by stage, on inputs built here and the demo's model; the capture's
     image tokens ``encode_vision``'s bit for bit; every map's rows sum to
@@ -5674,9 +5933,9 @@ def ablation_cli_leg(torch, fa, da, tok, data: str, volume,
     from u2tokenizer_torch.train import sft
     from u2tokenizer_torch.weights import flax_params
 
-    config_path = os.path.join(tmp, "released_config.json")
+    config_path = os.path.join(tmp, "ablation_cli_config.json")
     with open(config_path, "w") as f:
-        f.write(released_config().to_json())
+        f.write(ablation_cli_config().to_json())
     out = os.path.join(tmp, "sft_rope")
     reset_launches(fa, da)
     torch.cuda.reset_peak_memory_stats()
@@ -5692,9 +5951,10 @@ def ablation_cli_leg(torch, fa, da, tok, data: str, volume,
     train_s = time.perf_counter() - t0
     train_launches = read_launches(fa, da)
     peak = torch.cuda.max_memory_allocated()
+    layers = ABLATION_CLI_LAYERS
     expect_launches("train --attn-type rope", recs, {
-        "flash_fwd_noncausal": 12, "flash_fwd_causal": 32,
-        "flash_bwd_lse": 28, "flash_bwd_dq": 28, "flash_bwd_dkv": 28})
+        "flash_fwd_noncausal": 12, "flash_fwd_causal": 2 * layers,
+        **{name: 12 + layers for name in fa.BWD_KERNELS}})
     readings = step_readings(recs)
     if not all(math.isfinite(x) for x in readings["loss"]
                + readings["grad_norm"]):
@@ -5753,7 +6013,7 @@ def ablation_cli_leg(torch, fa, da, tok, data: str, volume,
     demo_s = time.perf_counter() - t0
     demo_launches = read_launches(fa, da)
     want = {k: 0 for k in demo_launches}
-    want.update({"flash_fwd_noncausal": 24, "flash_fwd_causal": 16})
+    want.update({"flash_fwd_noncausal": 24, "flash_fwd_causal": layers})
     if demo_launches != want:
         raise AssertionError(f"cli demo launches {demo_launches} != {want}")
     (model, load_s), = loaded
@@ -5873,9 +6133,11 @@ def drive_ablation(torch, fa, da, volume, tmp: str, card: str) -> dict:
 # 123-126, 197-206): int8 decoder weights, the int4 KV cache, B=16 volumes,
 # the ViT over one group of 128 chunks, QWEN8B_NEW greedy tokens (bench.py's
 # 768 cut for the script's time, to 64 from 128 when the data-preparation
-# phase came). Each decode step launches K3-int4 36 times (36 layers, 32
-# query heads over 8 kv heads of 128).
-QWEN8B_BATCH, QWEN8B_NEW = 16, 64
+# phase came), the decoder at QWEN8B_SERVE_LAYERS of its 36 layers (all 36
+# until the mesh leg came, cut for the script's time: the seeded model's
+# build and every step scale with it). Each decode step launches K3-int4
+# once a layer (32 query heads over 8 kv heads of 128).
+QWEN8B_BATCH, QWEN8B_NEW, QWEN8B_SERVE_LAYERS = 16, 64, 18
 QWEN8B_HEADS = (32, 8, 128)
 # The 8B's kernel forms, D=128 at a GQA group of 4: K2 at its serving
 # prefill (16 rows of 1024, the last 900), K3-int4 at its decode (1024 +
@@ -5890,12 +6152,12 @@ QWEN8B_QLORA_CALL = dict(QWEN8B_PREFILL_CALL, b=1, lens=[QLORA_VALID])
 # with the vision tower frozen and the 'dots_no_batch' remat policy,
 # QWEN8B_QLORA_STEPS steps of B=1 at 1024 tokens from seeded weights, the
 # decoder at QWEN8B_QLORA_LAYERS of its 36 layers (all 36 until the
-# data-preparation phase came, cut for the script's time). Each step
-# launches K1 12 (the frozen ViT), K2 36 at D=128 (18 layers, the forward
-# again in the recompute: the flash Function is no aten op, so no policy
-# keeps its output) and K4a-c 18 each.
+# data-preparation phase came, 18 until the mesh leg came, cut for the
+# script's time). Each step launches K1 12 (the frozen ViT), K2 24 at
+# D=128 (12 layers, the forward again in the recompute: the flash Function
+# is no aten op, so no policy keeps its output) and K4a-c 12 each.
 QWEN8B_QLORA_STEPS, QWEN8B_TILES, QWEN8B_REMAT = 3, 8, "dots_no_batch"
-QWEN8B_QLORA_LAYERS = 18
+QWEN8B_QLORA_LAYERS = 12
 QWEN8B_QLORA_LAUNCHES = {"flash_fwd_noncausal_d64": 12,
                          "flash_fwd_causal_d128": 2 * QWEN8B_QLORA_LAYERS,
                          "flash_bwd_lse_d128": QWEN8B_QLORA_LAYERS,
@@ -5968,7 +6230,7 @@ def qwen8b_serving(torch, da, card: str) -> dict:
     then quantized: the build's peak is its fp32 size), and the 2-layer
     model at the 8B widths, int8 weights with the int4 cache, against the
     CPU's fp32 (``check_reference``) with the host memory it took."""
-    cfg = qwen8b_config()
+    cfg = qwen8b_config(layers=QWEN8B_SERVE_LAYERS)
     run = serve_and_check(torch, da, QWEN8B_NEW, QWEN8B_BATCH, "int8",
                           "int4", QUANT_MICROBATCH, card, cfg,
                           label="serve_mu2qwen3_8b")
@@ -6835,11 +7097,29 @@ TINY_EDGE_CALLS = [dict(call, causal=causal, d=d) for d in (16, 32)
                    for call in EDGE_CALLS for causal in (False, True)]
 
 
-def tiny_kernel_checks(torch, F, fa) -> tuple:
+# K3 at D=32: the tiny decoder's decode call over a quantized cache (B=2,
+# 4/2 heads of 32, prompts of TINY_DECODE_SLOTS rows with 23 valid, step 3
+# of TINY_QUANT_NEW), timed, whose (row, kv head)s are each one block's
+# (fewer visible rows than EXACT_ROWS); untimed, a 3-token prompt, and at
+# TINY_SPLIT_SLOTS + MAX_NEW slots (steps 0 and the last) one row on each
+# path, the last split over just past EXACT_ROWS visible rows: over 1024 +
+# 900 rows, 4 heads of 32 moved by less than the limits when one key was
+# added or dropped (0.0015 on the H100), and the one-key mutants must be
+# told apart.
+TINY_DECODE_HEADS = (4, 2, 32)
+TINY_SPLIT_SLOTS, TINY_SPLIT_PROMPT = 512, [400, 512]
+TINY_DECODE_SLOTS = TINY_DECODER_CALL["s"]
+TINY_QUANT_NEW = 8
+TINY_PROMPT = TINY_DECODER_CALL["lens"]
+
+
+def tiny_kernel_checks(torch, F, fa, da, attn) -> tuple:
     """The tiny forms: K1 at D=16 and K2 at D=32 at the selftest's calls,
-    K4a-c at both, timed; every form at both dims on the tile edges,
-    untimed. Returns (the timed entries, named by form, each with the
-    largest error of its form's checks; every check)."""
+    K4a-c at both, K3-int8 and K3-int4 at D=32 at the tiny decoder's
+    decode call, timed; every flash form at both dims on the tile edges and
+    K3 at D=32 on its split path, untimed. Returns (the timed entries,
+    named by form, each with the largest error of its form's checks; every
+    check)."""
     timed = {"flash_fwd_noncausal_d16": check_flash(torch, F, fa,
                                                     TINY_VIT_CALL, 90),
              "flash_fwd_causal_d32": check_flash(torch, F, fa,
@@ -6848,7 +7128,24 @@ def tiny_kernel_checks(torch, F, fa) -> tuple:
                                                      93)):
         for entry in check_flash_bwd(torch, F, fa, call, seed):
             timed[f"{entry['name']}_d{d}"] = entry
-    checks = []
+    # K1 at D=32 and K2 at D=16, which no path launches, timed at the tiny
+    # calls with the other head dim
+    checks = [check_flash(torch, F, fa, dict(TINY_VIT_CALL, d=32), 130),
+              check_flash(torch, F, fa, dict(TINY_DECODER_CALL, d=16), 131)]
+    for bits in (8, 4):
+        timed[f"{da.KERNELS[bits]}_d32"] = check_decode(
+            torch, da, attn, bits, 2, (TINY_QUANT_NEW - 1) // 2, TINY_PROMPT,
+            heads=TINY_DECODE_HEADS, new=TINY_QUANT_NEW,
+            slots=TINY_DECODE_SLOTS)
+        checks += [check_decode(torch, da, attn, bits, 2, step,
+                                TINY_SPLIT_PROMPT, timed=False,
+                                heads=TINY_DECODE_HEADS,
+                                slots=TINY_SPLIT_SLOTS)
+                   for step in (0, MAX_NEW - 1)]
+        checks.append(check_decode(torch, da, attn, bits, 2, 0, [3, 23],
+                                   timed=False, heads=TINY_DECODE_HEADS,
+                                   new=TINY_QUANT_NEW,
+                                   slots=TINY_DECODE_SLOTS))
     for i, call in enumerate(TINY_EDGE_CALLS):
         checks.append(check_flash(torch, F, fa, call, 94 + i, timed=False))
         checks += check_flash_bwd(torch, F, fa, call, 110 + i, timed=False)
@@ -7221,6 +7518,67 @@ def serve_llm_tiny_leg(torch, fa, da) -> tuple:
             "launches": launches}, launches
 
 
+def tiny_quantized_decode_leg(torch, fa, da) -> tuple:
+    """``U2ModelConfig.tiny()`` on the card in bf16: TINY_QUANT_NEW greedy
+    tokens of B=2 prompts of TINY_DECODE_SLOTS rows (TINY_PROMPT valid)
+    through ``make_multimodal_generate_fn`` over an int8 and over an int4
+    cache, K3 at D=32 once a layer a decode step; beside each, the tokens
+    of the same run with K3's plain version in the decoder's place (a
+    seeded tiny model's near-ties may part them, so they are read, not
+    held). Returns (the line, the launches by form and head dim)."""
+    from u2tokenizer_torch.config import GenerationConfig, U2ModelConfig
+    from u2tokenizer_torch.models.generate import make_multimodal_generate_fn
+    from u2tokenizer_torch.models.llm import decoder
+    from u2tokenizer_torch.models.quantize import cast_for_inference
+    from u2tokenizer_torch.models.u2_model import U2CausalLM
+
+    cfg = U2ModelConfig.tiny()
+    model = cast_for_inference(U2CausalLM(cfg, dtype=torch.bfloat16,
+                                          device="cuda", seed=0))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, s = 2, TINY_DECODE_SLOTS
+    ids = torch.randint(3, cfg.llm.vocab_size, (b, s), generator=g,
+                        device="cuda")
+    images = torch.randn(b, cfg.num_chunks, *cfg.vision.input_spatial,
+                         generator=g, device="cuda")
+    qids = torch.randint(3, cfg.llm.vocab_size, (b, 6), generator=g,
+                         device="cuda")
+    plen = torch.tensor(TINY_PROMPT, dtype=torch.int32, device="cuda")
+    gen = GenerationConfig(max_new_tokens=TINY_QUANT_NEW, eos_token_id=-2)
+    line, counts = {}, {}
+    for cache in ("int8", "int4"):
+        name = da.KERNELS[int(cache[3:])]
+        fn = make_multimodal_generate_fn(model, gen, cache_dtype=cache)
+        reset_launches(fa, da)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tokens = fn(ids, images, qids, plen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = nonzero(read_launches(fa, da, by_dim=True))
+        want = (TINY_QUANT_NEW - 1) * cfg.llm.num_layers
+        if launches.get(name) != want:
+            raise AssertionError(f"tiny {cache} cache: launches {launches}, "
+                                 f"{name} should be {want}")
+        if tokens.shape != (b, TINY_QUANT_NEW) or not bool(
+                ((tokens >= 0) & (tokens < cfg.llm.vocab_size)).all()):
+            raise AssertionError(f"tiny {cache} cache tokens {tokens}")
+        kernel = decoder.decode_attention_quantized
+        decoder.decode_attention_quantized = da.decode_attention_reference
+        try:
+            with torch.no_grad():
+                plain = fn(ids, images, qids, plen)
+        finally:
+            decoder.decode_attention_quantized = kernel
+        line[cache] = {"s": seconds, "launches": launches,
+                       "tokens_equal_plain": bool(torch.equal(tokens, plain)),
+                       "tokens_agree_plain": float(
+                           (tokens == plain).float().mean())}
+        counts[f"tiny_{cache}_cache"] = {f"{name}_d32": launches[name]}
+    return line, counts
+
+
 def crash_report_leg(torch, tmp: str, work: str) -> dict:
     """A command that fails after building its model on the card
     (``generate`` into a directory that does not exist), run through
@@ -7278,6 +7636,11 @@ def drive_dataprep(torch, fa, da, tmp: str, card: str) -> tuple:
         torch, fa, da)
     legs["serve_llm_tiny"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    line["tiny_quantized_decode"], quantized = tiny_quantized_decode_leg(
+        torch, fa, da)
+    counts.update(quantized)
+    legs["tiny_quantized_decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     line["crash_report"] = crash_report_leg(torch, tmp, work)
     legs["crash_report"] = time.perf_counter() - t0
     line["card"] = card
@@ -7288,6 +7651,8 @@ def drive_dataprep(torch, fa, da, tmp: str, card: str) -> tuple:
 
 
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == MESH_RANK_FLAG:
+        return mesh_train_rank(sys.argv[2], sys.argv[3:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--max-new", type=int, default=B4_MAX_NEW)
     parser.add_argument("--kernels-only", action="store_true",
@@ -7343,6 +7708,15 @@ def main() -> int:
         return 0
     if args.serving_repeats:
         return serving_repeats(torch, fa, da, card, args.serving_repeats)
+
+    # each phase's seconds, printed on the script_s line
+    phases_s, t_phase = {}, time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        phases_s[name] = now - t_phase
+        t_phase = now
 
     k1 = check_flash(torch, F, fa, VIT_CALL, 1)
     k2 = check_flash(torch, F, fa, PREFILL_CALL, 2)
@@ -7472,11 +7846,17 @@ def main() -> int:
     bwd_calls.update(flash_bwd_summary({"qlora_mu2qwen3_8b_d128_g4": tuple(
         q8_timed[f"{name}_d128_g4"] for name in fa.BWD_KERNELS)}))
     # the tiny forms: K1 at D=16, K2 at D=32, K4a-c at both
-    tiny_timed, tiny_checks = tiny_kernel_checks(torch, F, fa)
+    tiny_timed, tiny_checks = tiny_kernel_checks(torch, F, fa, da, attn)
     for k in list(tiny_timed.values()) + tiny_checks:
         print(json.dumps({"kernel_check": k}), flush=True)
-    print(json.dumps({"tiny_calls": {"flash_fwd": flash_fwd_summary(
-        {f: e for f, e in tiny_timed.items() if f.startswith("flash_fwd")})},
+    print(json.dumps({"tiny_calls": {
+        "flash_fwd": flash_fwd_summary({f: e for f, e in tiny_timed.items()
+                                        if f.startswith("flash_fwd")}),
+        "flash_fwd_no_path": flash_fwd_summary(
+            {f"{c['name']}_d{c['shape']['q'][-1]}": c for c in tiny_checks
+             if c["name"].startswith("flash_fwd") and c["ms"] is not None}),
+        "decode": decode_summary({f: e for f, e in tiny_timed.items()
+                                  if f.startswith("decode")})},
         "card": card}), flush=True)
     bwd_calls.update(flash_bwd_summary(
         {label: tuple(tiny_timed[f"{name}_d{d}"] for name in fa.BWD_KERNELS)
@@ -7498,6 +7878,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     if args.kernels_only:
         return 0
+    phase_done("kernel_checks")
 
     counts = {"serve": serve_and_check(
         torch, da, args.max_new, BATCH, "bf16", "int8", VISION_MICROBATCH,
@@ -7510,6 +7891,7 @@ def main() -> int:
     counts["serve_quantized"] = quant_run["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("serve")
     with tempfile.TemporaryDirectory() as tmp:
         ingest, volume = check_ingest(torch, tmp)
         ingest["card"] = card
@@ -7520,13 +7902,16 @@ def main() -> int:
         counts["report_mu2llama"] = report["launches"]
         gc.collect()
         torch.cuda.empty_cache()
+        phase_done("report")
         counts.update(drive_speculative(torch, fa, da, volume, tmp,
                                         greedy_tokens, quant_run, card))
         gc.collect()
         torch.cuda.empty_cache()
+        phase_done("speculative")
         counts.update(drive_serving(torch, fa, da, volume, tmp, card))
         gc.collect()
         torch.cuda.empty_cache()
+        phase_done("serving")
         t0 = time.perf_counter()
         green_counts, green_calls, tok = drive_green_dpo(torch, F, fa, da,
                                                          tmp, card)
@@ -7568,6 +7953,7 @@ def main() -> int:
     del volume
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("stage2_to_8b")
     print(json.dumps({"nucleus_sampler": check_nucleus_sampler(torch),
                       "card": card}), flush=True)
     llama = released_config()
@@ -7582,15 +7968,16 @@ def main() -> int:
             torch, weights, cache, base, variant)}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("reference_checks")
 
     train = drive_training(torch, fa, da, TRAIN_STEPS)
     counts["train"] = train["launches"]
     # per step: the ViT's 12 layers (not rematerialised) and the decoder's
-    # 28, forward again in the backward under remat
+    # TRAIN_LAYERS, forward again in the backward under remat
     per_step = {name: 0 for name in counts["train"]}
-    per_step.update({"flash_fwd_noncausal": 12, "flash_fwd_causal": 56,
-                     "flash_bwd_lse": 40, "flash_bwd_dq": 40,
-                     "flash_bwd_dkv": 40})
+    per_step.update({"flash_fwd_noncausal": 12,
+                     "flash_fwd_causal": 2 * TRAIN_LAYERS,
+                     **{name: 12 + TRAIN_LAYERS for name in fa.BWD_KERNELS}})
     train["card"] = card
     print(json.dumps({"train_path": train}), flush=True)
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
@@ -7599,8 +7986,10 @@ def main() -> int:
                              f"expected {want}")
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("train")
     print(json.dumps({"train_reference_check": check_train_reference(
         torch, fa)}), flush=True)
+    phase_done("train_reference")
 
     # the stage-2 and M3D phases' own calls of K2 and K4a-c, checked untimed
     for new in green_calls + m3d_calls:
@@ -7648,7 +8037,8 @@ def main() -> int:
                       "dataprep_phase_s": dataprep_s,
                       "dataprep_legs_s": dataprep_legs,
                       "qwen3_8b_phase_s": q8_s,
-                      "qwen3_8b_legs_s": q8_legs}), flush=True)
+                      "qwen3_8b_legs_s": q8_legs,
+                      "build_s": build_s, "phases_s": phases_s}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

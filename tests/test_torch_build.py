@@ -78,3 +78,17 @@ def test_flash_switches_instantiate_the_wrappers_head_dims(source):
     assert {16, 32} <= set(cases)
     assert set(fa.launches) == {f"{name}_d{d}" for d in cases
                                 for name in fa.KERNELS + fa.BWD_KERNELS}
+
+
+def test_decode_switch_instantiates_the_wrappers_head_dims():
+    """K3's head-dim switch (csrc/decode_attention.cu ``dispatch``)
+    instantiates every head dim its wrapper lets through, the tiny
+    configs' 32 among them, and no other."""
+    from u2tokenizer_torch.ops import decode_attention as da
+
+    text = (_build.CSRC / "decode_attention.cu").read_text()
+    switch = text[text.index("switch (d)"):]
+    switch = switch[:switch.index("}")]
+    cases = tuple(sorted(int(d) for d in re.findall(r"case (\d+):", switch)))
+    assert cases == da.HEAD_DIMS
+    assert 32 in cases

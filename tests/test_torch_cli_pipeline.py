@@ -177,16 +177,22 @@ def test_subcommands_need_a_gpu(name, monkeypatch):
         args.fn(args, tokenizer=MockTokenizer())
 
 
-@pytest.mark.parametrize("extra,item", [
-    # --qlora is ported; on a mesh it is refused as every mesh is (the id
-    # is the case's name from when --qlora itself was refused)
-    pytest.param(["--qlora", "int8", "--mesh-fsdp", "2"], "parallel/",
-                 id="extra0-LoRA"),
-    (["--mesh-fsdp", "2"], "parallel/"), (["--mesh-data", "4"], "parallel/")])
-def test_train_refuses_what_is_not_ported(extra, item):
+@pytest.mark.parametrize("extra,error,item", [
+    # the ids are the cases' names from when meshes were refused. --qlora
+    # returns before the mesh, as the JAX CLI's does, and gets as far as
+    # reading the (absent) data; a mesh of more than one device without a
+    # launcher is refused, naming torchrun (tests/test_torch_parallel.py
+    # runs meshes under one)
+    pytest.param(["--qlora", "int8", "--mesh-fsdp", "2"], FileNotFoundError,
+                 "x.jsonl", id="extra0-LoRA"),
+    pytest.param(["--mesh-fsdp", "2"], ValueError, "torchrun",
+                 id="extra1-parallel/"),
+    pytest.param(["--mesh-data", "4"], ValueError, "torchrun",
+                 id="extra2-parallel/")])
+def test_train_refuses_what_is_not_ported(extra, error, item):
     args = cli.build_parser().parse_args(
         SUBCOMMANDS["train"] + ["--device", "cpu"] + extra)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         args.fn(args, tokenizer=MockTokenizer())
 
 

@@ -1,0 +1,25 @@
+"""The port's sharded trainer on the mesh (1, 4, 1): parameters and AdamW
+state sharded four ways (ZeRO-3 at rest), each rank one row, against the
+JAX package's ``make_sharded_trainer`` on 4 of the 8 CPU devices
+(``tests/test_torch_parallel.py`` sets both up and holds the (1, 2, 2)
+mesh; one JAX compile a file, so that each file stays short)."""
+
+import pytest
+
+from test_torch_parallel import MESHES, check_mesh_parity, mesh_parity
+
+pytestmark = pytest.mark.fast
+
+NAME = "1x4x1"
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return mesh_parity(tmp_path_factory.mktemp("parallel_fsdp"), NAME)
+
+
+def test_mesh_1x4x1_matches_jax(runs):
+    """Loss, token_accuracy and grad_norm at every step on every rank, the
+    parameters after the steps, and each rank's bytes against a JAX
+    device's."""
+    check_mesh_parity(*runs, MESHES[NAME])

@@ -315,7 +315,7 @@ def test_cli_green_with_a_phi2_judge(tmp_path, monkeypatch):
 def test_kernel_wrappers_take_phi_head_dims(d):
     """The CUDA wrappers' operand checks, made before a launch: the flash
     forward (K1/K2) and the flash backward (K4a-c) take D in {16, 32, 64,
-    80, 96, 128}, the decode kernel (K3) D in {64, 80, 96, 128}; any other
+    80, 96, 128}, the decode kernel (K3) D in {32, 64, 80, 96, 128}; any other
     D raises."""
     from u2tokenizer_torch.ops import decode_attention as t_dec
     from u2tokenizer_torch.ops import flash_attention as t_flash

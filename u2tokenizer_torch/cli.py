@@ -1,7 +1,9 @@
 """Command-line entry points of the port (counterpart of
 ``u2tokenizer_tpu/cli.py``; its ``verify-checkpoint`` is not ported yet):
 
-  python -m u2tokenizer_torch.cli train       stage-1 SFT from a jsonl
+  python -m u2tokenizer_torch.cli train       stage-1 SFT from a jsonl, on
+                                              one card or (torchrun) a
+                                              data/fsdp/tensor mesh
   python -m u2tokenizer_torch.cli generate    CT volumes -> predictions
                                               jsonl (n samples a case)
   python -m u2tokenizer_torch.cli green       GREEN-score and sort the
@@ -171,24 +173,66 @@ def _load_pretrained_into(model, path, cfg):
 # train
 # ---------------------------------------------------------------------------
 
+def _launched() -> bool:
+    """Whether a launcher (``torchrun``) started this process as a rank."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _mesh_for(mesh_cfg, dev):
+    """(mesh, device, whether this call initialised the process group)
+    of a rank that ``torchrun`` started: cuda:LOCAL_RANK over NCCL on the
+    GPU, gloo with ``--device cpu``; the group is initialised from the
+    launcher's environment unless it already is."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    owns = not dist.is_initialized()
+    if owns:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return make_mesh(mesh_cfg, dev), dev, owns
+
+
 def cmd_train(args, tokenizer=None):
-    """Stage-1 SFT on one card: ``FusedDataset`` (training augmentations)
-    through ``DataLoader``, ``sft.make_trainer`` and
-    ``loop.run_training``. Returns the final ``TrainState``."""
+    """Stage-1 SFT: ``FusedDataset`` (training augmentations, each item's
+    drawn from the run's seed, its epoch and its index) through
+    ``DataLoader`` and ``loop.run_training``, on one card
+    (``sft.make_trainer``), or, in a process that ``torchrun`` started, on
+    the (data, fsdp, tensor) mesh of ``--mesh-data/--mesh-fsdp/
+    --mesh-tensor`` over its ranks (``sft.make_sharded_trainer``; every rank
+    reads its rows of the global batch of ``--batch-size`` x data x fsdp).
+    A mesh of more than one device without a launcher raises. ``--qlora``
+    trains on one card before any mesh, with the mesh's global batch, as
+    the JAX CLI does. Returns the final state."""
     import torch
 
     from .config import MeshConfig, TrainConfig
     from .data.datasets import DataLoader, FusedDataset
     from .models.u2_model import U2CausalLM, resolve_device
     from .train.loop import MetricLogger, run_training
-    from .train.sft import make_trainer
+    from .train.sft import make_sharded_trainer, make_trainer
 
-    if max(args.mesh_data, args.mesh_fsdp, args.mesh_tensor) > 1:
-        raise NotImplementedError(
-            "meshes need the JAX package's parallel/ module, which the "
-            "port does not have yet (ROADMAP.md queue 1, parallel/); the "
-            "port trains on one card")
+    mesh_cfg = MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
+                          tensor=args.mesh_tensor)
+    qlora = args.qlora != "off"
+    if qlora and _launched() and int(os.environ["WORLD_SIZE"]) > 1:
+        raise ValueError("--qlora trains in one process on one card (the "
+                         "JAX CLI's path before the mesh): run it without "
+                         "torchrun")
+    if not qlora and mesh_cfg.num_devices > 1 and not _launched():
+        raise ValueError(
+            f"a mesh of {mesh_cfg.num_devices} devices runs one process a "
+            "device: start it with torchrun (python -m torch.distributed.run "
+            f"--nproc-per-node {mesh_cfg.num_devices} -m u2tokenizer_torch.cli "
+            "train ...)")
     dev = resolve_device(args.device)
+    mesh, owns_group = None, False
+    if _launched() and not qlora:
+        mesh, dev, owns_group = _mesh_for(mesh_cfg, dev)
     cfg = _config_for(args, args.pretrained)
     tokenizer = tokenizer or _load_tokenizer(args.tokenizer)
     tcfg = TrainConfig(
@@ -198,18 +242,19 @@ def cmd_train(args, tokenizer=None):
         max_steps=args.max_steps,
         remat=(False if args.remat == "off" else
                True if args.remat == "nothing" else args.remat),
-        ce_chunk=args.ce_chunk,
-        mesh=MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
-                        tensor=args.mesh_tensor))
+        ce_chunk=args.ce_chunk, mesh=mesh_cfg)
 
     ds = FusedDataset(
         args.train_base_path, args.train_jsonl_path, tokenizer,
         max_length=tcfg.model_max_length, image_tokens_num=cfg.proj_out_num,
         data_type="training", num_chunks=cfg.num_chunks,
         chunk_depth=cfg.vision.input_spatial[0],
-        target_size=cfg.vision.input_spatial[1], device=dev)
-    loader = DataLoader(ds, batch_size=args.batch_size, seed=tcfg.seed,
-                        num_workers=args.num_workers)
+        target_size=cfg.vision.input_spatial[1], device=dev,
+        item_seed=tcfg.seed)
+    global_batch = args.batch_size * mesh_cfg.data * mesh_cfg.fsdp
+    loader = DataLoader(ds, batch_size=global_batch, seed=tcfg.seed,
+                        num_workers=args.num_workers,
+                        rows=mesh and mesh.batch_rows(global_batch))
     steps_per_epoch = len(loader)
     total = tcfg.max_steps or int(steps_per_epoch * tcfg.num_epochs)
 
@@ -218,19 +263,28 @@ def cmd_train(args, tokenizer=None):
                        remat=tcfg.remat)
     if args.pretrained:
         _load_pretrained_into(model, args.pretrained, cfg)
-    if args.qlora != "off":
+    if qlora:
         return _run_qlora_training(args, model, tcfg, loader, total,
                                    steps_per_epoch)
     trainable = None
     if args.freeze_vision_tower:
         trainable = lambda p: "vision_tower" not in p
-    state, train_step = make_trainer(model, tcfg, total, trainable)
-
+    if mesh is None:
+        state, train_step = make_trainer(model, tcfg, total, trainable)
+    else:
+        state, train_step, _ = make_sharded_trainer(
+            model, tcfg, total, mesh, trainable, tcfg.ce_chunk)
+    main = mesh is None or mesh.is_main
     logger = MetricLogger(tcfg.output_dir, use_wandb=args.wandb,
-                          wandb_project=args.wandb_project)
+                          wandb_project=args.wandb_project) if main else None
     state = run_training(tcfg, state, train_step, lambda epoch: iter(loader),
                          steps_per_epoch=steps_per_epoch, logger=logger)
-    print("training complete", file=sys.stderr)
+    if owns_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    if main:
+        print("training complete", file=sys.stderr)
     return state
 
 
@@ -935,8 +989,9 @@ def build_llm_server(args, tokenizer=None, seed: int = 0):
 
     if args.tensor_parallel > 1:
         raise NotImplementedError(
-            "--tensor-parallel needs the JAX package's parallel/ module, "
-            "which the port does not have yet")
+            "--tensor-parallel needs generation from parameters split over "
+            "a tensor mesh, which the port does not have yet (parallel/ "
+            "holds the training meshes only)")
     dev = resolve_device(args.device)
     if args.model_dir:  # HF checkpoint directory
         from .models.hf_weights import (convert_decoder, llm_config_from_hf,
@@ -1078,9 +1133,18 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--output-dir", default="./output/u2-sft")
     t.add_argument("--save-steps", type=int, default=2000)
     t.add_argument("--max-steps", type=int, default=None)
-    t.add_argument("--mesh-data", type=int, default=1)
-    t.add_argument("--mesh-fsdp", type=int, default=1)
-    t.add_argument("--mesh-tensor", type=int, default=1)
+    mesh_help = ("the {} dim of the (data, fsdp, tensor) mesh; a mesh of "
+                 "more than one device runs one process a device under "
+                 "torchrun (python -m torch.distributed.run "
+                 "--nproc-per-node N -m u2tokenizer_torch.cli train ...)")
+    t.add_argument("--mesh-data", type=int, default=1,
+                   help=mesh_help.format("data (replicas)"))
+    t.add_argument("--mesh-fsdp", type=int, default=1,
+                   help=mesh_help.format("fsdp (parameters and AdamW state "
+                                         "sharded)"))
+    t.add_argument("--mesh-tensor", type=int, default=1,
+                   help=mesh_help.format("tensor (the decoder's heads, MLP "
+                                         "and vocabulary split)"))
     t.add_argument("--num-workers", type=int, default=4)
     t.add_argument("--freeze-vision-tower", action="store_true")
     t.add_argument("--remat", default="nothing",

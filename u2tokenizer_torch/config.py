@@ -329,9 +329,9 @@ class GenerationConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout, carried so that training configs round-trip
-    between the two packages. The port trains on one card; meshes wait for
-    the port of ``parallel/``."""
+    """Device mesh layout: data (replicas) x fsdp (parameters and optimizer
+    state sharded) x tensor (the decoder split), one rank a device
+    (``parallel.mesh.make_mesh``)."""
 
     data: int = 1
     fsdp: int = 1

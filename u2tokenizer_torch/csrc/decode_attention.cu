@@ -39,11 +39,14 @@
 //     bytes, 64-thread blocks, and the next iteration's loads issued before
 //     this one's arithmetic all read slower on the H100). The values are
 //     made fp32 without int-to-float conversions (unpack). A row takes
-//     TPR lanes, D/16 rounded up to a power of two (4 at D=64, 8 at 80, 96
-//     and 128), so that a warp's rows form xor-shuffle groups: at D=80 and
-//     96 the first 5 or 6 lanes of a row hold its values and the others
-//     hold zero q (their loads repeat lane 0's bytes, from the same cache
-//     line, and are never stored), 62.5 % and 75 % of the lanes working.
+//     TPR lanes, D/16 rounded up to a power of two and at least 4 (4 at
+//     D=32 and 64, 8 at 80, 96 and 128), so that a warp's rows form
+//     xor-shuffle groups: at D=32, 80 and 96 the first 2, 5 or 6 lanes of
+//     a row hold its values and the others hold zero q (their loads repeat
+//     lane 0's bytes, from the same cache line, and are never stored),
+//     50 %, 62.5 % and 75 % of the lanes working. At D=32 a row is 32
+//     bytes (int8) or 16 (packed int4): two slices of 16 or 8 bytes, each
+//     at an offset aligned to its own size.
 //     Scores are reduced over the row's TPR lanes by shuffles; each warp keeps
 //     a running max and sum per query head (log2 units, MUFU.EX2) and its
 //     value sums in registers, rescaled when the max moves. The warps'
@@ -132,7 +135,7 @@ __device__ float block_reduce(float x, float* red) {
 // rows of a warp are aligned xor-shuffle groups.
 template <int D>
 struct Lanes {
-  static_assert(D % DPT == 0 && D / DPT <= 8, "D in 64, 80, 96, 128");
+  static_assert(D % DPT == 0 && D / DPT <= 8, "D in 32, 64, 80, 96, 128");
   static constexpr int active = D / DPT;
   static constexpr int per_row = active <= 4 ? 4 : 8;
 };
@@ -601,6 +604,7 @@ int dispatch(const void* q, const void* k, const void* ks, const void* v,
   const int g = h / hkv;
   if (n_split < 1 || n_split > MAX_SPLIT) return (int)cudaErrorInvalidValue;
   switch (d) {
+    case 32: return dispatch_group<BITS, 32>(g, K3_ARGS);
     case 64: return dispatch_group<BITS, 64>(g, K3_ARGS);
     case 80: return dispatch_group<BITS, 80>(g, K3_ARGS);
     case 96: return dispatch_group<BITS, 96>(g, K3_ARGS);

@@ -68,6 +68,7 @@ class FusedDataset:
         target_size: int = 256,
         seed: Optional[int] = None,
         device="cuda",
+        item_seed: Optional[int] = None,
     ):
         self.base_path = base_path
         self.tokenizer = tokenizer
@@ -79,6 +80,8 @@ class FusedDataset:
         self.return_image = return_image
         self.annotations = load_jsonl(os.path.join(base_path, jsonl_path))
         self._rng = random.Random(seed)
+        self.item_seed = item_seed
+        self.epoch = 0
 
         if return_image:
             if enable_u2tokenizer:
@@ -92,6 +95,23 @@ class FusedDataset:
 
     def __len__(self) -> int:
         return len(self.annotations)
+
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch whose items the next reads are (``DataLoader``)."""
+        self.epoch = epoch
+
+    def _item_draws(self, idx: int):
+        """With ``item_seed``, the training augmentations' draws of item
+        ``idx`` in this epoch from a generator of their own, seeded by
+        (item_seed, epoch, idx): the same whichever rank, thread or order
+        reads it (every rank of a mesh, and one process alone, augment a
+        row alike); else None, the transform's own stream."""
+        if self.item_seed is None:
+            return None
+        from .transforms import TorchDraws
+
+        key = np.random.SeedSequence([self.item_seed, self.epoch, idx])
+        return TorchDraws(int(key.generate_state(1, np.uint64)[0] >> 1))
 
     # --- tokenization helpers (reference-parity) ---
 
@@ -128,7 +148,8 @@ class FusedDataset:
                 print(f"Image file not found: {image_path}")
                 return None
             try:
-                image = self.image_transform(image_path).cpu()
+                image = self.image_transform(image_path,
+                                             self._item_draws(idx)).cpu()
             except Exception:
                 # corrupted sample: resample (fused_dataset.py:121-122)
                 return self[self._rng.randint(0, len(self) - 1)]
@@ -200,12 +221,18 @@ def collate_batch(samples: Sequence[Optional[dict]],
 class DataLoader:
     """Threaded prefetching loader over a map-style dataset: numpy's
     ``default_rng(seed + epoch)`` shuffles each epoch's order, which
-    ``process_index``/``process_count`` stride into disjoint shards."""
+    ``process_index``/``process_count`` stride into disjoint shards.
+
+    On a mesh every rank draws the same global order and batches of the
+    global ``batch_size`` (the JAX CLI's ``batch_size x data x fsdp``, one
+    JAX process over all devices), and ``rows`` (``sft.BatchSlicer.rows``)
+    picks the rank's rows of each batch, which alone are read and
+    collated."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, num_workers: int = 4,
                  process_index: int = 0, process_count: int = 1,
-                 collate_fn=collate_batch):
+                 collate_fn=collate_batch, rows: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -215,6 +242,7 @@ class DataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.collate_fn = collate_fn
+        self.rows = rows
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -230,11 +258,15 @@ class DataLoader:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(order)
         order = order[self.process_index::self.process_count]
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(self.epoch)
         self.epoch += 1
         batches = [order[i:i + self.batch_size]
                    for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.rows is not None:
+            batches = [b[self.rows] for b in batches]
         return batches
 
     def __iter__(self) -> Iterator[dict]:

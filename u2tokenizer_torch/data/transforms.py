@@ -250,11 +250,12 @@ class U2VolumeTransform:
         self.augment = augment or AugmentConfig()
         self.draws = TorchDraws(seed)
 
-    def __call__(self, path: str) -> torch.Tensor:
-        return self.from_array(_upload_nifti(path, self.device))
+    def __call__(self, path: str, draws=None) -> torch.Tensor:
+        return self.from_array(_upload_nifti(path, self.device), draws)
 
-    def from_array(self, vol) -> torch.Tensor:
-        """vol: the (X, Y, Z) voxels (nibabel's layout), numpy or torch."""
+    def from_array(self, vol, draws=None) -> torch.Tensor:
+        """vol: the (X, Y, Z) voxels (nibabel's layout), numpy or torch;
+        ``draws`` replaces the transform's own for this volume."""
         target = self.target_size
         depth = self.chunk_depth * self.num_chunks
         x = torch.as_tensor(vol).to(self.device, torch.float32)
@@ -262,7 +263,7 @@ class U2VolumeTransform:
         x = scale_intensity_range_percentiles(x)
         x = crop_foreground(x)
         if self.training:
-            x = apply_augmentations(x, self.draws, self.augment)
+            x = apply_augmentations(x, draws or self.draws, self.augment)
         x = x[0].permute(1, 2, 0)  # (X, Y, Z)
 
         ratio = min(target / x.shape[0], target / x.shape[1])
@@ -312,14 +313,15 @@ class LinearVolumeTransform:
         self.device = resolve_device(device)
         self.draws = TorchDraws(seed)
 
-    def __call__(self, path: str) -> torch.Tensor:
-        return self.from_array(_upload_nifti(path, self.device))
+    def __call__(self, path: str, draws=None) -> torch.Tensor:
+        return self.from_array(_upload_nifti(path, self.device), draws)
 
-    def from_array(self, vol) -> torch.Tensor:
-        """vol: the (X, Y, Z) voxels, numpy or torch."""
+    def from_array(self, vol, draws=None) -> torch.Tensor:
+        """vol: the (X, Y, Z) voxels, numpy or torch; ``draws`` replaces
+        the transform's own for this volume."""
         x = normalize_ct(torch.as_tensor(vol).to(self.device))
         x = crop_foreground(x)
         if self.training:
-            x = apply_augmentations(x, self.draws, AugmentConfig())
+            x = apply_augmentations(x, draws or self.draws, AugmentConfig())
         resized = resize_trilinear(x[0], self.out_shape, anti_aliasing=False)
         return resized[None].float()

@@ -32,6 +32,18 @@ chunked prefill) attends the whole cache under ``mask``, not its fresh
 K/V. On CUDA an index past the buffer is a device assert, so callers size
 the cache with the slack their blocks need.
 
+Under a mesh's tensor dim (``parallel.mesh.shard_decoder``) each rank
+holds its slice of the split weights and computes with plain local tensors
+(the kernels never see a DTensor): ``Attention`` its ``num_heads`` /
+``num_kv_heads`` local heads (the GQA group unchanged) between a
+column-parallel q/k/v and a row-parallel o_proj, ``MLP`` its columns of
+gate/up and rows of down, each summed over the group once
+(``_row_parallel``); a vocabulary-parallel embedding table looks up the
+ids in its rows and sums over the group, and the tied LM head gathers the
+ranks' vocabulary slices, so the loss takes the full-vocabulary
+logsumexp; an untied head splits the hidden dim as its rule says. The
+region operators are ``parallel.collectives``'.
+
 ``remat`` checkpoints each decoder layer while gradients are recorded, the
 counterpart of the JAX package's ``nn.remat(DecoderLayer, policy=...)``:
 True or "nothing" (``nothing_saveable``) keeps only the layer's input and
@@ -50,6 +62,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -62,6 +75,8 @@ from ...ops.attention import (gqa_sdpa, gqa_sdpa_fanout,
 from ...ops.decode_attention import decode_attention_quantized
 from ...ops.flash_attention import flash_attention
 from ...ops.rotary import apply_rope, rope_cos_sin
+from ...parallel.collectives import (copy_to_group, gather_last_from_group,
+                                     reduce_from_group, split_last_to_group)
 from ..layers import Dense, LayerNorm
 
 
@@ -313,11 +328,32 @@ def lora_args(cfg: LLMConfig) -> dict:
             "lora_scale": cfg.lora_alpha / max(cfg.lora_rank, 1)}
 
 
+def _row_parallel(dense: Dense, x: torch.Tensor, group) -> torch.Tensor:
+    """``dense(x)``; under a tensor group x holds this rank's slice of the
+    input and ``dense.weight`` the matching columns: the partial products
+    in fp32 from ``dense.dtype`` operands, summed over the group, the bias
+    added, rounded to ``dense.dtype`` once, as one product over the whole
+    contraction rounds."""
+    if group is None:
+        return dense(x)
+    dt = dense.dtype
+    y = reduce_from_group(F.linear(x.to(dt).float(),
+                                   dense.weight.to(dt).float()), group)
+    if dense.bias is not None:
+        y = y + dense.bias.to(dt).float()
+    return y.to(dt)
+
+
 class Attention(nn.Module):
+    # the tensor dim's process group when the heads are split over it
+    tp_group = None
+
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        # this rank's heads (all of them unless split over a tensor group)
+        self.num_heads, self.num_kv_heads = cfg.num_heads, cfg.num_kv_heads
         hd, e = cfg.head_dim, cfg.hidden_size
         bias, quant, lora = cfg.attention_bias, cfg.quantized_weights, \
             lora_args(cfg)
@@ -348,9 +384,11 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
-        q = self.q_proj(x).reshape(b, s, cfg.num_heads, hd)
-        k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, hd)
-        v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, hd)
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
+        q = self.q_proj(x).reshape(b, s, self.num_heads, hd)
+        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, hd)
+        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, hd)
         if cfg.qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -409,7 +447,8 @@ class Attention(nn.Module):
         else:
             out = gqa_sdpa(q, k_att.to(self.dtype), v_att.to(self.dtype),
                            mask=mask)
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * hd)), cache_kv
+        return _row_parallel(self.o_proj, out.reshape(b, s, self.num_heads * hd),
+                             self.tp_group), cache_kv
 
 
 def _slice_writer(w: int, s: int):
@@ -439,6 +478,9 @@ class MLP(nn.Module):
     """SwiGLU: down(silu(gate(x)) * up(x)); or Phi-2's fc2(gelu(fc1(x)))
     with tanh GELU (HF ``gelu_new``) and ``mlp_bias``."""
 
+    # the tensor dim's process group when the columns are split over it
+    tp_group = None
+
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
         e, m = cfg.hidden_size, cfg.intermediate_size
@@ -453,9 +495,14 @@ class MLP(nn.Module):
         self.down_proj = QDense(m, e, False, dtype, device, quant, **lora)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = self.tp_group
+        if group is not None:
+            x = copy_to_group(x, group)
         if self.gelu:
-            return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+            return _row_parallel(
+                self.fc2, F.gelu(self.fc1(x), approximate="tanh"), group)
+        return _row_parallel(
+            self.down_proj, F.silu(self.gate_proj(x)) * self.up_proj(x), group)
 
 
 class DecoderLayer(nn.Module):
@@ -537,6 +584,10 @@ class DecoderModel(nn.Module):
     ``cfg.quantized_weights`` the table is int8 (V, E) with a (V, 1) fp32
     ``embed_scale`` per row, rows rescaled on lookup, in every mode."""
 
+    # the tensor dim's process group when the table's rows (the vocabulary)
+    # are split over it
+    vocab_group = None
+
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
                  remat=False):
         super().__init__()
@@ -576,6 +627,13 @@ class DecoderModel(nn.Module):
             self.embed_tokens.normal_(0.0, 0.02, generator=generator)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.vocab_group is not None:  # this rank's rows, summed
+            n = self.embed_tokens.shape[0]
+            local = input_ids - dist.get_rank(self.vocab_group) * n
+            hit = (local >= 0) & (local < n)
+            rows = F.embedding(local.clamp(0, n - 1), self.embed_tokens)
+            return reduce_from_group(rows * hit[..., None],
+                                     self.vocab_group).to(self.dtype)
         if self.quantized:
             return (self.embed_tokens[input_ids].to(self.dtype)
                     * self.embed_scale[input_ids].to(self.dtype))
@@ -618,6 +676,10 @@ class CausalLM(nn.Module):
     With quantized weights an untied ``lm_head`` is int8 in both modes,
     as in the JAX package."""
 
+    # the tensor dim's process group when an untied head's input (hidden)
+    # dim is split over it
+    head_group = None
+
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
                  remat=False):
         super().__init__()
@@ -634,7 +696,16 @@ class CausalLM(nn.Module):
         return self.model.embed(input_ids)
 
     def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Hidden states -> fp32 vocabulary logits."""
+        """Hidden states -> fp32 vocabulary logits (all of the vocabulary
+        under a tensor group too)."""
+        vocab = self.model.vocab_group
+        if self.cfg.tie_word_embeddings and vocab is not None:
+            h = copy_to_group(hidden.float(), vocab)
+            return gather_last_from_group(
+                h @ self.model.embed_tokens.float().t(), vocab)
+        if self.head_group is not None:
+            h = split_last_to_group(hidden, self.head_group)
+            return _row_parallel(self.lm_head, h, self.head_group).float()
         if self.cfg.tie_word_embeddings:
             logits = hidden.float() @ self.model.embed_tokens.float().t()
             if self.model.quantized:  # row scales factor out of the product

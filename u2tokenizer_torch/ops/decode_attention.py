@@ -31,8 +31,9 @@ from .attention import _scalar, unpack_nibbles
 
 KERNELS = {8: "decode_attention_int8", 4: "decode_attention_int4"}
 launches = {name: 0 for name in KERNELS.values()}
-# head dims csrc/decode_attention.cu instantiates (80: Phi-2, 96: Phi-3)
-HEAD_DIMS = (64, 80, 96, 128)
+# head dims csrc/decode_attention.cu instantiates (32: the tiny configs,
+# 80: Phi-2, 96: Phi-3)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 # n_split: about TARGET_BLOCKS_PER_SM blocks of 128 threads an SM, at
 # least MIN_SPLIT_ROWS cache slots a split, and at most MAX_SPLIT (the
 # kernel's merge keeps a weight per split in shared memory). On the H100

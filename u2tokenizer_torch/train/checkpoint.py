@@ -11,6 +11,13 @@ renamed, so a killed save leaves no step directory behind. Saves are
 synchronous: the training loop waits for the write, where orbax writes in
 a background thread.
 
+A state on a mesh (``sft.ShardedTrainState``) saves the same whole
+checkpoint a one-card run writes: every rank takes the main rank's
+decision to save (``state.agree``), the whole tensors are gathered to it
+(``state.state_dict()``) and it writes them while the others wait; restore
+reads the main rank's latest step on every rank and loads it onto any mesh,
+or onto one card.
+
 ``save_params_msgpack`` and ``load_params_msgpack`` write and read a
 parameter tree in flax's msgpack form (``utils.msgpack``), the JAX
 package's single-file export (the QLoRA adapters file).
@@ -52,25 +59,29 @@ class CheckpointManager:
         when ``force``; a step already saved is not written again. Keeps the
         newest ``save_total_limit`` steps."""
         steps = self.all_steps()
-        if step in steps:
+        write = step not in steps and (force or not (
+            step % self.save_interval_steps or (steps and steps[-1] >= step)))
+        write = _agreed(state, write)
+        if not write:
             return False
-        if not force and (step % self.save_interval_steps
-                          or (steps and steps[-1] >= step)):
-            return False
-        final = os.path.join(self.directory, str(step))
-        tmp = final + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
-        os.replace(tmp, final)
-        for old in self.all_steps()[:-self.save_total_limit]:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
+        saved = state.state_dict()  # on a mesh: None but on the main rank
+        if saved is not None:
+            final = os.path.join(self.directory, str(step))
+            tmp = final + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(saved, os.path.join(tmp, STATE_FILE))
+            os.replace(tmp, final)
+            for old in self.all_steps()[:-self.save_total_limit]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+        if hasattr(state, "barrier"):
+            state.barrier()
         return True
 
     def restore(self, state: Any, step: Optional[int] = None) -> Any:
         """Load step ``step`` (the latest when None) into ``state`` in place
         and return it; None when there is no checkpoint."""
-        step = self.latest_step() if step is None else step
+        step = _agreed(state, self.latest_step() if step is None else step)
         if step is None:
             return None
         saved = torch.load(os.path.join(self.directory, str(step),
@@ -81,6 +92,11 @@ class CheckpointManager:
 
     def close(self) -> None:
         """Nothing is in flight: saves are synchronous."""
+
+
+def _agreed(state: Any, value):
+    """The main rank's ``value`` for a state on a mesh; else ``value``."""
+    return state.agree(value) if hasattr(state, "agree") else value
 
 
 def save_params_msgpack(path: str, params: Any) -> None:

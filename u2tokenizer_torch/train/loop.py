@@ -4,6 +4,12 @@
 Epoch and step accounting, metric logging (stdout + metrics.jsonl; wandb
 optional), periodic saves with auto-resume and an in-epoch skip of the
 batches a resumed run already consumed, and eval-time token accuracy.
+
+Under a mesh (a ``sft.ShardedTrainState``) every rank runs the loop on its
+rows: the step's metrics are already reduced over the ranks
+(``parallel.collectives.reduce_dict`` inside the sharded step), the main
+rank alone logs, and checkpoints are gathered to it and written by it
+(``checkpoint.CheckpointManager``).
 """
 
 from __future__ import annotations
@@ -97,9 +103,12 @@ def run_training(
 
     data_iter_fn(epoch) -> iterable of host batches (dicts of arrays); they
     are copied to ``device`` (the model's by default). Auto-resumes from the
-    latest checkpoint in cfg.output_dir/checkpoints.
+    latest checkpoint in cfg.output_dir/checkpoints. On a mesh only the main
+    rank logs (``logger`` is not used on the others).
     """
-    logger = logger or MetricLogger(cfg.output_dir)
+    main = getattr(state, "is_main", True)
+    if main:
+        logger = logger or MetricLogger(cfg.output_dir)
     device = device or next(state.model.parameters()).device
     ckpt = CheckpointManager(
         os.path.join(cfg.output_dir, "checkpoints"),
@@ -138,15 +147,17 @@ def run_training(
         for batch in device_prefetch(data_iter, device):
             state, metrics = train_step(state, batch)
             step += 1
-            if step % cfg.log_steps == 0:
+            if step % cfg.log_steps == 0 and main:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 dt = time.time() - t_last
                 metrics["steps_per_s"] = cfg.log_steps / dt
                 t_last = time.time()
                 logger.log(step, metrics)
             if eval_fn is not None and eval_steps and step % eval_steps == 0:
-                logger.log(step, {f"eval_{k}": v
-                                  for k, v in eval_fn(state).items()})
+                evaluated = eval_fn(state)
+                if main:
+                    logger.log(step, {f"eval_{k}": v
+                                      for k, v in evaluated.items()})
             ckpt.save(step, state)
             if total_steps is not None and step >= total_steps:
                 done = True

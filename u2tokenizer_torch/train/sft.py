@@ -1,5 +1,6 @@
 """Stage-1 SFT: loss, optimizer and train step (counterpart of
-``u2tokenizer_tpu/train/sft.py``) on one card.
+``u2tokenizer_tpu/train/sft.py``), on one card (``make_trainer``) or on a
+(data, fsdp, tensor) mesh of ranks (``make_sharded_trainer``).
 
 The JAX package's semantics, kept exactly:
   * the shifted causal LM loss with ``IGNORE_INDEX`` masking, in fp32;
@@ -20,9 +21,17 @@ Training runs on fp32 parameters with the model's bf16 compute
 Joint report and segmentation training (the reference's seg_enable
 collator): ``make_seg_loss_fn`` adds each row's BCE + Dice of the SegVol
 head's mask logits, gated by ``has_seg``, to the LM loss;
-``make_seg_train_step`` takes AdamW steps on it. Not ported yet: meshes
-(``make_sharded_trainer``; ``make_trainer`` is the single-card
-counterpart).
+``make_seg_train_step`` takes AdamW steps on it.
+
+On a mesh (``parallel.mesh``) each rank runs the step on its rows of the
+global batch with the decoder split over the tensor dim and the fsdp
+dim's parameters gathered for the step, and the JAX package's global
+numbers come out: the loss is the sum over every rank's valid tokens over
+the global count of valid tokens, all-reduced before the division (a mean
+of the ranks' means differs whenever their rows hold different numbers of
+valid tokens), each rank's gradients are of its share of that loss and
+summed over the ranks that hold other rows, and ``grad_norm`` is the norm
+over the whole, sharded, gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -40,6 +50,12 @@ from ..config import TrainConfig
 from ..weights import trainable_names
 
 IGNORE_INDEX = -100  # label mask value (src/dataset/fused_dataset.py:180-186)
+
+
+def valid_count(labels: torch.Tensor) -> torch.Tensor:
+    """The shifted targets' valid positions: the loss's denominator before
+    its clamp at 1."""
+    return (labels[:, 1:] != IGNORE_INDEX).sum()
 
 
 def _token_terms(logits, targets):
@@ -57,9 +73,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
     """Shifted causal LM loss with IGNORE_INDEX masking: logits (B, S, V),
     labels (B, S); logits[t] predicts labels[t+1]. Returns (loss, token
     accuracy)."""
-    targets = labels[:, 1:]
-    nll, correct = _token_terms(logits[:, :-1], targets)
-    n = (targets != IGNORE_INDEX).sum().clamp(min=1)
+    nll, correct = _token_terms(logits[:, :-1], labels[:, 1:])
+    n = valid_count(labels).clamp(min=1)
     return nll / n, correct / n
 
 
@@ -69,6 +84,16 @@ def chunked_cross_entropy_from_hidden(apply_logits, hidden: torch.Tensor,
     positions at a time, each chunk checkpointed, so that the (B, S, V)
     logits are never held whole in the forward or the backward. Same numbers
     up to summation order. ``apply_logits(h (B, c, E)) -> (B, c, V)``."""
+    nll, correct = chunked_token_terms(apply_logits, hidden, labels, chunk)
+    n = valid_count(labels).clamp(min=1)
+    return nll / n, correct / n
+
+
+def chunked_token_terms(apply_logits, hidden: torch.Tensor,
+                        labels: torch.Tensor, chunk: int = 128):
+    """(sum of -log p(target), count correct) over the valid shifted
+    targets, ``chunk`` positions at a time (``chunked_cross_entropy_from_
+    hidden``'s numerator)."""
     if chunk <= 0:
         raise ValueError(f"ce_chunk must be > 0, got {chunk}")
     hidden = hidden[:, :-1]
@@ -82,8 +107,7 @@ def chunked_cross_entropy_from_hidden(apply_logits, hidden: torch.Tensor,
                                       use_reentrant=False)
         nll = nll + c_nll
         correct = correct + c_correct
-    n = (targets != IGNORE_INDEX).sum().clamp(min=1)
-    return nll / n, correct / n
+    return nll, correct
 
 
 def make_schedule(cfg: TrainConfig, total_steps: int) -> Callable[[int], float]:
@@ -186,26 +210,39 @@ class TrainState:
         self.step = saved["step"]
 
 
-def make_loss_fn(ce_chunk: int = 0):
-    """loss_fn(model, batch) -> (loss, {"loss", "token_accuracy"}).
-    ce_chunk > 0 computes the loss from hidden states in sequence chunks
-    (chunked_cross_entropy_from_hidden)."""
+def lm_token_terms(model, batch: Dict[str, torch.Tensor], ce_chunk: int = 0):
+    """(sum of -log p(target), count correct) of a batch's valid shifted
+    targets: from the logits, or with ce_chunk > 0 from hidden states in
+    sequence chunks (chunked_token_terms)."""
+    if ce_chunk:
+        embeds = model.prepare_inputs_embeds(
+            batch["input_ids"], batch.get("images"),
+            batch.get("question_ids"))
+        _, hidden, _ = model.forward_embeds(
+            embeds, batch.get("attention_mask"), compute_logits=False)
+        return chunked_token_terms(model.lm_logits, hidden, batch["labels"],
+                                   ce_chunk)
+    logits, _, _ = model(batch["input_ids"], batch.get("images"),
+                         batch.get("question_ids"),
+                         attention_mask=batch.get("attention_mask"))
+    return _token_terms(logits[:, :-1], batch["labels"][:, 1:])
+
+
+def make_loss_fn(ce_chunk: int = 0, count: Optional[Callable] = None):
+    """loss_fn(model, batch) -> (loss, {"loss", "token_accuracy"}): the sum
+    over the valid tokens over their count. ce_chunk > 0 computes the loss
+    from hidden states in sequence chunks (chunked_cross_entropy_from_
+    hidden). ``count`` maps the batch's valid count to the denominator (a
+    mesh's all-reduce over the ranks of the global batch)."""
 
     def loss_fn(model, batch: Dict[str, torch.Tensor]):
-        if ce_chunk:
-            embeds = model.prepare_inputs_embeds(
-                batch["input_ids"], batch.get("images"),
-                batch.get("question_ids"))
-            _, hidden, _ = model.forward_embeds(
-                embeds, batch.get("attention_mask"), compute_logits=False)
-            loss, acc = chunked_cross_entropy_from_hidden(
-                model.lm_logits, hidden, batch["labels"], ce_chunk)
-        else:
-            logits, _, _ = model(batch["input_ids"], batch.get("images"),
-                                 batch.get("question_ids"),
-                                 attention_mask=batch.get("attention_mask"))
-            loss, acc = cross_entropy_loss(logits, batch["labels"])
-        return loss, {"loss": loss.detach(), "token_accuracy": acc}
+        nll, correct = lm_token_terms(model, batch, ce_chunk)
+        n = valid_count(batch["labels"])
+        if count is not None:
+            n = count(n)
+        n = n.clamp(min=1)
+        loss = nll / n
+        return loss, {"loss": loss.detach(), "token_accuracy": correct / n}
 
     return loss_fn
 
@@ -255,12 +292,179 @@ def make_train_step(model: nn.Module, trainable_filter=None,
 
 def make_trainer(model: nn.Module, cfg: TrainConfig, total_steps: int,
                  trainable_filter=None):
-    """(TrainState, train_step) for ``model`` on its device: the
-    single-card counterpart of the JAX package's ``make_sharded_trainer``;
-    the model is built (and seeded) by the caller."""
+    """(TrainState, train_step) for ``model`` on its device, one card
+    (``make_sharded_trainer`` is the mesh's, as in the JAX package); the
+    model is built (and seeded) by the caller."""
     optimizer = make_optimizer(cfg, model.parameters(), total_steps)
     state = TrainState(step=0, model=model, optimizer=optimizer)
     return state, make_train_step(model, trainable_filter, cfg.ce_chunk)
+
+
+class ShardedTrainState:
+    """The training state on a mesh: the step, the tensor-split model, the
+    ``parallel.mesh.ShardedParams`` that hold its parameters and the AdamW
+    ``Optimizer`` over their flat buffers. ``state_dict`` gives what a
+    one-card ``TrainState`` gives for the same numbers, whole tensors in
+    its names and order (on the main rank; None on the others), so a
+    checkpoint written on any mesh loads on one card or on another mesh
+    (``load_state_dict``). Both are collectives: every rank calls them."""
+
+    def __init__(self, model: nn.Module, optimizer: Optimizer,
+                 store, mesh):
+        self.step = 0
+        self.model = model
+        self.optimizer = optimizer
+        self.store = store
+        self.mesh = mesh
+
+    @property
+    def is_main(self) -> bool:
+        return self.mesh.is_main
+
+    def agree(self, value):
+        """The main rank's ``value`` on every rank."""
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+    def state_dict(self) -> Optional[dict]:
+        store = self.store
+        params = store.full({k: b for k, b in store.buffers.items()})
+        adamw = self.optimizer.adamw
+        saved = adamw.state_dict()
+        order = [store.buffers[k] for k in store.KINDS]
+        per_param = {}
+        if adamw.state:
+            moments = {key: store.full({k: adamw.state[store.buffers[k]][key]
+                                        for k in store.KINDS})
+                       for key in ("exp_avg", "exp_avg_sq")}
+            step = adamw.state[order[0]]["step"]
+            per_param = {i: {"step": step.clone(),
+                             "exp_avg": moments["exp_avg"][n],
+                             "exp_avg_sq": moments["exp_avg_sq"][n]}
+                         for i, n in enumerate(store.names)}
+        groups = [{**g, "params": list(range(len(store.names)))}
+                  for g in saved["param_groups"]]
+        acc = self.optimizer.acc
+        if acc is not None:
+            full = store.full(dict(zip(store.KINDS, acc)))
+            acc = [full[n] for n in store.names]
+        if not self.is_main:
+            return None
+        return {"step": self.step, "model": params,
+                "optimizer": {"adamw": {"state": per_param,
+                                        "param_groups": groups},
+                              "mini_step": self.optimizer.mini_step,
+                              "gradient_step": self.optimizer.gradient_step,
+                              "acc": acc}}
+
+    def load_state_dict(self, saved: dict) -> None:
+        store = self.store
+        store.load_full(saved["model"])
+        opt = saved["optimizer"]
+        state = {}
+        per_param = opt["adamw"]["state"]
+        if per_param:
+            by_name = {n: per_param[i] for i, n in enumerate(store.names)}
+            moments = {key: store.local({n: v[key] for n, v in
+                                         by_name.items()})
+                       for key in ("exp_avg", "exp_avg_sq")}
+            state = {j: {"step": per_param[0]["step"].clone(),
+                         "exp_avg": moments["exp_avg"][k],
+                         "exp_avg_sq": moments["exp_avg_sq"][k]}
+                     for j, k in enumerate(store.KINDS)}
+        groups = [{**g, "params": list(range(len(store.KINDS)))}
+                  for g in opt["adamw"]["param_groups"]]
+        self.optimizer.adamw.load_state_dict({"state": state,
+                                              "param_groups": groups})
+        self.optimizer.mini_step = opt["mini_step"]
+        self.optimizer.gradient_step = opt["gradient_step"]
+        acc = opt["acc"]
+        if acc is not None:
+            local = store.local(dict(zip(store.names, acc)))
+            acc = [local[k] for k in store.KINDS]
+        self.optimizer.acc = acc
+        self.step = saved["step"]
+
+
+class BatchSlicer:
+    """A global batch (every rank draws the same one) -> this rank's rows:
+    [k*b, (k+1)*b) with k = data_index * fsdp + fsdp_index (the JAX
+    package's ``data_sharding``); ``rows(n)`` is that slice of n rows."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def rows(self, global_rows: int) -> slice:
+        return self.mesh.batch_rows(global_rows)
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
+        n = len(next(iter(batch.values())))
+        rows = self.rows(n)
+        return {k: v[rows] for k, v in batch.items()}
+
+
+def make_sharded_trainer(model: nn.Module, cfg: TrainConfig,
+                         total_steps: int, mesh, trainable_filter=None,
+                         ce_chunk: int = 0):
+    """(state, train_step, batch_slicer) for ``model`` on ``mesh``
+    (``parallel.mesh.make_mesh``): the counterpart of the JAX package's
+    ``make_sharded_trainer``. Every rank builds the same whole model (the
+    same seed, or ``--pretrained`` loaded into it) and calls this; the
+    decoder is split over the tensor dim (``shard_decoder``), the
+    parameters and their AdamW state placed by the JAX package's rules
+    (``ShardedParams``). ``train_step(state, batch)`` takes this rank's
+    rows (``batch_slicer(global_batch)``) and returns the global metrics
+    (``reduce_dict`` over the ranks): loss and token_accuracy over the
+    global batch, grad_norm over the whole gradient. ``trainable_filter``
+    and ``ce_chunk`` as for ``make_trainer``."""
+    from ..parallel.collectives import all_reduce_sum, reduce_dict
+    from ..parallel.mesh import ShardedParams, placements, shard_decoder
+
+    if trainable_filter is not None:
+        set_trainable(model, trainable_filter)
+    places = placements(model, mesh.shape)
+    partial = shard_decoder(model, mesh, places)
+    store = ShardedParams(model, mesh, places, partial)
+    optimizer = Optimizer([store.buffers[k] for k in store.KINDS],
+                          make_schedule(cfg, total_steps), cfg.weight_decay,
+                          cfg.grad_accum_steps)
+    state = ShardedTrainState(model, optimizer, store, mesh)
+    rows_group = mesh.group("data,fsdp")
+    count = None
+    if mesh.size("data,fsdp") > 1:
+        count = lambda n: all_reduce_sum(n, rows_group)
+    loss_fn = make_loss_fn(ce_chunk, count)
+    main_tensor_rank = float(mesh.coords["tensor"] == 0)
+
+    def train_step(state: ShardedTrainState, batch):
+        store.gather()
+        try:
+            loss, metrics = loss_fn(state.model, batch)
+            live = [p for p in store.params if p.requires_grad]
+            got = iter(torch.autograd.grad(loss, live, allow_unused=True,
+                                           materialize_grads=True))
+            grads = [next(got) if p.requires_grad else None
+                     for p in store.params]
+        finally:
+            store.release()
+        flat = store.reduce_grads(grads)
+        del grads
+        # every tensor rank holds the same share of the loss: rank 0's counts
+        parts = {"loss": metrics["loss"] * main_tensor_rank,
+                 "token_accuracy": metrics["token_accuracy"].float()
+                 * main_tensor_rank,
+                 "grad_norm": store.square_norm_part(flat)}
+        metrics = reduce_dict(parts, mesh.group("world"), average=False)
+        metrics["grad_norm"] = metrics["grad_norm"].sqrt()
+        state.optimizer.update([flat[k] for k in store.KINDS])
+        state.step += 1
+        return state, metrics
+
+    return state, train_step, BatchSlicer(mesh)
 
 
 def make_seg_loss_fn(seg_weight: float = 1.0):
